@@ -1,0 +1,32 @@
+"""distributed_processor_tpu_torch: the PyTorch + CUDA port of
+``distributed_processor_tpu``.
+
+The JAX package beside it is the reference; this package imports
+neither JAX nor anything of it, and keeps its own copy of the numpy
+compile stack.  Layers, named as in the JAX package:
+
+* :mod:`.isa`, :mod:`.hwconfig`, :mod:`.elements`, :mod:`.envelopes`,
+  :mod:`.qchip`, :mod:`.ir`, :mod:`.compiler`, :mod:`.assembler`,
+  :mod:`.decoder`, :mod:`.pipeline`, :mod:`.models` — the compile stack
+  (copied numpy code): dict program -> ``MachineProgram``
+* :mod:`.sim.interpreter` — the batched generic ISA engine in torch
+* :mod:`.sim.physics` — the physics-closed epoch loop (parity device)
+* :mod:`.ops.resolve` — the readout resolver: a hand-written CUDA kernel
+  (``csrc/resolve.cu``) and its plain torch version
+* :mod:`.parallel` — per-batch statistics and the single-device sweep
+
+Entry points (``simulate_batch``, ``run_physics_batch``,
+``run_physics_sweep``) run on CUDA unless given ``device=``.
+"""
+
+__version__ = '0.1.0'
+
+from . import isa
+from .hwconfig import FPGAConfig, load_channel_configs
+from .elements import TPUElementConfig
+from .qchip import QChip
+from .compiler import Compiler, CompilerFlags, get_passes
+from .assembler import GlobalAssembler
+from .decoder import (MachineProgram, decode_assembled_program,
+                      machine_program_from_arrays, machine_program_to_arrays)
+from .pipeline import compile_program, compile_to_machine

@@ -1,0 +1,3 @@
+from .waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, carrier_phase
+from .resolve import (build_fused_tables, resolve_windows_fused,
+                      resolve_windows_reference)

@@ -1,0 +1,96 @@
+"""The torch port stands alone: no JAX, nothing of the JAX package.
+
+A static scan of the imports of every module of
+``distributed_processor_tpu_torch`` and of ``chip_smoke.py``: the test
+process has JAX loaded already, so ``sys.modules`` proves nothing.  Also
+pins that the entry points default to CUDA and raise without it.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, 'distributed_processor_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'distributed_processor_tpu')
+
+
+def _sources():
+    paths = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _dirs, files in os.walk(PORT):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith('.py')]
+    return sorted(paths)
+
+
+def _imported_modules(path):
+    """Absolute module names a file imports (relative imports resolve
+    inside the port and are skipped)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split('.')[0]
+    return top in FORBIDDEN
+
+
+def test_port_has_sources():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    for want in ('chip_smoke.py',
+                 'distributed_processor_tpu_torch/sim/interpreter.py',
+                 'distributed_processor_tpu_torch/sim/physics.py',
+                 'distributed_processor_tpu_torch/ops/resolve.py',
+                 'distributed_processor_tpu_torch/parallel/driver.py'):
+        assert want in names
+    assert os.path.exists(os.path.join(PORT, 'csrc', 'resolve.cu'))
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f'{os.path.relpath(path, ROOT)} imports {bad}'
+
+
+def test_forbidden_name_rule():
+    assert _forbidden('jax.numpy') and _forbidden('jaxlib')
+    assert _forbidden('distributed_processor_tpu.isa')
+    assert not _forbidden('distributed_processor_tpu_torch.isa')
+    assert not _forbidden('torch')
+
+
+def _tiny_program():
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    from distributed_processor_tpu_torch import isa
+    return machine_program_from_cmds([[isa.done_cmd()]])
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('this host has CUDA: the default device is usable')
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_batch
+    from distributed_processor_tpu_torch.sim.physics import (
+        ReadoutPhysics, run_physics_batch)
+    from distributed_processor_tpu_torch.parallel import run_physics_sweep
+    mp = _tiny_program()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        run_physics_batch(mp, ReadoutPhysics(), 0, 4)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        simulate_batch(mp, np.zeros((4, 1, 1), np.int32))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        run_physics_sweep(mp, ReadoutPhysics(), 8, 4)
+    # the explicit CPU device runs
+    out = simulate_batch(mp, np.zeros((4, 1, 1), np.int32), device='cpu')
+    assert bool(out['done'].all())
