@@ -9,8 +9,11 @@ compile stack.  Layers, named as in the JAX package:
   :mod:`.qchip`, :mod:`.ir`, :mod:`.compiler`, :mod:`.assembler`,
   :mod:`.decoder`, :mod:`.pipeline`, :mod:`.models` — the compile stack
   (copied numpy code): dict program -> ``MachineProgram``
-* :mod:`.sim.interpreter` — the batched generic ISA engine in torch
+* :mod:`.sim.interpreter` — the engine ladder, the batched generic ISA
+  engine and the straight-line engine in torch
 * :mod:`.sim.physics` — the physics-closed epoch loop (parity device)
+* :mod:`.ops.exec_span` — the span kernels K1 and K3 (hand-written CUDA,
+  ``csrc/exec_span.cu``), whose plain version is the straight-line engine
 * :mod:`.ops.resolve` — the readout resolver: a hand-written CUDA kernel
   (``csrc/resolve.cu``) and its plain torch version
 * :mod:`.parallel` — per-batch statistics and the single-device sweep

@@ -75,6 +75,28 @@ def build_fused_tables(env_pads, basis, W: int, interps,
     }
 
 
+def build_energy_tables(env_pads, addrs, W: int, interps, lane: int = 128):
+    """Per-address envelope energy rows for the sigma = 0 readout of the
+    span kernel K3 (``engine='fused'``): the clamped hold-last envelope
+    of :func:`build_fused_tables` collapsed to ``|env|^2`` over the static
+    envelope start addresses ``addrs``.
+
+    Returns ``[C, R, Wp]`` float32 with
+    ``E2[c, r, s] = |env[c, min(addrs[r] + s // interp_c, Lp - 1)]|^2``,
+    ``Wp`` = W rounded up to ``lane`` (the JAX package's layout)."""
+    env_i, env_q = env_pads                               # [C, Lp] each
+    env2 = env_i * env_i + env_q * env_q
+    C, Lp = env2.shape
+    s = np.arange(_round_up(W, lane), dtype=np.int64)
+    rows = []
+    for c in range(C):
+        it = max(int(interps[c]), 1)
+        idx = np.minimum(np.asarray(addrs, np.int64)[:, None]
+                         + s[None, :] // it, Lp - 1)      # [R, Wp]
+        rows.append(env2[c][torch.as_tensor(idx, device=env2.device)])
+    return torch.stack(rows, 0).to(torch.float32)
+
+
 def _window_base(addr, rows, Lp: int):
     """Start row of each window: the static row equal to its address
     (row 0 when none is), or the address clipped into the table."""

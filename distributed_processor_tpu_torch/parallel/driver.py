@@ -76,7 +76,7 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
         raise FaultError(acc['fault_shots'])
     return {
         'shots': total_shots,
-        'engine': resolve_engine(mp, cfg),
+        'engine': resolve_engine(mp, cfg, device),
         'mean_pulses': acc['pulse_sum'] / total_shots,
         'meas1_rate': acc['meas1_sum'] / total_shots,
         'survival00_rate': float(acc['allzero_sum'] / clean)

@@ -1,26 +1,33 @@
 """Batched PyTorch interpreter for the distributed-processor ISA: the
-generic fetch-dispatch engine.
+generic fetch-dispatch engine, the straight-line engine and the engine
+ladder.
 
 Counterpart of ``distributed_processor_tpu/sim/interpreter.py`` (the
-JAX engine, which is the reference).  Every core of every shot advances
-one *instruction* per step, with the machine state held in int32 tensors
-shaped ``[n_shots, n_cores, ...]``; the sync barrier and the measurement
-(fproc) fabric are masked reductions over the core axis each step
-(reference gateware: hdl/sync_iface.sv, hdl/fproc_meas.sv,
-hdl/core_state_mgr.sv).
+JAX engine, which is the reference).  The machine state is held in int32
+tensors shaped ``[n_shots, n_cores, ...]``.
 
-What differs from the JAX engine is only the formulation: the step loop
-is a Python ``while`` whose condition is read with one ``.item()`` per
-step, and dynamic indexing (program fetch by pc, register reads, fproc
-producer selection) uses ``torch.gather``/indexing where the JAX engine
-uses one-hot multiply-reduce for the TPU's vector unit.  The contract is
-identical integers: every output key, ``err`` and ``fault`` included,
-matches the JAX ``engine='generic'`` run on the same injected bits
-(tests/test_torch_interpreter.py).
+* The generic engine advances every core of every shot one *instruction*
+  per step; the sync barrier and the measurement (fproc) fabric are
+  masked reductions over the core axis each step (reference gateware:
+  hdl/sync_iface.sv, hdl/fproc_meas.sv, hdl/core_state_mgr.sv).  The
+  step loop is a Python ``while`` read with one ``.item()`` per step.
+* The straight-line engine (:func:`_exec_straightline`) makes one pass
+  over a forward-jump-only program, index by index.  It is the plain
+  version of the span kernels K1 (``engine='pallas'``) and K3
+  (``engine='fused'``, :mod:`.physics`), ``csrc/exec_span.cu``.
+* :func:`resolve_engine` is the JAX package's ladder; ``'auto'`` picks
+  the K1 kernel on a CUDA device where the JAX package picks its Pallas
+  kernel on a TPU.
 
-Scope of this engine: the parity device and physics mode, the
-``'sticky'`` and ``'fresh'`` fabrics.  Everything else raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Dynamic indexing uses ``torch.gather`` where the JAX engine uses one-hot
+multiply-reduce for the TPU's vector unit.  The contract is identical
+integers: every output key, ``err`` and ``fault`` included, matches the
+JAX run of the same engine on the same injected bits
+(tests/test_torch_interpreter.py, tests/test_torch_straightline.py).
+
+Scope: the parity device and physics mode, the ``'sticky'`` and
+``'fresh'`` fabrics.  Everything else raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import isa
+from ..ops.exec_span import exec_span
 
 # timing constants of the scalar golden model (the JAX package's
 # sim/oracle.py): program start time, sync release -> qclk zero, rdlo
@@ -138,8 +146,8 @@ class InterpreterConfig:
     in both packages.  Fields that select an engine or feature this
     package does not port yet raise when a run uses them; the carry
     layout knobs (``steps_per_iter``, ``packed_ctrl``,
-    ``pallas_interpret``, ``packed_carry``) leave the generic engine's
-    results unchanged and are accepted as no-ops."""
+    ``pallas_interpret``, ``packed_carry``) leave every engine's results
+    unchanged and are accepted as no-ops."""
     max_steps: int = 4096
     max_pulses: int = 256
     max_meas: int = 64
@@ -173,25 +181,294 @@ class InterpreterConfig:
     pulse_load_clks: int = 3
 
 
+# ---------------------------------------------------------------------------
+# The engine ladder — the JAX package's, rule for rule, so that both
+# packages pick the same engine for the same program and config.
+
 ENGINES = ('auto', 'generic', 'block', 'straightline', 'pallas', 'fused')
 
+# AUTO straight-line cap: the JAX package unrolls the program into one
+# module, whose compile time outgrows the run-time win past this size
+SL_AUTO_MAX_INSTR = 256
+# AUTO block-mode cap on the total deduplicated superinstruction length
+BLOCK_AUTO_MAX_UNROLL = 512
+# device types where 'auto' considers the megastep kernel, which exists
+# only on the card (the JAX package's _PALLAS_AUTO_BACKENDS = ('tpu',))
+_PALLAS_AUTO_DEVICES = ('cuda',)
 
-def resolve_engine(mp, cfg: InterpreterConfig) -> str:
-    """The engine a run takes.  The generic engine is the only one this
-    package has: ``engine=None``/``'generic'``/``'auto'`` with
-    ``straightline`` None or False resolve to it (the JAX package holds
-    every engine bit-identical to the generic one); the specialized
-    engines raise."""
-    if cfg.engine is not None and cfg.engine not in ENGINES:
-        raise ValueError(f'unknown engine {cfg.engine!r}; one of '
-                         f'{ENGINES} or None')
-    if cfg.engine == 'straightline' or cfg.straightline is True:
-        raise not_ported('the straight-line engine', 1)
-    if cfg.engine == 'block':
-        raise not_ported('the block engine', 8)
-    if cfg.engine in ('pallas', 'fused'):
-        raise not_ported(f'engine={cfg.engine!r} (the megastep kernel)', 5)
-    return 'generic'
+
+def _soa_np(mp) -> np.ndarray:
+    """The decoded program as one packed ``[C, N, F]`` int32 array,
+    columns in :data:`_FIELDS` order."""
+    return np.stack([np.asarray(getattr(mp.soa, f)) for f in _FIELDS],
+                    axis=-1).astype(np.int32)
+
+
+def use_straightline(mp, cfg: InterpreterConfig) -> bool:
+    """Resolve the tri-state ``cfg.straightline`` against ``mp``."""
+    if cfg.straightline is False:
+        return False
+    reason = straightline_ineligible(mp, cfg)
+    if cfg.straightline is True:
+        if reason:
+            raise ValueError(f'straightline=True but the program is '
+                             f'ineligible: {reason}')
+        return True
+    return reason is None and mp.n_instr <= SL_AUTO_MAX_INSTR
+
+
+def straightline_ineligible(mp, cfg: InterpreterConfig) -> str:
+    """Why ``(mp, cfg)`` cannot run on the straight-line engine
+    (:func:`_exec_straightline`) — ``None`` when it can.
+
+    Eligible programs are forward-jump-only (no loops), SYNC-free,
+    DONE-terminated, with fproc reads only of the core's own sticky
+    channel — the compiled active-reset + RB shape."""
+    if cfg.trace:
+        return 'trace mode records per-step state'
+    if cfg.physics and cfg.device == 'statevec':
+        return 'statevec device (event-ordering gate needs the ' \
+               'generic engine)'
+    return _sl_ineligible_fields(np.asarray(mp.soa.kind),
+                                 np.asarray(mp.soa.jump_addr),
+                                 np.asarray(mp.soa.func_id), cfg)
+
+
+def _sl_ineligible_fields(kind, jump_addr, func_id,
+                          cfg: InterpreterConfig) -> str:
+    """The straight-line shape checks of :func:`straightline_ineligible`
+    on ``[C, N]`` field arrays, shared with :func:`_pallas_mode` so that
+    dispatch and eligibility cannot drift."""
+    C, N = kind.shape
+    if np.any(kind == isa.K_SYNC):
+        return 'SYNC barrier'
+    idx = np.arange(N)[None, :]
+    jmask = (kind == isa.K_JUMP_I) | (kind == isa.K_JUMP_COND) \
+        | (kind == isa.K_JUMP_FPROC)
+    if np.any(jmask & (jump_addr <= idx)):
+        return 'backward jump (loop)'
+    fmask = (kind == isa.K_ALU_FPROC) | (kind == isa.K_JUMP_FPROC)
+    if np.any(fmask):
+        if cfg.fabric == 'sticky':
+            if np.any(fmask & (func_id != np.arange(C)[:, None])):
+                return 'cross-core fproc read'
+        elif cfg.fabric == 'lut':
+            raise not_ported("span-mode fproc reads under fabric='lut'", 2)
+        else:
+            return f'fabric {cfg.fabric!r} with fproc reads'
+    if np.any(kind[:, -1] != isa.K_DONE):
+        return 'program not DONE-terminated'
+    return None
+
+
+def block_ineligible(mp, cfg: InterpreterConfig) -> str:
+    """Why ``(mp, cfg)`` cannot run on the JAX package's block engine —
+    ``None`` when it can (trace mode and the statevec gate only)."""
+    if cfg.trace:
+        return 'trace mode records per-instruction-step state'
+    if cfg.physics and cfg.device == 'statevec':
+        return 'statevec device (event-ordering gate needs the ' \
+               'generic engine)'
+    return None
+
+
+def pallas_ineligible(mp, cfg: InterpreterConfig) -> str:
+    """Why ``(mp, cfg)`` cannot run on the megastep engine
+    (``engine='pallas'``) — ``None`` when it can: the straight-line rules
+    or the block rules, minus trace mode and physics mode (the device
+    co-state and the epoch resolver stay with the other engines)."""
+    if cfg.trace:
+        return 'trace mode records per-step state'
+    if cfg.physics:
+        return 'physics mode (device co-state + epoch resolver run ' \
+               'on the XLA engines)'
+    if straightline_ineligible(mp, cfg) is None:
+        return None
+    return block_ineligible(mp, cfg)
+
+
+def fused_ineligible(mp, cfg: InterpreterConfig) -> str:
+    """Why ``(mp, cfg)`` cannot run on the measure-in-megastep engine
+    (``engine='fused'``) — ``None`` when it can: physics-closed runs on
+    the parity device, span-shaped programs whose measurement count has
+    a static bound within ``max_meas``, no CW windows.  The readout
+    model's own gates (sigma = 0 and the rest) live in
+    :func:`..sim.physics.run_physics_batch`."""
+    if not cfg.physics:
+        return ('injected-bits run (no readout window to demodulate) '
+                '— the fused engine closes the physics loop; run via '
+                'sim.physics.run_physics_batch')
+    if cfg.device != 'parity':
+        return (f'device {cfg.device!r} (the in-kernel discriminator '
+                f'consumes the parity quarter-turn co-state)')
+    if cfg.cw_horizon > 0:
+        return 'CW measurement windows (cw_horizon > 0) have no ' \
+               'static length'
+    if cfg.trace:
+        return 'trace mode records per-step state'
+    reason = _sl_ineligible_fields(np.asarray(mp.soa.kind),
+                                   np.asarray(mp.soa.jump_addr),
+                                   np.asarray(mp.soa.func_id), cfg)
+    if reason:
+        return reason
+    mb, _ = _static_meas_bounds(_soa_np(mp), cfg)
+    if mb is None:
+        return 'measurement count not statically boundable'
+    if mb > cfg.max_meas:
+        return (f'static measurement bound {mb} exceeds max_meas='
+                f'{cfg.max_meas} (overflow re-resolves the last slot '
+                f'with epoch-boundary ordering)')
+    return None
+
+
+_JUMP_KINDS = (isa.K_JUMP_I, isa.K_JUMP_COND, isa.K_JUMP_FPROC)
+
+
+def _possibly_meas_mask(soa_np, cfg: InterpreterConfig):
+    """``[C, N]`` bool: True where the index is a ``K_PULSE_TRIG`` whose
+    latched cfg nibble can select ``cfg.meas_elem`` — a forward
+    possible-values analysis of the nibble (init 0; a register-sourced
+    cfg write is any value) over the forward-only program.  A False
+    trigger is provably a drive pulse.  ``None`` when a backward edge
+    makes the single ascending pass invalid."""
+    kind = soa_np[..., _F['kind']]
+    C, N = kind.shape
+    out = np.zeros((C, N), dtype=bool)
+    for c in range(C):
+        k = kind[c]
+        wen = soa_np[c, :, _F['p_wen']]
+        rsel = soa_np[c, :, _F['p_regsel']]
+        pcfg = soa_np[c, :, _F['p_cfg']]
+        ja = soa_np[c, :, _F['jump_addr']]
+        is_p = np.isin(k, (isa.K_PULSE_WRITE, isa.K_PULSE_TRIG))
+        jump_preds = [[] for _ in range(N)]
+        for i in np.nonzero(np.isin(k, _JUMP_KINDS))[0]:
+            t = int(ja[i])
+            if 0 <= t < N:
+                jump_preds[t].append(int(i))
+        outs = [frozenset()] * N   # None = any nibble
+        for i in range(N):
+            s, top = (frozenset((0,)), False) if i == 0 \
+                else (frozenset(), False)
+            srcs = []
+            if i > 0 and int(k[i - 1]) not in (isa.K_JUMP_I, isa.K_DONE):
+                srcs.append(outs[i - 1])
+            for jp in jump_preds[i]:
+                if jp >= i:
+                    return None                  # backward edge
+                srcs.append(outs[jp])
+            for o in srcs:
+                if o is None:
+                    top = True
+                else:
+                    s = s | o
+            own = None if top else s
+            if is_p[i] and (int(wen[i]) >> 4) & 1:
+                own = None if (int(rsel[i]) >> 4) & 1 \
+                    else frozenset((int(pcfg[i]) & 0xf,))
+            outs[i] = own
+            if int(k[i]) == isa.K_PULSE_TRIG and (
+                    own is None
+                    or any((v & 3) == cfg.meas_elem for v in own)):
+                out[c, i] = True
+    return out
+
+
+def _static_meas_bounds(soa_np, cfg: InterpreterConfig):
+    """``(meas_bound, reset_bound)``: per-core worst-case counts of
+    measurement pulses and phase resets one span execution can retire
+    (``meas_bound`` None when a backward edge voids the analysis)."""
+    kind = soa_np[..., _F['kind']]
+    C = kind.shape[0]
+    n_rst = int(max((int(np.sum(kind[c] == isa.K_PULSE_RESET))
+                     for c in range(C)), default=0))
+    pm = _possibly_meas_mask(soa_np, cfg)
+    if pm is None:
+        return None, n_rst
+    bound = int(max((int(pm[c].sum()) for c in range(C)), default=0))
+    return bound, n_rst
+
+
+def _block_unroll_ok(mp) -> bool:
+    """The block engine's ``'auto'`` size cap: at least one deduplicated
+    superinstruction body (:func:`isa.build_block_table`), and their
+    total length within :data:`BLOCK_AUTO_MAX_UNROLL`."""
+    soa_np = _soa_np(mp)
+    _, bodies = isa.build_block_table(
+        {name: soa_np[:, :, _F[name]] for name in _FIELDS})
+    return bool(bodies) and sum(L for _, L in bodies) \
+        <= BLOCK_AUTO_MAX_UNROLL
+
+
+def resolve_engine(mp, cfg: InterpreterConfig, device=None) -> str:
+    """Resolve ``cfg.engine`` against the program: the engine ladder of
+    the JAX package.  ``device``: the torch device of the run (default
+    CUDA, as for the entry points).
+
+    ``None`` follows the ``cfg.straightline`` tri-state (straight-line
+    vs generic); ``'generic'``/``'straightline'``/``'block'``/
+    ``'pallas'``/``'fused'`` force an engine and raise ``ValueError``
+    with the reason when the program is ineligible; ``'auto'`` picks
+    ``'pallas'`` on a CUDA device where eligible under the same size
+    caps as the rung it subsumes, then ``'straightline'``, then
+    ``'block'``, else ``'generic'``.  ``cores_axis`` is not ported."""
+    eng = cfg.engine
+    if cfg.cores_axis is not None:
+        raise not_ported('cores_axis', 9)
+    if eng is None:
+        return 'straightline' if use_straightline(mp, cfg) else 'generic'
+    if eng == 'generic':
+        return 'generic'
+    if eng == 'straightline':
+        reason = straightline_ineligible(mp, cfg)
+        if reason:
+            raise ValueError(f"engine='straightline' but the program "
+                             f"is ineligible: {reason}")
+        return 'straightline'
+    if eng == 'block':
+        reason = block_ineligible(mp, cfg)
+        if reason:
+            raise ValueError(f"engine='block' but the program is "
+                             f"ineligible: {reason}")
+        return 'block'
+    if eng == 'pallas':
+        reason = pallas_ineligible(mp, cfg)
+        if reason:
+            raise ValueError(f"engine='pallas' but the program is "
+                             f"ineligible: {reason}")
+        return 'pallas'
+    if eng == 'fused':
+        reason = fused_ineligible(mp, cfg)
+        if reason:
+            raise ValueError(f"engine='fused' (measure-in-megastep) "
+                             f"but the program/config is ineligible: "
+                             f"{reason}")
+        return 'fused'
+    if eng == 'auto':
+        sl_ok = straightline_ineligible(mp, cfg) is None
+        dev_type = torch.device('cuda' if device is None else device).type
+        if dev_type in _PALLAS_AUTO_DEVICES \
+                and pallas_ineligible(mp, cfg) is None:
+            if sl_ok and mp.n_instr <= SL_AUTO_MAX_INSTR:
+                return 'pallas'
+            if not sl_ok and _block_unroll_ok(mp):
+                return 'pallas'
+        if sl_ok and mp.n_instr <= SL_AUTO_MAX_INSTR:
+            return 'straightline'
+        if block_ineligible(mp, cfg) is None and _block_unroll_ok(mp):
+            return 'block'
+        return 'generic'
+    raise ValueError(f'unknown engine {eng!r}; one of {ENGINES} or None')
+
+
+def _pallas_mode(mp, cfg: InterpreterConfig) -> str:
+    """Which shape the megastep engine runs ``mp`` in: ``'span'`` (the
+    whole forward-jump-only program as one kernel launch) or ``'block'``
+    (superinstruction bodies inside the block engine's loop)."""
+    span = _sl_ineligible_fields(np.asarray(mp.soa.kind),
+                                 np.asarray(mp.soa.jump_addr),
+                                 np.asarray(mp.soa.func_id), cfg) is None
+    return 'span' if span else 'block'
 
 
 def _check_fabric(cfg: InterpreterConfig) -> None:
@@ -202,18 +479,23 @@ def _check_fabric(cfg: InterpreterConfig) -> None:
                          f"'sticky', 'fresh', 'lut'")
 
 
-def check_supported(mp, cfg: InterpreterConfig) -> None:
-    """Raise for what this slice of the port leaves out."""
-    resolve_engine(mp, cfg)
+def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
+    """Resolve the engine of a run on ``device`` and raise for what this
+    slice of the port leaves out; returns the engine."""
+    eng = resolve_engine(mp, cfg, device)
     _check_fabric(cfg)
     if cfg.trace:
         raise not_ported('trace=True', 12)
     if cfg.physics and cfg.device != 'parity':
         raise not_ported(f'device={cfg.device!r}', 4)
-    if cfg.cores_axis is not None:
-        raise not_ported('cores_axis', 9)
     if cfg.rounds != 1:
         raise not_ported(f'rounds={cfg.rounds}', 8)
+    if eng == 'block':
+        raise not_ported('the block engine', 8)
+    if eng == 'pallas' and _pallas_mode(mp, cfg) == 'block':
+        raise not_ported("engine='pallas' on a looping program (the "
+                         "megastep kernel's block mode)", 8)
+    return eng
 
 
 def program_traits(mp) -> tuple:
@@ -230,9 +512,7 @@ def _program_constants(mp, device):
     """The decoded program as device tensors: the packed ``[C, N, F]``
     instruction table, per-element samples-per-clock and interpolation
     ``[C, E]``, and the sync participants ``[C]``."""
-    soa = torch.as_tensor(np.stack(
-        [np.asarray(getattr(mp.soa, f)) for f in _FIELDS], axis=-1)
-        .astype(np.int32), device=device)
+    soa = torch.as_tensor(_soa_np(mp), device=device)
     n_cores = mp.n_cores
     max_elems = max((len(t.elem_cfgs) for t in mp.tables), default=0) or 1
     spc = np.ones((n_cores, max_elems), dtype=np.int32)
@@ -324,6 +604,18 @@ def _slot_mask(idx, n: int):
     """``[...] -> [..., n]`` bool mask of slot ``idx``."""
     return idx.unsqueeze(-1) == torch.arange(n, dtype=idx.dtype,
                                              device=idx.device)
+
+
+def _parity_pulse(qturns, cfg: InterpreterConfig, fire, elem, pp):
+    """The parity device's co-state at a pulse trigger, shared by the
+    generic and straight-line engines: each drive pulse adds
+    ``round(amp / x90)`` quarter turns; the state bit is the half-turn
+    parity.  Returns ``(qturns, state_bit)``."""
+    if cfg.x90_amp > 0:
+        x90 = cfg.x90_amp
+        dq = torch.div(2 * pp[..., 3] + x90, 2 * x90, rounding_mode='floor')
+        qturns = qturns + torch.where(fire & (elem == cfg.drive_elem), dq, 0)
+    return qturns, (qturns >> 1) & 1
 
 
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
@@ -506,16 +798,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         else:
             # a CW readout window has no length to demodulate
             cw_meas_err = _bit(is_meas_pulse & (env_len == 0xfff), ERR_CW_MEAS)
-        # parity device: each drive pulse adds round(amp / x90) quarter
-        # turns; the state bit is the half-turn parity
-        qturns = st['qturns']
-        if cfg.x90_amp > 0:
-            x90 = cfg.x90_amp
-            dq = torch.div(2 * pp[..., 3] + x90, 2 * x90,
-                           rounding_mode='floor')
-            qturns = qturns + torch.where(fire & (elem == cfg.drive_elem),
-                                          dq, 0)
-        state_bit = (qturns >> 1) & 1
+        qturns, state_bit = _parity_pulse(st['qturns'], cfg, fire, elem, pp)
         upd.update(
             qturns=qturns,
             meas_state=torch.where(mwr, state_bit[..., None],
@@ -664,6 +947,329 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     return st, steps, paused
 
 
+# ---------------------------------------------------------------------------
+# The straight-line engine: one pass over a forward-jump-only program, the
+# plain torch version of the span kernels K1 and K3 (csrc/exec_span.cu).
+
+
+def _exec_straightline(st0: dict, soa_np, spc, interp, meas_bits,
+                       meas_valid, cfg: InterpreterConfig,
+                       fused: dict = None) -> dict:
+    """One pass over a forward-jump-only program ``soa_np [C, N, F]``.
+
+    Each lane carries ``pc`` = next instruction index; a lane executes
+    index ``i`` iff ``pc == i``, and jumps only go forward, so one pass
+    over the indices in order retires every lane.  A physics-mode fproc
+    read whose own bit is still invalid stalls the lane for the pass
+    (``phys_wait``): the epoch resolver validates the bit and the next
+    pass resumes at the same index.  The caller counts the pass as ``N``
+    steps, as the JAX engine does.
+
+    ``fused``: the sigma = 0 readout tables (:func:`_sl_apply_instr`);
+    then ``meas_bits``/``meas_valid`` ride in ``st0`` as state and the
+    arguments are ignored."""
+    N = soa_np.shape[1]
+    st = dict(st0)
+    stalled = torch.zeros(st['pc'].shape, dtype=torch.bool,
+                          device=st['pc'].device)
+    for i in range(N):
+        f = {name: soa_np[:, i, _F[name]] for name in _FIELDS}
+        if fused is not None:
+            meas_bits, meas_valid = st['meas_bits'], st['meas_valid']
+        st, stalled = _sl_apply_instr(st, stalled, i, N, f, spc, interp,
+                                      meas_bits, meas_valid, cfg, fused)
+    if cfg.physics:
+        st['phys_wait'] = stalled
+    return st
+
+
+def _reg_read_static(regs, addr_c):
+    """``regs[..., addr_c[c]]`` per core for a static address per core;
+    an address outside the register file reads 0."""
+    B, C, _ = regs.shape
+    addr = np.asarray(addr_c)
+    ok = (addr >= 0) & (addr < isa.N_REGS)
+    idx = torch.as_tensor(np.where(ok, addr, 0), device=regs.device)
+    val = regs.gather(-1, idx.long()[None, :, None].expand(B, C, 1))[..., 0]
+    return torch.where(torch.as_tensor(ok, device=regs.device)[None],
+                       val, 0)
+
+
+def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
+                    interp, meas_bits, meas_valid, cfg: InterpreterConfig,
+                    fused: dict = None):
+    """Apply instruction index ``i`` (static fields ``f``, one value per
+    core) to every lane with ``pc == i`` — the JAX ``_sl_apply_instr``.
+    Returns ``(st, stalled)``.
+
+    ``fused``: the measure-in-megastep directive (K3's plain version):
+    a measurement trigger also computes its window's sigma = 0 bit
+    (:func:`_fused_window_energy`, :func:`_fused_discriminate`) and
+    writes it into ``st['meas_bits']``/``st['meas_valid']``."""
+    st = dict(st)
+    B, C = st['pc'].shape
+    dev = st['pc'].device
+    i32 = torch.int32
+    kind = f['kind']
+    m_pw, m_pt = kind == isa.K_PULSE_WRITE, kind == isa.K_PULSE_TRIG
+    m_rst, m_idle = kind == isa.K_PULSE_RESET, kind == isa.K_IDLE
+    m_regalu, m_incq = kind == isa.K_REG_ALU, kind == isa.K_INC_QCLK
+    m_jmpi, m_jcond = kind == isa.K_JUMP_I, kind == isa.K_JUMP_COND
+    m_jfp, m_afp = kind == isa.K_JUMP_FPROC, kind == isa.K_ALU_FPROC
+    m_done = kind == isa.K_DONE
+    m_fproc = m_jfp | m_afp
+    m_alu = m_regalu | m_incq | m_jcond | m_fproc
+    has = lambda m: bool(np.any(m))
+
+    def j(a):
+        """A static per-core value as a ``[1, C, ...]`` tensor."""
+        return torch.as_tensor(np.asarray(a), device=dev)[None]
+
+    active = (st['pc'] == i) & ~st['done'] & ~stalled
+    time, offset, regs = st['time'], st['offset'], st['regs']
+    err_i = torch.zeros((B, C), dtype=i32, device=dev)
+    fault_i = torch.zeros((B, C), dtype=i32, device=dev)
+    # an out-of-ISA kind retires as a no-op: trap it
+    m_bad = (kind < 0) | (kind >= isa.N_KINDS)
+    if has(m_bad):
+        fault_i = fault_i | _bit(j(m_bad), FAULT_ILLEGAL_OP)
+
+    # ---- fproc: own-core sticky read (eligibility guarantees) ----------
+    if has(m_fproc):
+        req = time
+        mavail = st['meas_avail']
+        m_cnt = (mavail <= req[..., None]).sum(-1, dtype=i32)
+        latest = (m_cnt - 1).clamp(min=0)
+        latest_valid = (m_cnt == 0) | _take(meas_valid, latest)
+        f_data = torch.where(m_cnt > 0, _take(meas_bits, latest), 0)
+        f_race = ((mavail > (req - STICKY_RACE_MARGIN)[..., None])
+                  & (mavail <= (req + STICKY_RACE_MARGIN)[..., None])
+                  ).any(-1)
+        stall_i = active & j(m_fproc) & ~latest_valid
+        stalled = stalled | stall_i
+        active = active & ~stall_i
+
+    # ---- ALU -----------------------------------------------------------
+    alu_res = torch.zeros((B, C), dtype=i32, device=dev)
+    if has(m_alu):
+        in0 = j(f['imm']).expand(B, C)
+        if np.any(f['in0_is_reg'][m_alu]):
+            in0 = torch.where(j(f['in0_is_reg'] == 1),
+                              _reg_read_static(regs, f['in0_reg']), in0)
+        in1 = torch.zeros((B, C), dtype=i32, device=dev)
+        if np.any(m_regalu | m_jcond):
+            in1 = _reg_read_static(regs, f['in1_reg'])
+        if has(m_incq):
+            in1 = torch.where(j(m_incq), time - offset, in1)
+        if has(m_fproc):
+            in1 = torch.where(j(m_fproc), f_data, in1)
+        alu_res = _alu_vec(j(f['alu_op']), in0, in1)
+        if np.any(m_regalu | m_afp):
+            wr = active & j(m_regalu | m_afp)
+            wr_oh = np.asarray(f['out_reg'])[:, None] \
+                == np.arange(isa.N_REGS)[None, :]
+            regs = torch.where(wr[..., None] & j(wr_oh), alu_res[..., None],
+                               regs)
+            st['regs'] = regs
+
+    # ---- pulse latch + trigger -----------------------------------------
+    pp = st['pp']
+    if has(m_pw | m_pt):
+        is_pulse = active & j(m_pw | m_pt)
+        pmasks = np.asarray(_PMASKS, np.int32)
+        imm_vals = np.stack([f['p_env'], f['p_phase'], f['p_freq'],
+                             f['p_amp'], f['p_cfg']], -1) & pmasks  # [C, 5]
+        wen = ((f['p_wen'][:, None] >> np.arange(5)) & 1) == 1
+        if np.any(f['p_regsel']):
+            rsel = ((f['p_regsel'][:, None] >> np.arange(5)) & 1) == 1
+            regval = _reg_read_static(regs, f['p_reg'])
+            cand = torch.where(j(rsel), regval[..., None] & j(pmasks),
+                               j(imm_vals))
+        else:
+            cand = j(imm_vals)
+        pp = torch.where(is_pulse[..., None] & j(wen), cand, pp)
+        st['pp'] = pp
+
+    if has(m_pt):
+        cmd_time = j(f['cmd_time']).expand(B, C)         # uint32 bit pattern
+        trig = _wrap32(offset.long() + cmd_time.long())
+        fire = active & j(m_pt)
+        err_i = err_i | _bit(fire & (trig < time), ERR_MISSED_TRIG)
+        trig = torch.maximum(trig, time)
+        elem = pp[..., 4] & 0b11
+        elem_idx = elem.clamp(max=spc.shape[1] - 1).long()[..., None]
+        spc_e = spc.expand(B, C, -1).gather(-1, elem_idx)[..., 0]
+        interp_e = interp.expand(B, C, -1).gather(-1, elem_idx)[..., 0]
+        env_len = (pp[..., 0] >> 12) & 0xfff
+        nsamp = env_len * 4 * interp_e
+        dur = torch.where(env_len == 0xfff, 0,
+                          torch.div(nsamp + spc_e - 1, spc_e,
+                                    rounding_mode='floor'))
+        over = fire & (st['n_pulses'] >= cfg.max_pulses)
+        err_i = err_i | _bit(over, ERR_PULSE_OVERFLOW)
+        fault_i = fault_i | _bit(over, FAULT_PULSE_OVERFLOW)
+        if cfg.record_pulses:
+            rec_vals = torch.stack(
+                [cmd_time, trig, pp[..., 0], pp[..., 1], pp[..., 2],
+                 pp[..., 3], pp[..., 4], elem, dur], dim=-1)   # [B, C, 9]
+            pwrite = _slot_mask(st['n_pulses'].clamp(max=cfg.max_pulses - 1),
+                                cfg.max_pulses) \
+                & (fire & (st['n_pulses'] < cfg.max_pulses))[..., None]
+            st['rec'] = torch.where(pwrite[:, :, None, :],
+                                    rec_vals[..., None], st['rec'])
+        st['n_pulses'] = st['n_pulses'] + fire.to(i32)
+
+        is_meas = fire & (elem == cfg.meas_elem)
+        mover = is_meas & (st['n_meas'] >= cfg.max_meas)
+        err_i = err_i | _bit(mover, ERR_MEAS_OVERFLOW)
+        fault_i = fault_i | _bit(mover, FAULT_MEAS_OVERFLOW)
+        mwr = _slot_mask(st['n_meas'].clamp(max=cfg.max_meas - 1),
+                         cfg.max_meas) & is_meas[..., None]
+        meas_avail = torch.where(
+            mwr, (trig + dur + cfg.meas_latency)[..., None],
+            st['meas_avail'])
+        if cfg.physics and cfg.cw_horizon > 0:
+            cw_clks = torch.div(cfg.cw_horizon + spc_e - 1, spc_e,
+                                rounding_mode='floor')
+            meas_avail = torch.where(
+                mwr & (env_len == 0xfff)[..., None],
+                (trig + cw_clks + cfg.meas_latency)[..., None], meas_avail)
+        elif cfg.physics:
+            err_i = err_i | _bit(is_meas & (env_len == 0xfff), ERR_CW_MEAS)
+        st['meas_avail'] = meas_avail
+        st['n_meas'] = st['n_meas'] + is_meas.to(i32)
+
+        if cfg.physics:
+            st['qturns'], state_bit = _parity_pulse(st['qturns'], cfg, fire,
+                                                    elem, pp)
+            for key, val in (('meas_state', state_bit),
+                             ('meas_amp', pp[..., 3]),
+                             ('meas_phase', pp[..., 1]),
+                             ('meas_freq', pp[..., 2]),
+                             ('meas_env', pp[..., 0]),
+                             ('meas_gtime', trig)):
+                st[key] = torch.where(mwr, val[..., None], st[key])
+            if fused is not None:
+                energy = _fused_window_energy(fused, pp, nsamp, env_len)
+                bit = _fused_discriminate(fused, energy, state_bit)
+                st['meas_bits'] = torch.where(mwr, bit[..., None],
+                                              st['meas_bits'])
+                st['meas_valid'] = st['meas_valid'] | mwr
+
+    # ---- phase reset / idle --------------------------------------------
+    if has(m_rst):
+        is_rst = active & j(m_rst)
+        rmask = _slot_mask(st['n_resets'].clamp(max=cfg.max_resets - 1),
+                           cfg.max_resets) & is_rst[..., None]
+        st['rst_time'] = torch.where(rmask, time[..., None], st['rst_time'])
+        fault_i = fault_i | _bit(is_rst & (st['n_resets'] >= cfg.max_resets),
+                                 FAULT_RESET_OVERFLOW)
+        st['n_resets'] = st['n_resets'] + is_rst.to(i32)
+    if has(m_idle):
+        is_idle = active & j(m_idle)
+        idle_end = _wrap32(offset.long() + j(f['cmd_time']).long())
+        err_i = err_i | _bit(is_idle & (time > idle_end), ERR_MISSED_TRIG)
+        idle_end = torch.maximum(idle_end, time)
+
+    # ---- race flag on the proceeding read ------------------------------
+    if has(m_fproc):
+        err_i = err_i | _bit(active & j(m_fproc) & f_race, ERR_STICKY_RACE)
+
+    if 'op_hist' in st:
+        oh_kind = kind[:, None] == np.arange(isa.N_KINDS)[None, :]
+        st['op_hist'] = st['op_hist'] \
+            + (active[..., None] & j(oh_kind)).to(i32)
+
+    # ---- next pc / time / offset / done --------------------------------
+    pc_next = torch.full((B, C), i + 1, dtype=i32, device=dev)
+    m_jump = m_jmpi | m_jcond | m_jfp
+    if has(m_jump):
+        branch = (alu_res & 1) == 1
+        taken = j(m_jmpi) | (j(m_jcond | m_jfp) & branch)
+        pc_next = torch.where(taken, j(f['jump_addr']), pc_next)
+        # a taken jump past the program end leaves the lane undone: trap
+        m_oob = (f['jump_addr'] < 0) | (f['jump_addr'] >= N)
+        if has(m_oob & m_jump):
+            st['fault'] = st['fault'] \
+                | _bit(active & taken & j(m_oob), FAULT_JUMP_OOB)
+    st['pc'] = torch.where(active & ~j(m_done), pc_next, st['pc'])
+    time_next = time
+    if has(m_pt):
+        time_next = torch.where(j(m_pt), trig + cfg.pulse_load_clks,
+                                time_next)
+    if has(m_pw | m_rst):
+        time_next = torch.where(j(m_pw | m_rst),
+                                time + cfg.pulse_regwrite_clks, time_next)
+    if has(m_idle):
+        time_next = torch.where(j(m_idle), idle_end + cfg.pulse_load_clks,
+                                time_next)
+    if has(m_regalu | m_incq):
+        time_next = torch.where(j(m_regalu | m_incq),
+                                time + cfg.alu_instr_clks, time_next)
+    if has(m_jmpi | m_jcond):
+        time_next = torch.where(j(m_jmpi | m_jcond),
+                                time + cfg.jump_cond_clks, time_next)
+    if has(m_fproc):
+        # the sticky own-core read is served at the request time
+        time_next = torch.where(j(m_fproc), time + cfg.jump_fproc_clks,
+                                time_next)
+    st['time'] = torch.where(active, time_next, time)
+    if has(m_incq):
+        st['offset'] = torch.where(
+            active & j(m_incq), _wrap32(time.long() - alu_res.long()),
+            offset)
+    st['err'] = st['err'] | torch.where(active, err_i, 0)
+    st['fault'] = st['fault'] | torch.where(active, fault_i, 0)
+    st['done'] = st['done'] | (active & j(m_done))
+    return st, stalled
+
+
+# chunk (DAC samples) of the plain version's masked energy sum: bounds
+# its [B, C, chunk] float32 intermediate
+_FUSED_ENERGY_CHUNK = 512
+
+
+def _fused_window_energy(fused: dict, pp, nsamp, env_len):
+    """Window energy ``amp^2 * sum_{s < count} e2[c, row, s]`` of the
+    measurement pulse latched in ``pp`` — the scale of the sigma = 0
+    matched-filter sums (the carrier's unit magnitude drops out).
+    ``fused['e2']`` ``[C, R, Wp]`` holds the energy rows of the static
+    envelope addresses ``fused['addrs']`` (:func:`..ops.resolve.
+    build_energy_tables`); a CW window has count 0."""
+    e2 = fused['e2']
+    Wp = e2.shape[2]
+    count = torch.where(env_len == 0xfff, 0, nsamp.clamp(max=fused['w']))
+    addr = (pp[..., 0] & 0xfff) * 4
+    chunk = min(int(fused.get('chunk') or _FUSED_ENERGY_CHUNK), Wp)
+    tot = torch.zeros(addr.shape, dtype=torch.float32, device=addr.device)
+    for r, a in enumerate(fused['addrs']):
+        acc = torch.zeros_like(tot)
+        for s0 in range(0, Wp, chunk):
+            blk = e2[:, r, s0:s0 + chunk]                        # [C, L]
+            s = s0 + torch.arange(blk.shape[1], device=addr.device)
+            m = s[None, None, :] < count[..., None]
+            acc = acc + torch.where(m, blk[None], 0.0).sum(-1)
+        tot = tot + torch.where(addr == a, acc, 0.0)
+    amp = pp[..., 3].to(torch.float32) / fused['amp_scale']
+    return amp * amp * tot
+
+
+def _fused_discriminate(fused: dict, energy, state_bit):
+    """2-class threshold of the sigma = 0 sums ``g_s * E``: the
+    projection of :func:`..sim.physics._discriminate_acc`.  With
+    ``E >= 0`` its sign depends only on which response scaled it, so the
+    bit does not depend on the order in which ``E`` was summed."""
+    g0b, g1b = fused['g0'][None], fused['g1'][None]          # [1, C, 2]
+    gs = torch.where(state_bit[..., None] == 1, g1b, g0b)    # [B, C, 2]
+    acc_i = gs[..., 0] * energy
+    acc_q = gs[..., 1] * energy
+    a0_i, a0_q = g0b[..., 0] * energy, g0b[..., 1] * energy
+    a1_i, a1_q = g1b[..., 0] * energy, g1b[..., 1] * energy
+    proj = (acc_i - (a0_i + a1_i) / 2) * (a1_i - a0_i) \
+        + (acc_q - (a0_q + a1_q) / 2) * (a1_q - a0_q)
+    return (proj > 0).to(torch.int32)
+
+
 def _finalize(st: dict, steps: int, cfg: InterpreterConfig) -> dict:
     dev = st['pc'].device
     if cfg.record_pulses:
@@ -723,7 +1329,12 @@ def simulate_batch(mp, meas_bits, init_regs=None,
     and ``incomplete``."""
     device = torch_device(device)
     cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
-    check_supported(mp, cfg)
+    eng = check_supported(mp, cfg, device)
+    if eng == 'fused':
+        raise ValueError(
+            "engine='fused' demodulates measurement windows in-kernel; "
+            'the injected-bits entry points have no window — run via '
+            'sim.physics.run_physics_batch')
     cfg, strict = _fault_policy(cfg)
     soa, spc, interp, sync_part = _program_constants(mp, device)
     meas_bits = _pad_meas(torch.as_tensor(meas_bits, dtype=torch.int32,
@@ -731,8 +1342,19 @@ def simulate_batch(mp, meas_bits, init_regs=None,
     B = meas_bits.shape[0]
     st = _init_state(B, mp.n_cores, cfg, init_regs, device)
     meas_valid = torch.ones(meas_bits.shape, dtype=torch.bool, device=device)
-    paused = torch.zeros((B,), dtype=torch.bool, device=device)
-    st, steps, _ = _exec_loop(st, 0, paused, soa, spc, interp, sync_part,
-                              meas_bits, meas_valid, cfg, program_traits(mp))
+    if eng == 'generic':
+        paused = torch.zeros((B,), dtype=torch.bool, device=device)
+        st, steps, _ = _exec_loop(st, 0, paused, soa, spc, interp, sync_part,
+                                  meas_bits, meas_valid, cfg,
+                                  program_traits(mp))
+    else:
+        # one pass retires every lane: every injected bit is valid
+        soa_np = _soa_np(mp)
+        if eng == 'straightline':
+            st = _exec_straightline(st, soa_np, spc, interp, meas_bits,
+                                    meas_valid, cfg)
+        else:   # 'pallas', span mode: the K1 kernel
+            st = exec_span(st, soa_np, spc, interp, meas_bits, cfg)
+        steps = soa_np.shape[1]
     st.pop('phys_wait', None)
     return _check_strict(_finalize(st, steps, cfg), strict)

@@ -5,21 +5,24 @@ closes its measurement loop in hardware (rdlo pulse -> demodulator ->
 ``meas``/``meas_valid`` -> fproc fabric; reference:
 hdl/core_state_mgr.sv:45-56).  Here, as in the JAX package, each epoch
 
-1. **executes** every (shot, core) lane on the interpreter until it is
-   done or stalled on an fproc read whose bit is fired but not yet
-   demodulated;
+1. **executes** every (shot, core) lane on the resolved engine (generic,
+   or one straight-line pass) until it is done or stalled on an fproc
+   read whose bit is fired but not yet demodulated;
 2. **resolves** the first fired-but-unresolved readout window of every
    lane through the per-sample chain (:mod:`..ops.resolve`: the CUDA
    kernel on the card, its plain torch version on the CPU) and
    discriminates it against the clean |0>/|1> responses;
 3. **resumes** with the resolved bits, until every shot is done.
 
-The epoch loop is a Python ``while`` whose condition is read with one
-``.item()`` per epoch.  ``resolve_mode='fused'`` and ``'persample'``
-select the same per-sample chain here (the JAX package holds its two
-formulations bit-identical at sigma = 0).  The qubit is the parity
-co-state: each drive pulse adds ``round(amp / x90_amp)`` quarter turns
-and the state bit is the half-turn parity.
+``engine='fused'`` (sigma = 0 only) collapses the loop to one pass of
+the span kernel K3 (:func:`..ops.exec_span.exec_span_fused`), which
+resolves each window at its trigger.  The epoch loop is a Python
+``while`` whose condition is read with one ``.item()`` per epoch.
+``resolve_mode='fused'`` and ``'persample'`` select the same per-sample
+chain here (the JAX package holds its two formulations bit-identical at
+sigma = 0).  The qubit is the parity co-state: each drive pulse adds
+``round(amp / x90_amp)`` quarter turns and the state bit is the
+half-turn parity.
 """
 
 from __future__ import annotations
@@ -32,15 +35,17 @@ import numpy as np
 import torch
 
 from ..elements import ENV_CW_SENTINEL, IQ_SCALE
-from ..ops.resolve import build_fused_tables, fused_chunk, \
-    resolve_windows_fused
+from ..ops.exec_span import exec_span_fused
+from ..ops.resolve import build_energy_tables, build_fused_tables, \
+    fused_chunk, resolve_windows_fused
 from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
     carrier_phase
 from .device import DeviceModel
 from .interpreter import (InterpreterConfig, _program_constants,
-                          _init_state, _exec_loop, _finalize,
-                          _fault_policy, _check_strict, check_supported,
-                          program_traits, not_ported, torch_device)
+                          _init_state, _exec_loop, _exec_straightline,
+                          _finalize, _fault_policy, _check_strict,
+                          _soa_np, check_supported, program_traits,
+                          not_ported, torch_device)
 
 # default-qchip X90 amplitude word: round(0.48 * (2^16 - 1))
 X90_AMP_DEFAULT = 31457
@@ -265,16 +270,47 @@ def _tables_meta(model: ReadoutPhysics, W: int, mp) -> tuple:
             model.resolve_mode, int(h) & 0x7fffffff)
 
 
-def _check_model(model: ReadoutPhysics) -> None:
-    """Raise for readout models this slice does not port."""
+def _fused_blockers(model: ReadoutPhysics, rows) -> None:
+    """Raise the JAX package's ``ValueError`` when the readout model is
+    not the one the measure-in-megastep engine specializes: the sigma = 0
+    matched filter over statically enumerable envelopes."""
+    blockers = []
+    if float(model.sigma) != 0.0:
+        blockers.append(
+            f'sigma={model.sigma} (the in-kernel demodulator is the '
+            f'sigma=0 matched filter; noise draws stay with the epoch '
+            f'resolver)')
+    if model.ring_tau > 0:
+        blockers.append('ring_tau > 0 (the resonator ring-up transient '
+                        'needs the per-sample resolver)')
+    if model.noise_ar1 > 0:
+        blockers.append("noise_ar1 > 0 (colored ADC noise needs "
+                        "resolve_mode='persample')")
+    if rows is None:
+        blockers.append('envelope addresses not statically enumerable (a '
+                        'register-sourced envelope write, or more than 8 '
+                        'distinct addresses)')
+    if blockers:
+        raise ValueError(
+            "engine='fused' (measure-in-megastep) is ineligible for this "
+            'readout model: ' + '; '.join(blockers)
+            + " — use resolve_mode='fused' (the in-kernel epoch resolver) "
+            'for the general model')
+
+
+def _check_model(model: ReadoutPhysics, eng: str) -> None:
+    """Raise for invalid readout models, and for those this slice does
+    not port.  Under ``engine='fused'`` the resolver never runs, so only
+    the fused engine's own gates apply to it."""
     if model.resolve_mode not in ('persample', 'fused', 'analytic'):
         raise ValueError(f'unknown resolve_mode {model.resolve_mode!r}')
-    if model.resolve_mode == 'analytic':
-        raise not_ported("resolve_mode='analytic'", 3)
     if not 0.0 <= model.noise_ar1 < 1.0:
         raise ValueError(f'noise_ar1={model.noise_ar1} must be in [0, 1)')
-    if model.noise_ar1 > 0:
-        raise not_ported('AR(1) ADC noise (noise_ar1 > 0)', 3)
+    if eng != 'fused':
+        if model.resolve_mode == 'analytic':
+            raise not_ported("resolve_mode='analytic'", 3)
+        if model.noise_ar1 > 0:
+            raise not_ported('AR(1) ADC noise (noise_ar1 > 0)', 3)
     if model.g2 is not None or model.classify3:
         raise not_ported('IQ-level leakage readout (g2, classify3)', 3)
     if model.cw_horizon < 0:
@@ -283,6 +319,30 @@ def _check_model(model: ReadoutPhysics) -> None:
         raise not_ported('CW readout (cw_horizon > 0)', 3)
     if model.device.kind != 'parity':
         raise not_ported(f'device {model.device.kind!r}', 4)
+
+
+def _as_iq(g, C: int, device) -> torch.Tensor:
+    """A complex response (scalar or per core) as ``[C, 2]`` float32."""
+    g = np.broadcast_to(np.asarray(g, complex), (C,))
+    return torch.as_tensor(np.stack([g.real, g.imag], axis=-1)
+                           .astype(np.float32), device=device)
+
+
+def fused_readout(mp, model: ReadoutPhysics, tables: dict) -> dict:
+    """The sigma = 0 readout directive of the span kernel K3: the energy
+    rows of the program's static envelope addresses over the envelope
+    planes of ``tables`` (:func:`prepare_physics_tables`), the clean
+    responses and the window."""
+    _env, _freq, _spc, interp_m, w_auto = _physics_tables(mp,
+                                                          model.meas_elem)
+    W = int(model.window_samples or w_auto)
+    rows = _static_meas_env_addrs(mp)
+    env = tables['env']
+    return {'e2': build_energy_tables((env[:, 0], env[:, 1]), rows, W,
+                                      tuple(int(x) for x in interp_m)),
+            'g0': _as_iq(model.g0, mp.n_cores, env.device),
+            'g1': _as_iq(model.g1, mp.n_cores, env.device),
+            'addrs': rows, 'w': W, 'amp_scale': float(AMP_SCALE)}
 
 
 def physics_config(base: InterpreterConfig, model: ReadoutPhysics,
@@ -374,8 +434,10 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     device = torch_device(device)
     cfg = physics_config(cfg, model, **kw)
     cfg, strict = _fault_policy(cfg)
-    _check_model(model)
-    check_supported(mp, cfg)
+    eng = check_supported(mp, cfg, device)
+    if eng == 'fused':
+        _fused_blockers(model, _static_meas_env_addrs(mp))
+    _check_model(model, eng)
     soa, spc, interp, sync_part = _program_constants(mp, device)
     _env, freq_stack, spc_m, interp_m, w_auto = \
         _physics_tables(mp, model.meas_elem)
@@ -402,12 +464,7 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     init_states = torch.as_tensor(init_states, dtype=torch.int32,
                                   device=device)
 
-    def as_iq(g):
-        g = np.broadcast_to(np.asarray(g, complex), (C,))
-        return torch.as_tensor(np.stack([g.real, g.imag], axis=-1)
-                               .astype(np.float32), device=device)
-
-    g0, g1 = as_iq(model.g0), as_iq(model.g1)
+    g0, g1 = _as_iq(model.g0, C, device), _as_iq(model.g1, C, device)
     sigma = float(np.float32(model.sigma))
     inv_ring = float(np.float32(0.0 if model.ring_tau <= 0
                                 else 1.0 / model.ring_tau))
@@ -416,6 +473,8 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                      torch.as_tensor(spc_m, device=device),
                      torch.as_tensor(interp_m, device=device))
     traits = program_traits(mp)
+    soa_np = _soa_np(mp)
+    fused = fused_readout(mp, model, tables) if eng == 'fused' else None
 
     B = init_states.shape[0]
     st = _init_state(B, C, cfg, init_regs, device)
@@ -429,12 +488,28 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     max_epochs, steps, ep = C * M + 1, 0, 0
     while ep < max_epochs:
         more = ((slots < st['n_meas'][..., None]) & ~valid).any()
-        if steps < cfg.max_steps:
+        # the straight-line engines end by structure (one visit per
+        # index), so only the generic engine spends the step budget
+        if eng != 'generic' or steps < cfg.max_steps:
             more = more | ~st['done'].all()
         if not bool(more):
             break
-        st, steps, paused = _exec_loop(st, steps, paused, soa, spc, interp,
-                                       sync_part, bits, valid, cfg, traits)
+        if eng == 'fused':
+            # the K3 kernel: exec and resolve in one pass, every bit
+            # landing in its slot at its trigger
+            st, bits, valid = exec_span_fused(st, soa_np, spc, interp, bits,
+                                              valid, cfg, fused)
+            steps += soa_np.shape[1]
+            ep += 1
+            continue
+        if eng == 'straightline':
+            st = _exec_straightline(st, soa_np, spc, interp, bits, valid,
+                                    cfg)
+            steps += soa_np.shape[1]
+        else:
+            st, steps, paused = _exec_loop(st, steps, paused, soa, spc,
+                                           interp, sync_part, bits, valid,
+                                           cfg, traits)
         sc, state_sel, slot, has_pending = \
             _compact_pending_slot(st, valid, window_tables)
         gs = torch.where(state_sel == 1, g1[None], g0[None])   # [B, C, 2]

@@ -50,9 +50,11 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/sim/interpreter.py',
                  'distributed_processor_tpu_torch/sim/physics.py',
                  'distributed_processor_tpu_torch/ops/resolve.py',
+                 'distributed_processor_tpu_torch/ops/exec_span.py',
                  'distributed_processor_tpu_torch/parallel/driver.py'):
         assert want in names
-    assert os.path.exists(os.path.join(PORT, 'csrc', 'resolve.cu'))
+    for kernel in ('resolve.cu', 'exec_span.cu'):
+        assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
 
 
 @pytest.mark.parametrize('path', _sources(),

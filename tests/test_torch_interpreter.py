@@ -18,6 +18,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_processor_tpu import isa, models, pipeline
 from distributed_processor_tpu.decoder import machine_program_from_cmds
@@ -231,14 +232,20 @@ def test_read_of_finished_producer(fabric):
 def test_engine_selection():
     mp = _to_port(_random_program(np.random.default_rng(1)))
     meas = np.zeros((2, mp.n_cores, 2), np.int32)
+    ref = torch_simulate_batch(mp, meas, device='cpu')
     for kw in ({}, {'engine': 'generic'}, {'engine': 'auto'},
-               {'straightline': None}):
-        torch_simulate_batch(mp, meas, device='cpu', **kw)
-    for kw in ({'engine': 'straightline'}, {'engine': 'block'},
-               {'engine': 'pallas'}, {'engine': 'fused'},
-               {'straightline': True}, {'trace': True},
+               {'straightline': None}, {'engine': 'straightline'},
+               {'engine': 'pallas'}, {'straightline': True}):
+        out = torch_simulate_batch(mp, meas, device='cpu', **kw)
+        for key in ref:
+            if key != 'steps':
+                assert torch.equal(out[key], ref[key]), (kw, key)
+    for kw in ({'engine': 'block'}, {'trace': True},
                {'cores_axis': 'cores'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             torch_simulate_batch(mp, meas, device='cpu', **kw)
+    # the fused engine closes the physics loop: not on injected bits
+    with pytest.raises(ValueError, match='fused'):
+        torch_simulate_batch(mp, meas, device='cpu', engine='fused')
     with pytest.raises(ValueError):
         torch_simulate_batch(mp, meas, device='cpu', engine='nope')
