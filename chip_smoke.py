@@ -13,7 +13,12 @@ Phases, in order (any failure exits nonzero):
    the kernel's own Philox noise held to CLT bounds); the span kernel K1
    (``engine='pallas'``) against the straight-line engine on seeded
    injected bits; the span kernel K3 (``engine='fused'``) against its
-   plain version and against the generic engine at sigma = 0;
+   plain version and against the generic engine at sigma = 0; the
+   waveform kernel K4 on every (core, element) of a headline run's
+   records and on a 1,048,576-sample capture (64 seeded pulses, one CW,
+   one overrunning its table, interp 1 and 16); the demod kernel K5 at
+   [262144, 1024] @ [1024, 8], at a ragged shot count and at 2M = 2, with
+   ``torch.matmul`` timed beside it as the library's call;
 3. the paths at full width, each driven with every launch count set to 0
    just before it and read just after: the main path (the headline
    program, 8-qubit active reset + depth-12 RB, compiled by the port and
@@ -21,7 +26,12 @@ Phases, in order (any failure exits nonzero):
    config resolves to the straight-line engine, and the generic engine's
    batch is timed beside it), the K1 path (``simulate_batch`` with
    ``engine='pallas'``, then ``'auto'``) and the K3 path
-   (``run_physics_batch`` with ``engine='fused'``, sigma = 0);
+   (``run_physics_batch`` with ``engine='fused'``, sigma = 0), and the
+   render-and-readout path (``Simulator``: compile, run 4096 shots with
+   pulse records, ``waveforms`` of a measured-1 and a measured-0 shot —
+   24 K4 launches each, held against the CPU's plain render — then
+   262144 noisy ADC traces of the rendered readout window through
+   ``demod_readout`` — one K5 launch — and ``discriminate``);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical;
 5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots).
@@ -65,8 +75,19 @@ CHAIN_OPS, NOISE_OPS = 36, 14
 # operations besides one add per energy sample
 SPAN_OPS_PER_INSTR, DISCRIMINATE_OPS = 40, 21
 
+# float32 operations per in-window sample of the waveform kernel
+# (csrc/waveform.cu): the NCO multiply-add and convert, a sincos (~30),
+# the amplitude divide and the complex product
+WAVE_OPS = 40
+
 HEADLINE = dict(n_qubits=8, depth=12, batch=262144, sweep_batches=4,
-                sigma=0.05, p1_init=0.15, resolve_chunk=256)
+                sigma=0.05, p1_init=0.15, resolve_chunk=256,
+                render_shots=4096, adc_sigma=0.5)
+# K4's long capture: a trace the render never reaches
+CAPTURE = dict(n_clks=65536, spc=16, n_pulses=64, env_len=1024)
+# stated tolerances of the two new kernels against their plain versions
+K4_ATOL = 1e-5
+K5_RTOL, K5_ATOL = 2e-5, 2e-4
 # the torch device the phases run on (a CPU rehearsal sets 'cpu')
 DEV = 'cuda'
 
@@ -93,15 +114,21 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def headline_source() -> list:
+    """The headline as a dict program: active reset + depth-12 RB."""
+    from distributed_processor_tpu_torch.models import (active_reset,
+                                                        rb_program)
+    qubits = [f'Q{i}' for i in range(HEADLINE['n_qubits'])]
+    return active_reset(qubits) + rb_program(qubits, HEADLINE['depth'],
+                                             seed=1234)
+
+
 def headline_program():
     from distributed_processor_tpu_torch import compile_to_machine
-    from distributed_processor_tpu_torch.models import (
-        make_default_qchip, active_reset, rb_program)
+    from distributed_processor_tpu_torch.models import make_default_qchip
     n = HEADLINE['n_qubits']
-    qubits = [f'Q{i}' for i in range(n)]
-    program = active_reset(qubits) + rb_program(qubits, HEADLINE['depth'],
-                                                seed=1234)
-    return compile_to_machine(program, make_default_qchip(n), n_qubits=n)
+    return compile_to_machine(headline_source(), make_default_qchip(n),
+                              n_qubits=n)
 
 
 def headline_config(mp, **kw):
@@ -297,24 +324,33 @@ def phase_kernels(mp) -> dict:
                 library_ms=None)
 
 
-def _reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by the name its count goes by."""
+    from distributed_processor_tpu_torch.ops.demod import demod_iq
     from distributed_processor_tpu_torch.ops.exec_span import (
         exec_span, exec_span_fused)
     from distributed_processor_tpu_torch.ops.resolve import \
         resolve_windows_fused
-    for fn in (resolve_windows_fused, exec_span, exec_span_fused):
+    from distributed_processor_tpu_torch.ops.waveform import \
+        synthesize_element
+    return {'resolve_windows': resolve_windows_fused,
+            'exec_span': exec_span, 'exec_span_fused': exec_span_fused,
+            'synthesize_element': synthesize_element, 'demod_iq': demod_iq}
+
+
+def _reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    from distributed_processor_tpu_torch.ops.exec_span import (
-        exec_span, exec_span_fused)
-    from distributed_processor_tpu_torch.ops.resolve import \
-        resolve_windows_fused
-    return {'resolve_windows': resolve_windows_fused.launches,
-            'exec_span': exec_span.launches,
-            'exec_span_fused': exec_span_fused.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _only_launched(counts: dict, *names) -> bool:
+    """No kernel outside ``names`` was launched."""
+    return not any(n for name, n in counts.items() if name not in names)
 
 
 def _max_abs_diff(a: dict, b: dict, what: str) -> float:
@@ -514,6 +550,360 @@ def phase_k3(mp) -> dict:
                 library_ms=None)
 
 
+def render_run(sim, mp, shots: int, seed: int) -> dict:
+    """A headline run with pulse records on seeded injected bits, through
+    the facade on the card."""
+    import torch
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    bits = torch.randint(0, 2, (shots, mp.n_cores, 16), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    out = sim.run(mp, shots=shots, meas_bits=bits, record_pulses=True)
+    check(not bool(out['incomplete']) and not bool(out['err'].any())
+          and not bool(out['fault'].any()),
+          'the render run left shots incomplete, errored or faulted')
+    out['_bits'] = bits
+    return out
+
+
+def measured_shots(out: dict, core: int = 0) -> tuple:
+    """The first shot whose first measurement on ``core`` read 1, and the
+    first that read 0."""
+    first = out['_bits'][:, core, 0]
+    return int(first.nonzero()[0]), int((first == 0).nonzero()[0])
+
+
+def capture_records(seed: int, interp: int) -> tuple:
+    """Records and envelope table of a long capture: ``n_pulses`` seeded
+    non-overlapping pulses over ``n_clks`` clocks, one of them CW and one
+    running past the end of its table."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    P, n_clks, L = CAPTURE['n_pulses'], CAPTURE['n_clks'], CAPTURE['env_len']
+    slot = n_clks // P
+    gtime = np.arange(P) * slot + rng.integers(0, slot // 8, P)
+    # lengths in 4-sample words: at most half a slot of clocks
+    max_nw = max(2, slot * CAPTURE['spc'] // (8 * interp))
+    nw = rng.integers(1, min(max_nw, L // 8), P)
+    nw[40] = max(nw[40], 8)
+    addr = rng.integers(0, (L - 4 * nw) // 4)           # fits the table
+    addr[40] = (L - 2 * nw[40]) // 4                    # overruns it
+    nw[20], addr[20] = 0xfff, rng.integers(0, L // 4)   # CW
+    rec = dict(gtime=gtime.astype(np.int32),
+               env=((nw << 12) | addr).astype(np.int32),
+               phase=rng.integers(0, 1 << 17, P).astype(np.int32),
+               freq_rel=rng.uniform(0, 0.5, P).astype(np.float32),
+               amp=rng.integers(1 << 12, 1 << 16, P).astype(np.int32),
+               elem=np.zeros(P, np.int32), n_pulses=np.int32(P))
+    env = (rng.uniform(-1, 1, L) + 1j * rng.uniform(-1, 1, L)) * 0.7
+    return rec, env
+
+
+def _wave_bound_ms(desc, n_samples: int) -> tuple:
+    """K4's bound for one launch: every sample written once, one NCO
+    evaluation per in-window sample (pulses of one element do not
+    overlap)."""
+    import numpy as np
+    inside = int(np.clip(np.minimum(desc[1], n_samples)
+                         - np.maximum(desc[0], 0), 0, None).sum())
+    nbytes = n_samples * 8 + desc.nbytes
+    return (nbytes / PEAK_HBM_BYTES * 1e3,
+            inside * WAVE_OPS / PEAK_F32_FLOPS * 1e3)
+
+
+def phase_k4(sim, out, env) -> dict:
+    """K4 against its plain version on the card: every (core, element) of
+    two shots of a headline run's records, and the long capture at interp
+    1 and 16; its time per launch over one headline render beside the
+    plain version's and its bound."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.ops.waveform import (
+        _env_table_iq, _synthesize_plain, element_descriptors,
+        synthesize_element, synthesize_prepared)
+    worst = 0.0
+
+    def agree(args, what):
+        nonlocal worst
+        got = synthesize_element(*args, device=DEV)
+        rec, env_table, spc, interp, n_clks, elem = args
+        want = _synthesize_plain(
+            element_descriptors(rec, spc, interp, n_clks, elem),
+            torch.as_tensor(_env_table_iq(env_table), device=DEV), interp,
+            n_clks * spc)
+        sync()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f'{what}: shape {tuple(got.shape)} or non-finite values')
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(err <= K4_ATOL, f'{what}: max |err| {err:.3e} > {K4_ATOL}')
+        worst = max(worst, err)
+        return float(want.abs().max())
+
+    s1, s0 = measured_shots(out)
+    for shot in (s1, s0):
+        peak = 0.0
+        renders = sim._element_renders(out, shot=shot)
+        for c, per_core in renders.items():
+            for args in per_core:
+                peak = max(peak, agree(args, f'K4 shot {shot} core {c} '
+                                             f'elem {args[5]}'))
+        n_elems = sum(len(v) for v in renders.values())
+        print(f'K4 vs plain (headline records, shot {shot}, {n_elems} '
+              f'elements, n_clks {renders[0][0][4]}): agree to atol '
+              f'{K4_ATOL}, max |err| so far {worst:.3e}, peak |trace| '
+              f'{peak:.3f}')
+    for interp in (1, 16):
+        rec, env_table = capture_records(seed=51 + interp, interp=interp)
+        args = (rec, env_table, CAPTURE['spc'], interp, CAPTURE['n_clks'], 0)
+        peak = agree(args, f'K4 long capture interp {interp}')
+        desc = element_descriptors(rec, CAPTURE['spc'], interp,
+                                   CAPTURE['n_clks'], 0)
+        n_samples = CAPTURE['n_clks'] * CAPTURE['spc']
+        d_dev = torch.as_tensor(np.ascontiguousarray(desc), device=DEV)
+        e_dev = torch.as_tensor(_env_table_iq(env_table), device=DEV)
+        ms = cuda_time_ms(lambda: synthesize_prepared(
+            d_dev, e_dev, interp, n_samples), reps=20)
+        plain_ms = cuda_time_ms(lambda: _synthesize_plain(
+            desc, e_dev, interp, n_samples), reps=3)
+        t_bytes, t_ops = _wave_bound_ms(desc, n_samples)
+        print(f'K4 long capture ({n_samples} samples, {desc.shape[1]} '
+              f'pulses, interp {interp}): agree, max |err| so far '
+              f'{worst:.3e}, peak |trace| {peak:.3f}; kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms '
+              f'(bytes {t_bytes:.5f}, operations {t_ops:.5f}) on '
+              f'{env["smi"]}')
+    # time per launch over one headline render (the measured-1 shot):
+    # inputs prepared once, the 24 launches timed together
+    prepared = []
+    for per_core in sim._element_renders(out, shot=s1).values():
+        for rec, env_table, spc, interp, n_clks, elem in per_core:
+            desc = element_descriptors(rec, spc, interp, n_clks, elem)
+            prepared.append((
+                desc, torch.as_tensor(np.ascontiguousarray(desc), device=DEV),
+                torch.as_tensor(_env_table_iq(env_table), device=DEV),
+                interp, n_clks * spc))
+    n = len(prepared)
+    render_ms = cuda_time_ms(lambda: [synthesize_prepared(d, e, it, ns)
+                                      for _, d, e, it, ns in prepared],
+                             reps=20)
+    plain_render_ms = cuda_time_ms(lambda: [_synthesize_plain(h, e, it, ns)
+                                            for h, _, e, it, ns in prepared],
+                                   reps=3)
+    bounds = [_wave_bound_ms(h, ns) for h, _, _, _, ns in prepared]
+    t_bytes = sum(b[0] for b in bounds)
+    t_ops = sum(b[1] for b in bounds)
+    samples = sum(ns for *_, ns in prepared)
+    print(f'K4 headline render ({n} launches, {samples} samples): kernels '
+          f'{render_ms:.4f} ms ({render_ms / n:.5f} per launch), plain '
+          f'{plain_render_ms:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms '
+          f'(bytes {t_bytes:.6f}, operations {t_ops:.6f}) — below what a '
+          f'launch itself costs; on {env["smi"]}')
+    return dict(name='synthesize_element', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/waveform.cu',
+                replaces='distributed_processor_tpu/ops/waveform_pallas.py:84',
+                max_abs_err=worst, ms=render_ms / n,
+                plain_ms=plain_render_ms / n,
+                bound_ms=max(t_bytes, t_ops) / n,
+                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                library_ms=None)
+
+
+def phase_k5(env) -> dict:
+    """K5 against its plain version (``adc @ weights``, float32 with TF32
+    off) on the card at the path's shape, at a ragged shot count, at
+    2M = 2 and at a window that is tiled and unaligned; its time beside
+    the plain version's, the library's call and its bound."""
+    import torch
+    from distributed_processor_tpu_torch.ops.demod import (
+        demod_iq, demod_iq_reference)
+    # the plain version and the library's call are full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, N, J = HEADLINE['batch'], 1024, 8
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(61)
+    adc = torch.randn((S, N), generator=gen, device=DEV)
+    worst, worst_ratio = 0.0, 0.0
+
+    def agree(a, w, what):
+        nonlocal worst, worst_ratio
+        got, want = demod_iq(a, w), demod_iq_reference(a, w)
+        sync()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f'{what}: shape {tuple(got.shape)} or non-finite values')
+        err = (got - want).abs()
+        tol = K5_ATOL + K5_RTOL * want.abs()
+        worst = max(worst, float(err.max()))
+        worst_ratio = max(worst_ratio, float((err / tol).max()))
+        check(not bool((err > tol).any()),
+              f'{what}: {int((err > tol).sum())} sums differ from the plain '
+              f'version (max |err| {float(err.max()):.3e})')
+        print(f'K5 vs plain ({what}): agree to rtol {K5_RTOL} / atol '
+              f'{K5_ATOL}, max |err| {float(err.max()):.3e}, max |err|/tol '
+              f'{float((err / tol).max()):.3f}')
+
+    weights = torch.randn((N, J), generator=gen, device=DEV)
+    agree(adc, weights, f'S={S} N={N} 2M={J}')
+    agree(adc[:S - 37], weights, f'ragged S={S - 37} N={N} 2M={J}')
+    agree(adc, weights[:, :2].contiguous(), f'S={S} N={N} 2M=2')
+    # a window past one staged tile, no multiple of 4 (scalar loads), and
+    # more columns than one pass holds
+    a2 = torch.randn((4099, 2500 + 1), generator=gen, device=DEV)
+    w2 = torch.randn((2501, 12), generator=gen, device=DEV)
+    agree(a2, w2, 'S=4099 N=2501 2M=12')
+    del a2, w2
+    ms = cuda_time_ms(lambda: demod_iq(adc, weights), reps=20)
+    plain_ms = cuda_time_ms(lambda: demod_iq_reference(adc, weights), reps=20)
+    library_ms = cuda_time_ms(lambda: torch.matmul(adc, weights), reps=20)
+    nbytes = (S * N + N * J + S * J) * 4
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2 * S * N * J / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f'K5 at S={S} N={N} 2M={J}: kernel {ms:.4f} ms '
+          f'({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, '
+          f'torch.matmul (float32, TF32 off) {library_ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms (bytes {nbytes / 1e9:.3f} GB = {t_bytes:.4f} '
+          f'ms, operations {t_ops:.4f} ms); kernel / library '
+          f'{ms / library_ms:.3f} on {env["smi"]}')
+    return dict(name='demod_iq', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/demod.cu',
+                replaces='distributed_processor_tpu/ops/demod.py:93',
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                library_ms=library_ms)
+
+
+def phase_render_path(env) -> dict:
+    """The render-and-readout path through the facade on the card: compile
+    the headline, run it with pulse records, render a measured-1 and a
+    measured-0 shot (24 K4 launches each), then demodulate 262144 noisy
+    ADC traces of the rendered readout window (one K5 launch) and
+    discriminate.  Returns the launches of K4 and K5 in this run."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch import Simulator
+    from distributed_processor_tpu_torch.ops import (
+        demod_iq_reference, discriminate, iq_to_complex,
+        pulse_window_weights, stack_window_weights)
+    S = HEADLINE['batch']
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)
+    mp = sim.compile(headline_source())
+    out = render_run(sim, mp, HEADLINE['render_shots'], seed=71)
+    sync()
+    t_run = time.perf_counter() - t0
+    s1, s0 = measured_shots(out)
+    n_elems = sum(len(t.elem_cfgs) for t in mp.tables)
+    traces, t_render = {}, {}
+    for shot in (s1, s0):
+        before = _launches()['synthesize_element']
+        t0 = time.perf_counter()
+        traces[shot] = sim.waveforms(out, shot=shot)
+        t_render[shot] = time.perf_counter() - t0
+        n_launch = _launches()['synthesize_element'] - before
+        check(n_launch == n_elems == 24,
+              f'render of shot {shot} launched K4 {n_launch} times for '
+              f'{n_elems} elements')
+        check(all(np.isfinite(t).all() for c in traces[shot].values()
+                  for t in c), f'render of shot {shot} is not finite')
+    e1, e0 = (float(np.abs(iq_to_complex(traces[s][0][0])).sum())
+              for s in (s1, s0))
+    check(e1 > e0, f'qdrv of the measured-1 shot carries {e1:.2f}, no more '
+                   f'than the measured-0 shot ({e0:.2f})')
+    # the card's traces against the CPU's plain render of the same records
+    cpu = Simulator(n_qubits=HEADLINE['n_qubits'], device='cpu')
+    worst = 0.0
+    for shot in (s1, s0):
+        ref = cpu.waveforms(out, shot=shot)
+        for c in ref:
+            for e, want in enumerate(ref[c]):
+                got = traces[shot][c][e]
+                check(got.shape == want.shape, f'trace shape {got.shape} vs '
+                                               f'{want.shape}')
+                worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= K4_ATOL, f'card render differs from the CPU plain render '
+                            f'by {worst:.3e} > {K4_ATOL}')
+    print(f'render path: compile + run {HEADLINE["render_shots"]} shots with '
+          f'records {t_run:.3f} s; waveforms(shot={s1}) {t_render[s1]:.4f} s '
+          f'and (shot={s0}) {t_render[s0]:.4f} s, 24 K4 launches each; qdrv '
+          f'energy {e1:.2f} (measured 1) > {e0:.2f} (measured 0); card vs '
+          f'CPU plain render max |diff| {worst:.3e} on {env["smi"]}')
+
+    # readout at full shot width: the rendered rdlo window of core 0 as
+    # the tone, a state-dependent phase of 0 or pi/2, Gaussian ADC noise
+    tables = mp.tables[0]
+    ecfg = tables.elem_cfgs[2]
+    spc = ecfg.samples_per_clk
+    n_p = int(out['n_pulses'][s1, 0])
+    elems = out['rec_elem'][s1, 0, :n_p].cpu().numpy()
+    i = int(np.nonzero(elems == 2)[0][0])
+    gtime = int(out['rec_gtime'][s1, 0, i])
+    dur = int(out['rec_dur'][s1, 0, i])
+    f_idx = int(out['rec_freq'][s1, 0, i])
+    N = dur * spc
+    check(N == 1024, f'the readout window is {N} samples, not 1024')
+    tone = torch.as_tensor(traces[s1][0][2][gtime * spc:gtime * spc + N],
+                           device=DEV)                        # [N, 2]
+    # a multiplexed line: core 0's matched window beside the windows of
+    # three more readout frequencies
+    freqs = [tables.freqs[2]['freq'][f_idx]] + [
+        mp.tables[c].freqs[2]['freq'][0] for c in (1, 2, 3)]
+    W = stack_window_weights(
+        [pulse_window_weights(gtime, dur, spc, f, ecfg.sample_freq)
+         for f in freqs], N)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(72)
+    states = torch.randint(0, 2, (S,), generator=gen, device=DEV)
+    # Re(tone * e^{i phase}): phase 0 reads I, phase pi/2 reads -Q
+    adc = torch.where(states[:, None] == 1, -tone[None, :, 1],
+                      tone[None, :, 0])
+    adc = adc + HEADLINE['adc_sigma'] * torch.randn(
+        (S, N), generator=gen, device=DEV)
+    # calibrated centroids: the noiseless tone in either state
+    cal = demod_iq_reference(torch.stack([tone[:, 0], -tone[:, 1]]), W)
+    c0, c1 = cal[0].cpu().numpy(), cal[1].cpu().numpy()       # [M, 2]
+    before = _launches()['demod_iq']
+    sync()
+    t0 = time.perf_counter()
+    iq = sim.demod_readout(out, adc, W)
+    bits = discriminate(iq, c0, c1)
+    sync()
+    t_demod = time.perf_counter() - t0
+    check(_launches()['demod_iq'] - before == 1,
+          'demod_readout did not launch K5 exactly once')
+    check(tuple(iq.shape) == (S, 4, 2) and bool(torch.isfinite(iq).all()),
+          f'demod output {tuple(iq.shape)} or non-finite')
+    fidelity = float((bits[:, 0] == states).float().mean())
+    check(fidelity > 0.99, f'readout fidelity {fidelity:.5f} <= 0.99')
+    # bits against the plain path's, except within the demod tolerance of
+    # the threshold
+    iq_p = demod_iq_reference(adc, W)
+    bits_p = discriminate(iq_p, c0, c1)
+    axis = torch.as_tensor(c1 - c0, device=DEV)
+    mid = torch.as_tensor((c0 + c1) / 2, device=DEV)
+    proj = ((iq_p - mid[None]) * axis[None]).sum(-1)
+    near = proj.abs() <= (K5_ATOL + K5_RTOL * iq_p.abs().amax(-1)) \
+        * axis.abs().sum(-1)[None]
+    differ = bits != bits_p
+    check(not bool((differ & ~near).any()),
+          f'{int((differ & ~near).sum())} bits differ from the plain path '
+          f'away from the threshold')
+    counts = _launches()
+    check(_only_launched(counts, 'synthesize_element', 'demod_iq'),
+          f'render path launched other kernels: {counts}')
+    print(f'readout path: {S} ADC traces x {N} samples, 4 windows: '
+          f'demod_readout + discriminate {t_demod:.4f} s, K5 launches 1, '
+          f'fidelity {fidelity:.5f}, max |iq - plain| '
+          f'{float((iq - iq_p).abs().max()):.3e} on sums up to '
+          f'{float(iq_p.abs().max()):.1f}, bits differing from the '
+          f'plain path {int(differ.sum())} (all within tolerance of the '
+          f'threshold; {int(near.sum())} decisions are that close) on '
+          f'{env["smi"]}')
+    return counts
+
+
 def phase_main_path(mp, env) -> int:
     """The headline physics-closed batch on the card: the bench's config
     resolves to the straight-line engine, with K2 resolving each epoch;
@@ -547,8 +937,8 @@ def phase_main_path(mp, env) -> int:
           f'main path faulted shots: {stats["fault_shots"]}')
     check(launches == epochs and epochs > 0,
           f'resolve kernel launched {launches} times in {epochs} epochs')
-    check(counts['exec_span'] == 0 and counts['exec_span_fused'] == 0,
-          f'main path launched span kernels: {counts}')
+    check(_only_launched(counts, 'resolve_windows'),
+          f'main path launched other kernels: {counts}')
     check(int(out['steps']) == epochs * mp.n_instr,
           f"straight-line steps {int(out['steps'])}, want {epochs} x "
           f'{mp.n_instr}')
@@ -608,8 +998,7 @@ def phase_k1_path(mp, env) -> int:
     dt = time.perf_counter() - t0
     counts = _launches()
     launches = counts['exec_span']
-    check(launches == 1 and counts['resolve_windows'] == 0
-          and counts['exec_span_fused'] == 0,
+    check(launches == 1 and _only_launched(counts, 'exec_span'),
           f'K1 path launches: {counts}')
     faults = fault_shot_counts(out['fault']).tolist()
     check(bool(out['done'].all()) and not any(faults),
@@ -656,8 +1045,8 @@ def phase_k3_path(mp, env) -> int:
     dt = time.perf_counter() - t0
     counts = _launches()
     launches = counts['exec_span_fused']
-    check(launches == 1 and counts['resolve_windows'] == 0
-          and counts['exec_span'] == 0, f'K3 path launches: {counts}')
+    check(launches == 1 and _only_launched(counts, 'exec_span_fused'),
+          f'K3 path launches: {counts}')
     check(int(out['epochs']) == 1, f"K3 path took {int(out['epochs'])} "
           f'epochs')
     check(not bool(out['incomplete']) and sum(stats['fault_shots']) == 0
@@ -788,16 +1177,26 @@ def main() -> int:
     k1 = phase_k1(mp)
     k3 = phase_k3(mp)
     torch.cuda.empty_cache()
+    from distributed_processor_tpu_torch import Simulator
+    sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)
+    k4 = phase_k4(sim, render_run(sim, mp, 256, seed=50), env)
+    k5 = phase_k5(env)
+    torch.cuda.empty_cache()
     resolve['launches'] = phase_main_path(mp, env)
     k1['launches'] = phase_k1_path(mp, env)
     k3['launches'] = phase_k3_path(mp, env)
+    counts = phase_render_path(env)
+    k4['launches'] = counts['synthesize_element']
+    k5['launches'] = counts['demod_iq']
+    torch.cuda.empty_cache()
     phase_cuda_vs_cpu(mp)
     phase_sweep(mp, env)
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'library_ms')
     print(json.dumps({'kernels': [{k: kernel[k] for k in order}
-                                  for kernel in (resolve, k1, k3)]}))
+                                  for kernel in (resolve, k1, k3, k4,
+                                                 k5)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

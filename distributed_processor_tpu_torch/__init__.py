@@ -16,10 +16,18 @@ compile stack.  Layers, named as in the JAX package:
   ``csrc/exec_span.cu``), whose plain version is the straight-line engine
 * :mod:`.ops.resolve` — the readout resolver: a hand-written CUDA kernel
   (``csrc/resolve.cu``) and its plain torch version
+* :mod:`.ops.waveform` — element waveform synthesis: the kernel K4
+  (``csrc/waveform.cu``) and its plain torch version
+* :mod:`.ops.demod` — readout demodulation, the kernel K5
+  (``csrc/demod.cu``) and its plain version, and state discrimination
+* :mod:`.models.readout` — sampled measurement bits and IQ clouds
+* :mod:`.simulator` — the ``Simulator`` facade: compile, run, render
+  waveforms, demodulate
 * :mod:`.parallel` — per-batch statistics and the single-device sweep
 
-Entry points (``simulate_batch``, ``run_physics_batch``,
-``run_physics_sweep``) run on CUDA unless given ``device=``.
+Entry points (``Simulator``, ``simulate``, ``simulate_batch``,
+``run_physics_batch``, ``run_physics_sweep``) run on CUDA unless given
+``device=``.
 """
 
 __version__ = '0.1.0'
@@ -33,3 +41,4 @@ from .assembler import GlobalAssembler
 from .decoder import (MachineProgram, decode_assembled_program,
                       machine_program_from_arrays, machine_program_to_arrays)
 from .pipeline import compile_program, compile_to_machine
+from .simulator import Simulator

@@ -1,4 +1,5 @@
-from .interpreter import (InterpreterConfig, simulate_batch, FaultError,
+from .interpreter import (InterpreterConfig, simulate, simulate_batch,
+                          FaultError,
                           FAULT_CODES, fault_shot_counts)
 from .device import DeviceModel
 from .physics import (ReadoutPhysics, run_physics_batch,

@@ -15,6 +15,7 @@ tensors shaped ``[n_shots, n_cores, ...]``.
   over a forward-jump-only program, index by index.  It is the plain
   version of the span kernels K1 (``engine='pallas'``) and K3
   (``engine='fused'``, :mod:`.physics`), ``csrc/exec_span.cu``.
+* :func:`simulate` runs one shot: the batch entry at a batch of one.
 * :func:`resolve_engine` is the JAX package's ladder; ``'auto'`` picks
   the K1 kernel on a CUDA device where the JAX package picks its Pallas
   kernel on a TPU.
@@ -179,6 +180,21 @@ class InterpreterConfig:
     jump_fproc_clks: int = 8
     pulse_regwrite_clks: int = 3
     pulse_load_clks: int = 3
+
+    @classmethod
+    def from_fpga_config(cls, fpga_config, **kw) -> 'InterpreterConfig':
+        """A config with the timing constants of ``fpga_config`` (a
+        :class:`~..hwconfig.FPGAConfig`); explicit ``kw`` win.  A
+        configured measurement LUT would flow into ``lut_mask`` /
+        ``lut_table``, which belong to the ``'lut'`` fabric."""
+        if getattr(fpga_config, 'meas_lut_mask', ()):
+            raise not_ported('a configured FPGAConfig.meas_lut_mask (the '
+                             "'lut' fabric)", 2)
+        return cls(alu_instr_clks=fpga_config.alu_instr_clks,
+                   jump_cond_clks=fpga_config.jump_cond_clks,
+                   jump_fproc_clks=fpga_config.jump_fproc_clks,
+                   pulse_regwrite_clks=fpga_config.pulse_regwrite_clks,
+                   pulse_load_clks=fpga_config.pulse_load_clks, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1358,3 +1374,28 @@ def simulate_batch(mp, meas_bits, init_regs=None,
         steps = soa_np.shape[1]
     st.pop('phys_wait', None)
     return _check_strict(_finalize(st, steps, cfg), strict)
+
+
+# outputs of a batch run that carry no shot axis
+_UNBATCHED_KEYS = ('steps', 'incomplete', 'op_hist')
+
+
+def simulate(mp, meas_bits=None, init_regs=None,
+             cfg: InterpreterConfig = None, device=None, **kw) -> dict:
+    """Execute ``mp`` on one shot: :func:`simulate_batch` at a batch of
+    one, with the shot axis dropped from every output.
+
+    ``meas_bits``: optional ``[n_cores, n_meas]`` injected bits (default
+    zeros).  ``init_regs``: optional ``[n_cores, 16]`` register file.
+    Returns the final machine state with pulse records ``rec_*`` of shape
+    ``[n_cores, max_pulses]``, valid up to ``n_pulses``."""
+    cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
+    if meas_bits is None:
+        meas_bits = np.zeros((mp.n_cores, cfg.max_meas), np.int32)
+    meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32)
+    if meas_bits.ndim != 2:
+        raise ValueError(f'simulate takes meas_bits [n_cores, n_meas]; got '
+                         f'shape {tuple(meas_bits.shape)}')
+    out = simulate_batch(mp, meas_bits[None], init_regs=init_regs, cfg=cfg,
+                         device=device)
+    return {k: (v if k in _UNBATCHED_KEYS else v[0]) for k, v in out.items()}

@@ -13,8 +13,12 @@ by chunk), and the physics loop on the card against the same loop on
 the CPU (identical bits at sigma = 0).  The span kernels of
 ``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
 engine on the card, K3 against its plain version and against the
-generic engine.  This file imports nothing of JAX; its straight-line
-fuzz generator serves tests/test_torch_straightline.py too.
+generic engine.  The waveform kernel ``csrc/waveform.cu`` is held against
+its plain version to atol 1e-5 (the same arithmetic; ``sincosf`` against
+``sin`` and ``cos``), the demod kernel ``csrc/demod.cu`` to rtol 2e-5 /
+atol 2e-4 (float32 sums of 1024 products of magnitude ~1 taken in another
+order than ``torch.matmul``).  This file imports nothing of JAX; its
+straight-line fuzz generator serves tests/test_torch_straightline.py too.
 """
 
 import dataclasses
@@ -311,3 +315,157 @@ def test_k1_rejects_bad_inputs(card, program):
     with pytest.raises(ValueError, match='geometry'):
         exec_span(st, _soa_np(program), torch.zeros_like(spc), interp, bits,
                   cfg)
+
+
+# ---------------------------------------------------------------------------
+# the waveform kernel K4 (csrc/waveform.cu) and the demod kernel K5
+# (csrc/demod.cu)
+
+
+def _capture_records(seed, interp, n_clks=65536, spc=16, P=64, L=1024):
+    """A long capture: P seeded non-overlapping pulses, one of them CW
+    and one running past the end of its envelope table."""
+    rng = np.random.default_rng(seed)
+    slot = n_clks // P
+    gtime = np.arange(P) * slot + rng.integers(0, slot // 8, P)
+    nw = rng.integers(1, min(max(2, slot * spc // (8 * interp)), L // 8), P)
+    nw[40] = max(nw[40], 8)
+    addr = rng.integers(0, (L - 4 * nw) // 4)
+    addr[40] = (L - 2 * nw[40]) // 4                    # overruns the table
+    nw[20], addr[20] = 0xfff, rng.integers(0, L // 4)   # CW
+    rec = dict(gtime=gtime.astype(np.int32),
+               env=((nw << 12) | addr).astype(np.int32),
+               phase=rng.integers(0, 1 << 17, P).astype(np.int32),
+               freq_rel=rng.uniform(0, 0.5, P).astype(np.float32),
+               amp=rng.integers(1 << 12, 1 << 16, P).astype(np.int32),
+               elem=np.zeros(P, np.int32), n_pulses=np.int32(P))
+    env = (rng.uniform(-1, 1, L) + 1j * rng.uniform(-1, 1, L)) * 0.7
+    return rec, env
+
+
+@pytest.mark.parametrize('interp', [1, 16])
+@pytest.mark.parametrize('n_clks', [65536, 4099])
+def test_k4_long_capture_matches_plain_version(card, interp, n_clks):
+    from distributed_processor_tpu_torch.ops.waveform import (
+        synthesize_element, synthesize_element_reference)
+    rec, env = _capture_records(3 + interp, interp, n_clks=n_clks)
+    before = synthesize_element.launches
+    got = synthesize_element(rec, env, 16, interp, n_clks, device=card)
+    assert synthesize_element.launches == before + 1
+    want = synthesize_element_reference(rec, env, 16, interp, n_clks,
+                                        device=card)
+    torch.cuda.synchronize()
+    assert got.shape == (16 * n_clks, 2) and got.dtype == torch.float32
+    assert float(want.abs().max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    # tensors on the card as records take the kernel too, with no device=
+    trec = {k: torch.as_tensor(v, device=card) for k, v in rec.items()}
+    again = synthesize_element(trec, env, 16, interp, n_clks)
+    assert synthesize_element.launches == before + 2
+    assert torch.equal(again, got)
+
+
+def test_k4_headline_render_matches_cpu(card, program):
+    """``Simulator.waveforms`` on the card (one K4 launch per element)
+    against the CPU's plain render of the same records, atol 1e-5."""
+    from distributed_processor_tpu_torch import Simulator
+    from distributed_processor_tpu_torch.ops.waveform import \
+        synthesize_element
+    sim = Simulator(n_qubits=3, device=card)
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, (16, program.n_cores, 16))
+    out = sim.run(program, shots=16, meas_bits=bits)
+    cpu = Simulator(n_qubits=3, device='cpu')
+    n_elems = sum(len(t.elem_cfgs) for t in program.tables)
+    for shot in (0, 5):
+        before = synthesize_element.launches
+        wf = sim.waveforms(out, shot=shot)
+        assert synthesize_element.launches == before + n_elems
+        ref = cpu.waveforms(out, shot=shot)
+        assert synthesize_element.launches == before + n_elems
+        for c in ref:
+            for got, want in zip(wf[c], ref[c]):
+                assert got.shape == want.shape and np.abs(want).max() > 0
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_k4_rejects_bad_inputs(card):
+    from distributed_processor_tpu_torch.ops.waveform import \
+        synthesize_prepared
+    desc = torch.zeros((7, 4), dtype=torch.int32, device=card)
+    env = torch.zeros((8, 2), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match='desc'):
+        synthesize_prepared(desc[:6], env, 1, 64)
+    with pytest.raises(ValueError, match='desc'):
+        synthesize_prepared(desc.cpu(), env, 1, 64)
+    with pytest.raises(ValueError, match='env'):
+        synthesize_prepared(desc, env.double(), 1, 64)
+    with pytest.raises(ValueError, match='interp'):
+        synthesize_prepared(desc, env, 0, 64)
+    with pytest.raises(ValueError, match='unsupported device'):
+        synthesize_prepared(desc.cpu(), env.cpu(), 1, 64)
+
+
+@pytest.mark.parametrize('S,N,J', [
+    (262144, 1024, 8), (262144 - 37, 1024, 8), (262144, 1024, 2),
+    (4099, 2501, 12), (1, 3, 2), (1000, 64, 6)],
+    ids=['full', 'ragged', '2M=2', 'tiled-unaligned-wide', 'tiny', 'N=64'])
+def test_k5_matches_plain_version(card, S, N, J):
+    from distributed_processor_tpu_torch.ops.demod import (
+        demod_iq, demod_iq_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=card)
+    gen.manual_seed(S + N + J)
+    adc = torch.randn((S, N), generator=gen, device=card)
+    w = torch.randn((N, J), generator=gen, device=card)
+    before = demod_iq.launches
+    got = demod_iq(adc, w)
+    assert demod_iq.launches == before + 1
+    want = demod_iq_reference(adc, w)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (S, J // 2, 2) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+    # a strided view is made contiguous, a numpy weight matrix is moved
+    got2 = demod_iq(adc.t().contiguous().t(), w.cpu().numpy())
+    torch.testing.assert_close(got2, want, rtol=2e-5, atol=2e-4)
+
+
+def test_k5_readout_chain_on_card(card):
+    """ADC traces -> demod -> discriminate on the card: bits equal to the
+    CPU chain's away from the threshold, fidelity high."""
+    from distributed_processor_tpu_torch.ops import (
+        demod_and_discriminate, demod_iq, pulse_window_weights,
+        stack_window_weights)
+    rng = np.random.default_rng(1)
+    fsamp, fr, spc, n_clks, shots = 2e9, 0.05, 4, 64, 5000
+    N = n_clks * spc
+    n = np.arange(N)
+    states = rng.integers(0, 2, shots)
+    phase = np.where(states, np.pi / 2, 0.0)
+    adc = np.real(np.exp(2j * np.pi * fr * n[None, :] + 1j * phase[:, None]))
+    adc = (adc + 0.5 * rng.standard_normal((shots, N))).astype(np.float32)
+    w = stack_window_weights([pulse_window_weights(0, n_clks, spc,
+                                                   fr * fsamp, fsamp)], N)
+    c0 = np.array([N / 2 + 0j])
+    c1 = np.array([(N / 2) * np.exp(1j * np.pi / 2)])
+    before = demod_iq.launches
+    bits, iq = demod_and_discriminate(torch.as_tensor(adc, device=card), w,
+                                      c0, c1)
+    assert demod_iq.launches == before + 1 and bits.device.type == 'cuda'
+    bits_cpu, iq_cpu = demod_and_discriminate(adc, w, c0, c1)
+    torch.testing.assert_close(iq.cpu(), iq_cpu, rtol=2e-5, atol=2e-4)
+    assert np.mean(bits.cpu().numpy()[:, 0] == states) > 0.99
+    assert int((bits.cpu() != bits_cpu).sum()) <= 2
+
+
+def test_k5_rejects_bad_inputs(card):
+    from distributed_processor_tpu_torch.ops.demod import demod_iq
+    adc = torch.zeros((8, 16), device=card)
+    with pytest.raises(ValueError, match='2M'):
+        demod_iq(adc, torch.zeros((16, 3), device=card))
+    with pytest.raises(ValueError, match='2M'):
+        demod_iq(adc, torch.zeros((15, 2), device=card))
+    before = demod_iq.launches
+    assert tuple(demod_iq(adc[:0], torch.zeros((16, 4), device=card)).shape) \
+        == (0, 2, 2)
+    assert demod_iq.launches == before        # nothing to launch

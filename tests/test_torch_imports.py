@@ -51,9 +51,12 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/sim/physics.py',
                  'distributed_processor_tpu_torch/ops/resolve.py',
                  'distributed_processor_tpu_torch/ops/exec_span.py',
+                 'distributed_processor_tpu_torch/ops/waveform.py',
+                 'distributed_processor_tpu_torch/ops/demod.py',
+                 'distributed_processor_tpu_torch/simulator.py',
                  'distributed_processor_tpu_torch/parallel/driver.py'):
         assert want in names
-    for kernel in ('resolve.cu', 'exec_span.cu'):
+    for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
         assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
 
 
@@ -86,7 +89,13 @@ def test_entry_points_default_to_cuda():
     from distributed_processor_tpu_torch.sim.physics import (
         ReadoutPhysics, run_physics_batch)
     from distributed_processor_tpu_torch.parallel import run_physics_sweep
+    from distributed_processor_tpu_torch.sim.interpreter import simulate
+    from distributed_processor_tpu_torch.simulator import Simulator
     mp = _tiny_program()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        Simulator(n_qubits=2)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        simulate(mp)
     with pytest.raises(RuntimeError, match='CUDA'):
         run_physics_batch(mp, ReadoutPhysics(), 0, 4)
     with pytest.raises(RuntimeError, match='CUDA'):
@@ -96,3 +105,4 @@ def test_entry_points_default_to_cuda():
     # the explicit CPU device runs
     out = simulate_batch(mp, np.zeros((4, 1, 1), np.int32), device='cpu')
     assert bool(out['done'].all())
+    assert bool(Simulator(n_qubits=2, device='cpu').run(mp)['done'].all())
