@@ -18,7 +18,11 @@ Phases, in order (any failure exits nonzero):
    records and on a 1,048,576-sample capture (64 seeded pulses, one CW,
    one overrunning its table, interp 1 and 16); the demod kernel K5 at
    [262144, 1024] @ [1024, 8], at a ragged shot count and at 2M = 2, with
-   ``torch.matmul`` timed beside it as the library's call;
+   ``torch.matmul`` timed beside it as the library's call; K1 block
+   (``engine='pallas'`` on the looped headline, the headline inside the
+   on-device shot loop) against the plain block engine at 32768 lanes x
+   8 iterations and, with records and the opcode histogram, at 4096
+   lanes, then each launch of a batch replayed against the plain bodies;
 3. the paths at full width, each driven with every launch count set to 0
    just before it and read just after: the main path (the headline
    program, 8-qubit active reset + depth-12 RB, compiled by the port and
@@ -31,7 +35,13 @@ Phases, in order (any failure exits nonzero):
    pulse records, ``waveforms`` of a measured-1 and a measured-0 shot —
    24 K4 launches each, held against the CPU's plain render — then
    262144 noisy ADC traces of the rendered readout window through
-   ``demod_readout`` — one K5 launch — and ``discriminate``);
+   ``demod_readout`` — one K5 launch — and ``discriminate``), and the
+   loop path (the looped headline through ``simulate_batch`` with
+   ``engine='pallas'``, then ``'auto'``: one K1 block launch per
+   block-engine iteration, outputs equal to the block and generic
+   engines; the three engines' steady batches profiled; the physics batch
+   at sigma = 0.05 on the block engine with K2 per epoch; and the loop at
+   sigma = 0 on the card against the CPU);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical;
 5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots).
@@ -83,6 +93,12 @@ WAVE_OPS = 40
 HEADLINE = dict(n_qubits=8, depth=12, batch=262144, sweep_batches=4,
                 sigma=0.05, p1_init=0.15, resolve_chunk=256,
                 render_shots=4096, adc_sigma=0.5)
+# the looped headline: the headline's body inside the on-device shot loop
+# (8 iterations: the loop is a do-while on `ge`), at the headline's batch
+# of shots, 32768 lanes x 8 iterations; records and the CUDA-vs-CPU check
+# at smaller batches
+LOOP = dict(n_shots=7, batch=32768, record_batch=4096, cpu_batch=1024,
+            max_meas=16, max_resets=2, sigma=0.05)
 # K4's long capture: a trace the render never reaches
 CAPTURE = dict(n_clks=65536, spc=16, n_pulses=64, env_len=1024)
 # stated tolerances of the two new kernels against their plain versions
@@ -129,6 +145,44 @@ def headline_program():
     n = HEADLINE['n_qubits']
     return compile_to_machine(headline_source(), make_default_qchip(n),
                               n_qubits=n)
+
+
+def loop_program():
+    """The looped headline: the headline inside ``loop_shots_program``."""
+    import warnings
+    from distributed_processor_tpu_torch import compile_to_machine
+    from distributed_processor_tpu_torch.models import make_default_qchip
+    from distributed_processor_tpu_torch.models.experiments import \
+        loop_shots_program
+    n = HEADLINE['n_qubits']
+    qubits = [f'Q{i}' for i in range(n)]
+    with warnings.catch_warnings():
+        # the reference compiler's own notice for virtual z in loops
+        warnings.simplefilter('ignore')
+        return compile_to_machine(
+            loop_shots_program(headline_source(), LOOP['n_shots'],
+                               scope=qubits),
+            make_default_qchip(n), n_qubits=n)
+
+
+def loop_config(mp, **kw):
+    """The looped headline's config: the program's static bounds, room
+    for its 16 measurements per core, no pulse records."""
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        InterpreterConfig
+    args = dict(mp.static_bounds(), max_meas=LOOP['max_meas'],
+                max_resets=LOOP['max_resets'], record_pulses=False)
+    args.update(kw)
+    return InterpreterConfig(**args)
+
+
+def loop_bits(mp, B: int, seed: int):
+    """Seeded injected bits ``[B, C, max_meas]`` on the card."""
+    import torch
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return torch.randint(0, 2, (B, mp.n_cores, LOOP['max_meas']),
+                         generator=gen, device=DEV, dtype=torch.int32)
 
 
 def headline_config(mp, **kw):
@@ -328,14 +382,15 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes by."""
     from distributed_processor_tpu_torch.ops.demod import demod_iq
     from distributed_processor_tpu_torch.ops.exec_span import (
-        exec_span, exec_span_fused)
+        exec_blocks, exec_span, exec_span_fused)
     from distributed_processor_tpu_torch.ops.resolve import \
         resolve_windows_fused
     from distributed_processor_tpu_torch.ops.waveform import \
         synthesize_element
     return {'resolve_windows': resolve_windows_fused,
             'exec_span': exec_span, 'exec_span_fused': exec_span_fused,
-            'synthesize_element': synthesize_element, 'demod_iq': demod_iq}
+            'synthesize_element': synthesize_element, 'demod_iq': demod_iq,
+            'exec_blocks': exec_blocks}
 
 
 def _reset_launches():
@@ -546,6 +601,154 @@ def phase_k3(mp) -> dict:
                 replaces='distributed_processor_tpu/sim/interpreter.py:3206',
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
+                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                library_ms=None)
+
+
+def _block_launch_inputs(mp, bits, cfg) -> list:
+    """The carries K1 block is launched on in one ``engine='pallas'``
+    batch of the looped headline, each cloned as the launch received
+    it."""
+    from distributed_processor_tpu_torch.sim import interpreter
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_batch
+    captured, kernel = [], interpreter.exec_blocks
+
+    def capture(st, *args):
+        captured.append({k: v.clone() for k, v in st.items()})
+        return kernel(st, *args)
+    interpreter.exec_blocks = capture
+    try:
+        simulate_batch(mp, bits, cfg=cfg, device=DEV)
+    finally:
+        interpreter.exec_blocks = kernel
+    return captured
+
+
+# the carry leaves a block body reads and writes for each lane it runs
+# (csrc/exec_span.cu load_lane/store_lane); the slot rows rst_time and
+# meas_avail are written one 4-byte slot per reset or measurement
+BODY_LEAVES = ('pc', 'regs', 'time', 'offset', 'done', 'err', 'fault', 'pp',
+               'n_pulses', 'n_resets', 'n_meas')
+
+
+def _block_bound_bytes(st: dict, out: dict, act) -> int:
+    """The bytes one K1 block launch must move from ``st`` to ``out``:
+    ``pc`` and ``done`` read for every lane; the rest of
+    :data:`BODY_LEAVES` read, and all of them written, for each lane
+    ``act`` that runs a body; one 4-byte slot written per reset or
+    measurement it retires, and a 9-word record per pulse when records
+    are on."""
+    per_lane = sum(st[k][0, 0].numel() * st[k].element_size()
+                   for k in BODY_LEAVES)
+    every = st['pc'].element_size() + st['done'].element_size()
+    n_act = int(act.sum())
+    grew = {k: int((out[k] - st[k]).sum()) for k in
+            ('n_meas', 'n_resets', 'n_pulses')}
+    rec = 9 * 4 * grew['n_pulses'] if 'rec' in st else 0
+    return st['pc'].numel() * every + n_act * (2 * per_lane - every) \
+        + 4 * (grew['n_meas'] + grew['n_resets']) + rec
+
+
+def phase_k1_block(mp, env) -> dict:
+    """K1 block (``engine='pallas'`` on the looped headline) against the
+    plain block engine (``engine='block'``) on the card, on seeded
+    injected bits: every key identical at 32768 lanes with records off
+    and at 4096 lanes with records and the opcode histogram on; then each
+    launch of one batch replayed, the kernel against its plain version,
+    with their times per launch and per batch and the bound."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.ops.exec_span import (block_table,
+                                                               exec_blocks)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _apply_blocks, _block_ids, _block_plan, _program_constants, _soa_np,
+        simulate_batch)
+    from distributed_processor_tpu_torch import isa
+    C = mp.n_cores
+    for B, record in ((LOOP['batch'], False), (LOOP['record_batch'], True)):
+        bits = loop_bits(mp, B, seed=81)
+        kw = dict(record_pulses=record, opcode_histogram=record)
+        outs = {eng: simulate_batch(mp, bits, cfg=loop_config(
+            mp, engine=eng, **kw), device=DEV) for eng in ('pallas', 'block')}
+        sync()
+        _max_abs_diff(outs['pallas'], outs['block'],
+                      f'K1 block vs plain (B={B}, records {record})')
+        print(f'K1 block vs plain block engine (B={B}, records {record}, '
+              f'histogram {record}): every key identical, steps '
+              f"{int(outs['pallas']['steps'])}")
+        del outs
+    # one batch's launches, replayed: the kernel on a clone of each input
+    # (it updates in place), the plain bodies on the input itself
+    cfg = loop_config(mp, engine='pallas')
+    B = LOOP['batch']
+    inputs = _block_launch_inputs(mp, loop_bits(mp, B, seed=82), cfg)
+    soa_np = _soa_np(mp)
+    _soa, spc, interp, _sync = _program_constants(mp, DEV)
+    table = block_table(soa_np, *_block_plan(soa_np), spc, interp, cfg)
+    worst, nbytes, retired, active = 0.0, 0, 0, 0
+    # the rows each body retires on each core (up to a DONE row)
+    kind = soa_np[..., 0]
+    eff = np.zeros((len(table.bodies), C), np.int64)
+    for k, (s0, L) in enumerate(table.bodies):
+        for c in range(C):
+            dn = np.nonzero(kind[c, s0:s0 + L] == isa.K_DONE)[0]
+            eff[k, c] = dn[0] + 1 if len(dn) else L
+    eff_t = torch.as_tensor(eff, device=DEV)
+    for st in inputs:
+        got = exec_blocks({k: v.clone() for k, v in st.items()}, table, cfg)
+        want = _apply_blocks(st, table, cfg)
+        sync()
+        worst = max(worst, _max_abs_diff(got, want, 'K1 block launch vs '
+                                                    'plain bodies'))
+        # this launch's bound: its active lanes, their rows and slots
+        bid = _block_ids(st['pc'], table.bid)
+        act = (bid >= 0) & ~st['done']
+        rows = eff_t[bid.clamp(min=0).long(),
+                     torch.arange(C, device=DEV)[None, :]]
+        retired += int((rows * act).sum())
+        active += int(act.sum())
+        nbytes += _block_bound_bytes(st, got, act) + soa_np.nbytes \
+            + table.bid.numel() * 4 + table.body_tab.numel() * 4 \
+            + 2 * spc.numel() * 4
+    n = len(inputs)
+    clones = [[{k: v.clone() for k, v in st.items()} for st in inputs]
+              for _ in range(5)]
+    it = iter(clones)
+    batch_ms = cuda_time_ms(lambda: [exec_blocks(st, table, cfg)
+                                     for st in next(it)], reps=3)
+    # the plain bodies ran on these inputs above: no warm-up
+    plain_batch_ms = cuda_time_ms(lambda: [_apply_blocks(st, table, cfg)
+                                           for st in inputs], reps=1,
+                                  warmup=0)
+    # the kernel's own device time, without the wrapper's host work
+    _wall, kernels = device_kernel_times(
+        lambda: [exec_blocks(st, table, cfg) for st in next(it)])
+    dev_ms = sum(us for name, (us, _n) in kernels.items()
+                 if 'exec_blocks_kernel' in name) / 1e3
+    device = (f'{dev_ms / n:.5f} ms per launch, {dev_ms:.4f} ms per batch'
+              if dev_ms > 0 else 'not measured (the profiler saw no CUDA '
+                                 'kernels)')
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = retired * SPAN_OPS_PER_INSTR / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f'K1 block at B={B} C={C} N={mp.n_instr}, {len(table.bodies)} '
+          f'bodies ({sum(L for _, L in table.bodies)} rows), {n} launches '
+          f'per batch: kernel {batch_ms / n:.5f} ms per launch, '
+          f'{batch_ms:.4f} ms per batch (CUDA events around the wrapper; '
+          f'device time under the profiler {device}); plain '
+          f'{plain_batch_ms / n:.4f} ms per launch, {plain_batch_ms:.4f} ms '
+          f'per batch; bound {bound_ms / n:.6f} ms per launch, '
+          f'{bound_ms:.5f} ms per batch (bytes {nbytes / 1e9:.4f} GB = '
+          f'{t_bytes:.5f} ms, operations {retired} rows retired = '
+          f'{t_ops:.5f} ms; {active} lane-bodies) on {env["smi"]}')
+    del inputs, clones
+    return dict(name='exec_blocks', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/exec_span.cu',
+                replaces='distributed_processor_tpu/sim/interpreter.py:3274',
+                max_abs_err=worst, ms=batch_ms / n,
+                plain_ms=plain_batch_ms / n,
+                bound_ms=bound_ms / n,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes',
                 library_ms=None)
 
@@ -1066,42 +1269,200 @@ def phase_k3_path(mp, env) -> int:
     return launches
 
 
-def profile_batch(fn, label: str):
-    """Where one batch's time goes: ``torch.profiler`` device time by
-    kernel over the batch's wall time (the profiler's own overhead
-    lengthens the wall time; the un-profiled batch time is above)."""
+def phase_loop_path(mp, env) -> int:
+    """The loop path: the looped headline through ``simulate_batch`` with
+    ``engine='pallas'``, then ``'auto'``, at 32768 lanes on seeded
+    injected bits (K1 block, one launch per block-engine iteration),
+    equal to the plain block engine and to the generic engine, with the
+    three engines' steady batches timed and profiled; then the physics
+    batch at sigma = 0.05 under ``'auto'`` (the block engine, K2 per
+    epoch); then sigma = 0 on the card against the CPU.  Returns K1
+    block's launches in the pallas run."""
+    import numpy as np
+    from distributed_processor_tpu_torch.parallel import physics_batch_stats
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        FAULT_CODES, fault_shot_counts, resolve_engine, simulate_batch)
+    from distributed_processor_tpu_torch.sim.physics import (
+        physics_config, run_physics_batch)
+    B, C = LOOP['batch'], mp.n_cores
+    bits = loop_bits(mp, B, seed=91)
+    outs, launches = {}, {}
+    for eng in ('pallas', 'auto'):
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = simulate_batch(mp, bits, cfg=loop_config(mp, engine=eng),
+                             device=DEV)
+        sync()
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        steps = int(out['steps'])
+        check(counts['exec_blocks'] == steps > 0
+              and _only_launched(counts, 'exec_blocks'),
+              f'loop path ({eng}) launches: {counts}, {steps} iterations')
+        faults = dict(zip([name for name, _ in FAULT_CODES],
+                          fault_shot_counts(out['fault']).tolist()))
+        check(not bool(out['incomplete']) and not any(faults.values())
+              and not bool(out['err'].any()),
+              f'loop path ({eng}) faults {faults} or errors '
+              f"{int((out['err'] != 0).sum())}")
+        check(bool((out['n_meas'] == LOOP['max_meas']).all()),
+              f'loop path ({eng}): n_meas is not {LOOP["max_meas"]} on '
+              f'every core')
+        outs[eng], launches[eng] = out, counts['exec_blocks']
+        print(f"loop path: simulate_batch(engine='{eng}') {B} lanes x "
+              f'{LOOP["n_shots"] + 1} iterations in {dt:.4f} s (first call '
+              f'of this engine), {steps} block iterations, K1 block '
+              f'launches {counts["exec_blocks"]}, no other kernel')
+    _max_abs_diff(outs['auto'], outs['pallas'],
+                  "loop path: engine='auto' vs engine='pallas'")
+    # the plain block and generic engines on the same bits (each ran
+    # before this phase, so these are steady batches), then one profiled
+    # batch of each of the three engines
+    for eng in ('block', 'generic'):
+        sync()
+        t0 = time.perf_counter()
+        outs[eng] = simulate_batch(mp, bits, cfg=loop_config(mp, engine=eng),
+                                   device=DEV)
+        sync()
+        dt = time.perf_counter() - t0
+        print(f"loop path steady batch, engine='{eng}': {dt:.4f} s, "
+              f'{B * (LOOP["n_shots"] + 1) / dt:.1f} shots/s, steps '
+              f"{int(outs[eng]['steps'])} on {env['smi']}")
+    _max_abs_diff(outs['block'], outs['pallas'],
+                  "loop path: engine='block' vs engine='pallas'")
+    ref = {k: v for k, v in outs['generic'].items() if k != 'steps'}
+    _max_abs_diff({k: v for k, v in outs['pallas'].items() if k != 'steps'},
+                  ref, "loop path: engine='pallas' vs engine='generic'")
+    print(f"loop path: outputs identical to engine='block' (steps "
+          f"{int(outs['block']['steps'])}) and engine='generic' (every key "
+          f"but steps: {int(outs['generic']['steps'])} steps); no fault, err "
+          f'0, n_meas {LOOP["max_meas"]} on every core')
+    del outs, ref
+    steady = loop_bits(mp, B, seed=92)
+    for eng in ('generic', 'block', 'pallas'):
+        cfg = loop_config(mp, engine=eng)
+        if eng == 'pallas':
+            _reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            simulate_batch(mp, steady, cfg=cfg, device=DEV)
+            sync()
+            dt = time.perf_counter() - t0
+            print(f"loop path steady batch, engine='pallas': {dt:.4f} s, "
+                  f'{B * (LOOP["n_shots"] + 1) / dt:.1f} shots/s, kernel '
+                  f'launches {_launches()} on {env["smi"]}')
+        profile_batch(lambda: int(simulate_batch(
+            mp, steady, cfg=cfg, device=DEV)['steps']),
+            f"loop path engine='{eng}'")
+
+    # physics at sigma = 0.05: 'auto' resolves to the block engine
+    model = headline_model(sigma=LOOP['sigma'])
+    cfg = loop_config(mp, engine='auto')
+    eng = resolve_engine(mp, physics_config(cfg, model), DEV)
+    check(eng == 'block', f"the loop's physics run resolves to {eng!r}")
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = run_physics_batch(mp, model, 2032, B, cfg=cfg, device=DEV)
+    stats = {k: v.cpu().numpy().tolist()
+             for k, v in physics_batch_stats(out).items()}
+    sync()
+    dt = time.perf_counter() - t0
+    counts = _launches()
+    epochs = int(out['epochs'])
+    check(counts['resolve_windows'] == epochs > 0
+          and _only_launched(counts, 'resolve_windows'),
+          f'loop physics launches {counts} in {epochs} epochs')
+    check(not bool(out['incomplete']) and sum(stats['fault_shots']) == 0,
+          f'loop physics faults: {stats["fault_shots"]}')
+    check(bool((out['n_meas'] == LOOP['max_meas']).all())
+          and bool(out['meas_bits_valid'].all()),
+          'loop physics left measurement windows unresolved')
+    print(f"loop path physics (sigma={LOOP['sigma']}, engine='auto' -> "
+          f"'{eng}'): {B} lanes in {dt:.3f} s, epochs {epochs}, K2 launches "
+          f"{counts['resolve_windows']}, block iterations "
+          f"{int(out['steps'])}; stats {json.dumps(stats)} on {env['smi']}")
+
+    # sigma = 0 on the card and on the CPU (the plain versions there)
+    Bc = LOOP['cpu_batch']
+    init = np.random.default_rng(93).integers(0, 2, (Bc, C))
+    model = headline_model(sigma=0.0)
+    t = {}
+    res = {}
+    for d in (DEV, 'cpu'):
+        t0 = time.perf_counter()
+        res[d] = run_physics_batch(mp, model, 11, Bc, init_states=init,
+                                   cfg=cfg, device=d)
+        sync()
+        t[d] = time.perf_counter() - t0
+    for key in ('meas_bits', 'meas_bits_valid', 'n_pulses', 'n_meas', 'err',
+                'fault', 'qturns', 'epochs', 'steps', 'time', 'regs'):
+        a, b = (res[d][key].cpu().numpy() for d in (DEV, 'cpu'))
+        check(np.array_equal(a, b), f'loop physics: CUDA and CPU differ in '
+                                    f'{key}')
+    sa, sb = (physics_batch_stats(res[d]) for d in (DEV, 'cpu'))
+    for key in sa:
+        check(np.array_equal(sa[key].cpu().numpy(), sb[key].cpu().numpy()),
+              f'loop physics: CUDA and CPU differ in stats {key}')
+    print(f'loop path CUDA vs CPU at sigma=0, B={Bc}: bits and stats '
+          f"identical (epochs {int(res['cpu']['epochs'])}; card "
+          f"{t[DEV]:.3f} s, CPU {t['cpu']:.3f} s)")
+    return launches['pallas']
+
+
+def device_kernel_times(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity only);
+    returns its wall time in s and ``{kernel name: [device us, count]}``,
+    read from the profiler's raw events rather than ``key_averages()``,
+    whose per-event Python tables take tens of seconds on a batch of
+    ~10^5 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA if DEV == 'cuda'
+                             else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         wall = time.perf_counter() - t0
-    dev_us, n_kernels, top = 0.0, 0, []
-    ours = {'resolve_kernel': 0.0, 'exec_span_kernel': 0.0}
-    for evt in prof.key_averages():
-        if getattr(evt, 'device_type', None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = float(getattr(evt, 'self_device_time_total', 0.0))
-        dev_us += us
-        n_kernels += evt.count
-        top.append((us, evt.count, evt.key[:60]))
-        for name in ours:
-            if name in evt.key:
-                ours[name] += us
+    kernels = {}
+    results = getattr(prof.profiler, 'kineto_results', None)
+    for evt in results.events() if results is not None else ():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(evt.name(), [0.0, 0])
+            k[0] += evt.duration_ns() / 1e3
+            k[1] += 1
+    return wall, kernels
+
+
+def profile_batch(fn, label: str):
+    """Where one batch's time goes: ``torch.profiler`` device time by
+    kernel over the batch's wall time (the profiler's own overhead
+    lengthens the wall time; the un-profiled batch time is above)."""
+    t0 = time.perf_counter()
+    wall, kernels = device_kernel_times(fn)
+    dev_us = sum(us for us, _n in kernels.values())
+    n_kernels = sum(n for _us, n in kernels.values())
+    ours = {'resolve_kernel': 0.0, 'exec_span_kernel': 0.0,
+            'exec_blocks_kernel': 0.0}
+    for name, (us, _n) in kernels.items():
+        for k in ours:
+            if k in name:
+                ours[k] += us
     if dev_us == 0.0:
         print(f'{label} breakdown: device time not measured (the '
               f'profiler saw no CUDA kernels)')
         return
-    top.sort(reverse=True)
+    top = sorted(((us, n, name[:60]) for name, (us, n) in kernels.items()),
+                 reverse=True)
     print(f'{label} breakdown (torch.profiler, one batch): wall '
           f'{wall:.4f} s, device busy {dev_us / 1e6:.4f} s '
           f'({100 * dev_us / 1e6 / wall:.1f}%), {n_kernels} kernel '
           f'launches; ' + ', '.join(
               f'{name} {us / 1e6:.4f} s ({100 * us / dev_us:.1f}% of device '
-              f'time)' for name, us in ours.items()))
+              f'time)' for name, us in ours.items())
+          + f'; profiling took {time.perf_counter() - t0:.2f} s in all')
     for us, count, name in top[:8]:
         print(f'  {us / 1e3:10.3f} ms  {count:6d}x  {name}')
 
@@ -1162,6 +1523,14 @@ def phase_sweep(mp, env):
           + f', survival00 {res["survival00_rate"]:.5f}')
 
 
+def timed(fn, *args):
+    """``fn(*args)``, with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f'[{fn.__name__}: {time.perf_counter() - t0:.1f} s]')
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1170,33 +1539,39 @@ def main() -> int:
     # the port must be importable from here (a bare copy of this script
     # fails at this import)
     import distributed_processor_tpu_torch  # noqa: F401
-    env = phase_environment()
+    t_start = time.perf_counter()
+    env = timed(phase_environment)
     mp = headline_program()
-    resolve = phase_kernels(mp)
+    resolve = timed(phase_kernels, mp)
     torch.cuda.empty_cache()
-    k1 = phase_k1(mp)
-    k3 = phase_k3(mp)
+    k1 = timed(phase_k1, mp)
+    k3 = timed(phase_k3, mp)
     torch.cuda.empty_cache()
     from distributed_processor_tpu_torch import Simulator
     sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)
-    k4 = phase_k4(sim, render_run(sim, mp, 256, seed=50), env)
-    k5 = phase_k5(env)
+    k4 = timed(phase_k4, sim, render_run(sim, mp, 256, seed=50), env)
+    k5 = timed(phase_k5, env)
+    loop_mp = loop_program()
+    k1_block = timed(phase_k1_block, loop_mp, env)
     torch.cuda.empty_cache()
-    resolve['launches'] = phase_main_path(mp, env)
-    k1['launches'] = phase_k1_path(mp, env)
-    k3['launches'] = phase_k3_path(mp, env)
-    counts = phase_render_path(env)
+    resolve['launches'] = timed(phase_main_path, mp, env)
+    k1['launches'] = timed(phase_k1_path, mp, env)
+    k3['launches'] = timed(phase_k3_path, mp, env)
+    k1_block['launches'] = timed(phase_loop_path, loop_mp, env)
+    torch.cuda.empty_cache()
+    counts = timed(phase_render_path, env)
     k4['launches'] = counts['synthesize_element']
     k5['launches'] = counts['demod_iq']
     torch.cuda.empty_cache()
-    phase_cuda_vs_cpu(mp)
-    phase_sweep(mp, env)
+    timed(phase_cuda_vs_cpu, mp)
+    timed(phase_sweep, mp, env)
+    print(f'[all phases: {time.perf_counter() - t_start:.1f} s]')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'library_ms')
     print(json.dumps({'kernels': [{k: kernel[k] for k in order}
                                   for kernel in (resolve, k1, k3, k4,
-                                                 k5)]}))
+                                                 k5, k1_block)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Batched PyTorch interpreter for the distributed-processor ISA: the
-generic fetch-dispatch engine, the straight-line engine and the engine
-ladder.
+generic fetch-dispatch engine, the straight-line engine, the block
+engine and the engine ladder.
 
 Counterpart of ``distributed_processor_tpu/sim/interpreter.py`` (the
 JAX engine, which is the reference).  The machine state is held in int32
@@ -15,16 +15,23 @@ tensors shaped ``[n_shots, n_cores, ...]``.
   over a forward-jump-only program, index by index.  It is the plain
   version of the span kernels K1 (``engine='pallas'``) and K3
   (``engine='fused'``, :mod:`.physics`), ``csrc/exec_span.cu``.
+* The block engine (:func:`_exec_blocks`) runs any program, loops
+  included: per iteration one generic step for cores at a branch, fproc
+  read or sync, and one whole straight-line superinstruction for cores
+  at a block start.  Its bodies (:func:`_apply_blocks`) are the plain
+  version of the megastep kernel's block mode, K1 block
+  (``engine='pallas'`` on a looping program).
 * :func:`simulate` runs one shot: the batch entry at a batch of one.
 * :func:`resolve_engine` is the JAX package's ladder; ``'auto'`` picks
-  the K1 kernel on a CUDA device where the JAX package picks its Pallas
-  kernel on a TPU.
+  the K1 kernel (span or block mode) on a CUDA device where the JAX
+  package picks its Pallas kernel on a TPU.
 
 Dynamic indexing uses ``torch.gather`` where the JAX engine uses one-hot
 multiply-reduce for the TPU's vector unit.  The contract is identical
 integers: every output key, ``err`` and ``fault`` included, matches the
 JAX run of the same engine on the same injected bits
-(tests/test_torch_interpreter.py, tests/test_torch_straightline.py).
+(tests/test_torch_interpreter.py, tests/test_torch_straightline.py,
+tests/test_torch_blocks.py).
 
 Scope: the parity device and physics mode, the ``'sticky'`` and
 ``'fresh'`` fabrics.  Everything else raises ``NotImplementedError``
@@ -33,13 +40,14 @@ naming the ROADMAP.md item that ports it.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .. import isa
-from ..ops.exec_span import exec_span
+from ..ops.exec_span import block_table, exec_blocks, exec_span
 
 # timing constants of the scalar golden model (the JAX package's
 # sim/oracle.py): program start time, sync release -> qclk zero, rdlo
@@ -405,13 +413,27 @@ def _static_meas_bounds(soa_np, cfg: InterpreterConfig):
     return bound, n_rst
 
 
+@functools.lru_cache(maxsize=128)
+def _block_plan_of(shape: tuple, content: bytes):
+    soa_np = np.frombuffer(content, dtype=np.int32).reshape(shape)
+    bid_at, bodies = isa.build_block_table(
+        {name: soa_np[:, :, _F[name]] for name in _FIELDS})
+    return bid_at, tuple(bodies)
+
+
+def _block_plan(soa_np):
+    """The block table of a packed ``[C, N, F]`` program: ``(bid_at,
+    bodies)`` from :func:`isa.build_block_table`, cached on the
+    program's content."""
+    soa_np = np.ascontiguousarray(soa_np, dtype=np.int32)
+    return _block_plan_of(soa_np.shape, soa_np.tobytes())
+
+
 def _block_unroll_ok(mp) -> bool:
     """The block engine's ``'auto'`` size cap: at least one deduplicated
     superinstruction body (:func:`isa.build_block_table`), and their
     total length within :data:`BLOCK_AUTO_MAX_UNROLL`."""
-    soa_np = _soa_np(mp)
-    _, bodies = isa.build_block_table(
-        {name: soa_np[:, :, _F[name]] for name in _FIELDS})
+    _, bodies = _block_plan(_soa_np(mp))
     return bool(bodies) and sum(L for _, L in bodies) \
         <= BLOCK_AUTO_MAX_UNROLL
 
@@ -506,11 +528,6 @@ def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
         raise not_ported(f'device={cfg.device!r}', 4)
     if cfg.rounds != 1:
         raise not_ported(f'rounds={cfg.rounds}', 8)
-    if eng == 'block':
-        raise not_ported('the block engine', 8)
-    if eng == 'pallas' and _pallas_mode(mp, cfg) == 'block':
-        raise not_ported("engine='pallas' on a looping program (the "
-                         "megastep kernel's block mode)", 8)
     return eng
 
 
@@ -940,27 +957,133 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
             break
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
                                 meas_valid, cfg, traits)
-        # quiescence per shot: no live core changed state
-        same = ((st2['pc'] == st['pc']) & (st2['time'] == st['time'])
-                & (st2['done'] == st['done'])).all(-1)            # [B]
-        if cfg.physics:
-            # quiescent with a core awaiting an unresolved bit = pause
-            # for the resolver; quiescent without one is a deadlock
-            pending = (st2['phys_wait'] & ~st2['done']).any(-1)
-            paused = paused | (same & pending)
-            hard = same & ~pending
-        else:
-            hard = same
-        undone = hard[:, None] & ~st2['done']
-        st2['err'] = torch.where(undone, st2['err'] | ERR_FPROC_DEADLOCK,
-                                 st2['err'])
-        st2['fault'] = st2['fault'] \
-            | _bit(undone & stall_sync, FAULT_SYNC_DEADLOCK) \
-            | _bit(undone & ~stall_sync, FAULT_FPROC_STARVED)
-        st2['done'] = st2['done'] | hard[:, None]
-        st = st2
+        st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
         steps += 1
     return st, steps, paused
+
+
+def _quiesce(st: dict, st2: dict, stall_sync, paused, cfg):
+    """End of one engine iteration from ``st`` to ``st2``: a shot in
+    which no live core changed state is paused for the resolver (physics
+    mode, a core awaiting an unresolved bit) or deadlocked — its undone
+    cores are halted with ``ERR_FPROC_DEADLOCK`` and the fault of what
+    they stall on (``stall_sync``: a sync barrier).  Returns
+    ``(st2, paused)``."""
+    same = ((st2['pc'] == st['pc']) & (st2['time'] == st['time'])
+            & (st2['done'] == st['done'])).all(-1)                # [B]
+    if cfg.physics:
+        # quiescent with a core awaiting an unresolved bit = pause for
+        # the resolver; quiescent without one is a deadlock
+        pending = (st2['phys_wait'] & ~st2['done']).any(-1)
+        paused = paused | (same & pending)
+        hard = same & ~pending
+    else:
+        hard = same
+    undone = hard[:, None] & ~st2['done']
+    st2['err'] = torch.where(undone, st2['err'] | ERR_FPROC_DEADLOCK,
+                             st2['err'])
+    st2['fault'] = st2['fault'] \
+        | _bit(undone & stall_sync, FAULT_SYNC_DEADLOCK) \
+        | _bit(undone & ~stall_sync, FAULT_FPROC_STARVED)
+    st2['done'] = st2['done'] | hard[:, None]
+    return st2, paused
+
+
+# ---------------------------------------------------------------------------
+# The block engine: one boundary step and one superinstruction per core per
+# iteration — the plain torch version of the megastep kernel's block mode
+# (K1 block, csrc/exec_span.cu).
+
+
+def _block_ids(pc, bid_tab):
+    """``bid_at[pc]`` per lane, -1 for a ``pc`` outside the program."""
+    N = bid_tab.shape[0]
+    inside = (pc >= 0) & (pc < N)
+    return torch.where(inside, bid_tab[pc.clamp(0, N - 1).long()], -1)
+
+
+def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
+                 meas_bits, meas_valid, cfg: InterpreterConfig, traits,
+                 kernel: bool = False):
+    """The block-compiled engine — the JAX ``_exec_blocks``, with
+    :func:`_exec_loop`'s calling shape: returns ``(st, steps, paused)``.
+
+    Per iteration each core either takes ONE generic :func:`_step` (it
+    is at a terminator: a branch, fproc read, sync or a position that
+    starts no block) or retires a whole deduplicated straight-line body
+    of :func:`isa.build_block_table`.  The boundary step runs first for
+    every lane; cores parked at a block start are reverted to their
+    iteration-start state, so cross-core fproc and sync reads see that
+    state either way.  Block ids are then taken afresh, so a core the
+    boundary step just moved onto a block start retires that block in
+    the same iteration; a body that ends on another block's start waits
+    for the next.  ``steps`` counts iterations, bounded by
+    ``cfg.max_steps``; quiescence, deadlock and the physics pause are
+    :func:`_exec_loop`'s.  The JAX engine's batch-wide exactness select
+    is this loop's condition: an iteration runs only while some shot is
+    unsettled and budget is left.
+
+    ``kernel``: run the bodies with the K1 block kernel
+    (:func:`..ops.exec_span.exec_blocks`; ``engine='pallas'``), else
+    with their plain version :func:`_apply_blocks`."""
+    soa_np = soa.cpu().numpy()
+    table = block_table(soa_np, *_block_plan(soa_np), spc, interp, cfg)
+    run_bodies = exec_blocks if kernel else _apply_blocks
+    B, C = st['pc'].shape
+    while steps < cfg.max_steps:
+        settled = st['done'].all(-1)
+        if cfg.physics:
+            settled = settled | paused
+        if bool(settled.all()):
+            break
+        # (1) boundary step, undone for cores parked at a block start
+        sup = _block_ids(st['pc'], table.bid) >= 0
+        st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
+                                meas_valid, cfg, traits)
+        stall_sync = stall_sync & ~sup
+        st2 = {k: torch.where(sup.view(B, C, *(1,) * (v.ndim - 2)), st[k], v)
+               for k, v in st2.items()}
+        # (2) one superinstruction per core at a block start (the kernel
+        # updates st2's fresh tensors in place)
+        st2 = run_bodies(st2, table, cfg)
+        st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
+        steps += 1
+    return st, steps, paused
+
+
+def _apply_blocks(st: dict, table, cfg: InterpreterConfig) -> dict:
+    """The plain version of one K1 block launch: every live lane whose
+    ``pc`` starts a block retires that block's deduplicated body
+    ``table.bodies[table.bid[pc]]`` (rows of ``table.soa_np [C, N, F]``;
+    :func:`..ops.exec_span.block_table`).  The block ids are fixed
+    before any body runs."""
+    bid = _block_ids(st['pc'], table.bid)
+    for k, (s, L) in enumerate(table.bodies):
+        act = (bid == k) & ~st['done']
+        st = _exec_block_body(st, act, table.soa_np[:, s:s + L, :],
+                              table.spc, table.interp, cfg)
+    return st
+
+
+def _exec_block_body(st: dict, act, rows_np, spc, interp,
+                     cfg: InterpreterConfig) -> dict:
+    """One deduplicated superinstruction: the ``[C, L, F]`` rows
+    ``rows_np`` applied in order to the lanes selected by ``act [B, C]``
+    — the JAX ``_exec_block_body`` / ``_blk_apply_row``.
+
+    A body holds only :data:`isa.BLOCK_BODY_KINDS` (its terminators are
+    refined out by :func:`isa.build_block_table`), so each row is the
+    straight-line engine's instruction body (:func:`_sl_apply_instr`)
+    with ``pc`` advancing relatively (``pc + 1`` per retired row: a
+    deduplicated body serves segments at other start addresses) and no
+    ``pc == i`` gate.  A DONE row halts the lane inline without
+    advancing ``pc``."""
+    L = rows_np.shape[1]
+    for off in range(L):
+        f = {name: rows_np[:, off, _F[name]] for name in _FIELDS}
+        st, _ = _sl_apply_instr(st, None, None, L, f, spc, interp, None,
+                                None, cfg, act=act)
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -1013,10 +1136,14 @@ def _reg_read_static(regs, addr_c):
 
 def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
                     interp, meas_bits, meas_valid, cfg: InterpreterConfig,
-                    fused: dict = None):
+                    fused: dict = None, act=None):
     """Apply instruction index ``i`` (static fields ``f``, one value per
     core) to every lane with ``pc == i`` — the JAX ``_sl_apply_instr``.
     Returns ``(st, stalled)``.
+
+    ``act``: block mode (:func:`_exec_block_body`) — apply the row to
+    the live lanes of ``act [B, C]`` instead, advancing ``pc`` by one;
+    the row is a body kind, so ``stalled`` and ``i`` are unused.
 
     ``fused``: the measure-in-megastep directive (K3's plain version):
     a measurement trigger also computes its window's sigma = 0 bit
@@ -1041,7 +1168,10 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
         """A static per-core value as a ``[1, C, ...]`` tensor."""
         return torch.as_tensor(np.asarray(a), device=dev)[None]
 
-    active = (st['pc'] == i) & ~st['done'] & ~stalled
+    if act is None:
+        active = (st['pc'] == i) & ~st['done'] & ~stalled
+    else:
+        active = act & ~st['done']
     time, offset, regs = st['time'], st['offset'], st['regs']
     err_i = torch.zeros((B, C), dtype=i32, device=dev)
     fault_i = torch.zeros((B, C), dtype=i32, device=dev)
@@ -1197,7 +1327,8 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
             + (active[..., None] & j(oh_kind)).to(i32)
 
     # ---- next pc / time / offset / done --------------------------------
-    pc_next = torch.full((B, C), i + 1, dtype=i32, device=dev)
+    pc_next = st['pc'] + 1 if act is not None \
+        else torch.full((B, C), i + 1, dtype=i32, device=dev)
     m_jump = m_jmpi | m_jcond | m_jfp
     if has(m_jump):
         branch = (alu_res & 1) == 1
@@ -1358,11 +1489,15 @@ def simulate_batch(mp, meas_bits, init_regs=None,
     B = meas_bits.shape[0]
     st = _init_state(B, mp.n_cores, cfg, init_regs, device)
     meas_valid = torch.ones(meas_bits.shape, dtype=torch.bool, device=device)
-    if eng == 'generic':
+    # a looping program on 'pallas': the block engine with K1 block as
+    # its bodies
+    kernel_blocks = eng == 'pallas' and _pallas_mode(mp, cfg) == 'block'
+    if eng in ('generic', 'block') or kernel_blocks:
         paused = torch.zeros((B,), dtype=torch.bool, device=device)
-        st, steps, _ = _exec_loop(st, 0, paused, soa, spc, interp, sync_part,
-                                  meas_bits, meas_valid, cfg,
-                                  program_traits(mp))
+        loop = _exec_loop if eng == 'generic' else functools.partial(
+            _exec_blocks, kernel=kernel_blocks)
+        st, steps, _ = loop(st, 0, paused, soa, spc, interp, sync_part,
+                            meas_bits, meas_valid, cfg, program_traits(mp))
     else:
         # one pass retires every lane: every injected bit is valid
         soa_np = _soa_np(mp)

@@ -6,8 +6,8 @@ closes its measurement loop in hardware (rdlo pulse -> demodulator ->
 hdl/core_state_mgr.sv:45-56).  Here, as in the JAX package, each epoch
 
 1. **executes** every (shot, core) lane on the resolved engine (generic,
-   or one straight-line pass) until it is done or stalled on an fproc
-   read whose bit is fired but not yet demodulated;
+   block, or one straight-line pass) until it is done or stalled on an
+   fproc read whose bit is fired but not yet demodulated;
 2. **resolves** the first fired-but-unresolved readout window of every
    lane through the per-sample chain (:mod:`..ops.resolve`: the CUDA
    kernel on the card, its plain torch version on the CPU) and
@@ -42,10 +42,10 @@ from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
     carrier_phase
 from .device import DeviceModel
 from .interpreter import (InterpreterConfig, _program_constants,
-                          _init_state, _exec_loop, _exec_straightline,
-                          _finalize, _fault_policy, _check_strict,
-                          _soa_np, check_supported, program_traits,
-                          not_ported, torch_device)
+                          _init_state, _exec_blocks, _exec_loop,
+                          _exec_straightline, _finalize, _fault_policy,
+                          _check_strict, _soa_np, check_supported,
+                          program_traits, not_ported, torch_device)
 
 # default-qchip X90 amplitude word: round(0.48 * (2^16 - 1))
 X90_AMP_DEFAULT = 31457
@@ -489,8 +489,9 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     while ep < max_epochs:
         more = ((slots < st['n_meas'][..., None]) & ~valid).any()
         # the straight-line engines end by structure (one visit per
-        # index), so only the generic engine spends the step budget
-        if eng != 'generic' or steps < cfg.max_steps:
+        # index), so only the generic and block engines spend the step
+        # budget
+        if eng in ('straightline', 'fused') or steps < cfg.max_steps:
             more = more | ~st['done'].all()
         if not bool(more):
             break
@@ -506,6 +507,12 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
             st = _exec_straightline(st, soa_np, spc, interp, bits, valid,
                                     cfg)
             steps += soa_np.shape[1]
+        elif eng == 'block':
+            # a fproc read pauses only in the boundary step, as in the
+            # generic engine
+            st, steps, paused = _exec_blocks(st, steps, paused, soa, spc,
+                                             interp, sync_part, bits, valid,
+                                             cfg, traits)
         else:
             st, steps, paused = _exec_loop(st, steps, paused, soa, spc,
                                            interp, sync_part, bits, valid,

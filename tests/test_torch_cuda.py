@@ -10,15 +10,18 @@ host does not have.)  The kernel ``csrc/resolve.cu`` is held against
 its plain torch version on the same inputs (rtol 1e-5, atol 1e-5 *
 max|energy|: the kernel sums sample by sample, the plain version chunk
 by chunk), and the physics loop on the card against the same loop on
-the CPU (identical bits at sigma = 0).  The span kernels of
+the CPU (identical bits at sigma = 0).  The megastep kernels of
 ``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
 engine on the card, K3 against its plain version and against the
-generic engine.  The waveform kernel ``csrc/waveform.cu`` is held against
-its plain version to atol 1e-5 (the same arithmetic; ``sincosf`` against
-``sin`` and ``cos``), the demod kernel ``csrc/demod.cu`` to rtol 2e-5 /
-atol 2e-4 (float32 sums of 1024 products of magnitude ~1 taken in another
-order than ``torch.matmul``).  This file imports nothing of JAX; its
-straight-line fuzz generator serves tests/test_torch_straightline.py too.
+generic engine, K1 block (``engine='pallas'`` on a looping program)
+against the block engine's plain bodies.  The waveform kernel
+``csrc/waveform.cu`` is held against its plain version to atol 1e-5
+(the same arithmetic; ``sincosf`` against ``sin`` and ``cos``), the
+demod kernel ``csrc/demod.cu`` to rtol 2e-5 / atol 2e-4 (float32 sums
+of 1024 products of magnitude ~1 taken in another order than
+``torch.matmul``).  This file imports nothing of JAX; its
+straight-line and branchy fuzz generators serve
+tests/test_torch_straightline.py and tests/test_torch_blocks.py too.
 """
 
 import dataclasses
@@ -315,6 +318,220 @@ def test_k1_rejects_bad_inputs(card, program):
     with pytest.raises(ValueError, match='geometry'):
         exec_span(st, _soa_np(program), torch.zeros_like(spc), interp, bits,
                   cfg)
+
+
+# ---------------------------------------------------------------------------
+# the block mode of the megastep kernel, K1 block (csrc/exec_span.cu)
+
+
+def branchy_program(rng, isa, from_cmds):
+    """Random 2-core program with backward counted loops (terminating by
+    construction: counter regs 4..7 count loops and random ALU writes
+    only regs 0..3), forward jumps, own-core sticky fproc reads and, half
+    the time, a global SYNC barrier — the generator of the JAX package's
+    tests/test_blocks.py ``_random_branchy_program``, over the encoder
+    ``isa`` and ``machine_program_from_cmds`` of either package, drawing
+    the same numbers in the same order."""
+    C = 2
+    use_sync = bool(rng.integers(0, 2))
+    cores = []
+    for c in range(C):
+        cmds = []
+        t = 20
+
+        def plain(n):
+            nonlocal t
+            for _ in range(n):
+                kind = rng.choice(['pt', 'pw', 'alu', 'idle', 'rst',
+                                   'incq'], p=[.3, .15, .25, .15, .05, .1])
+                if kind == 'pt':
+                    t += int(rng.integers(-5, 60))
+                    cmds.append(isa.pulse_cmd(
+                        cmd_time=max(t, 0),
+                        cfg_word=int(rng.integers(0, 3)),
+                        env_word=int(rng.integers(0, 1 << 14)),
+                        amp_word=int(rng.integers(0, 1 << 16)),
+                        phase_word=int(rng.integers(0, 1 << 17)),
+                        freq_word=int(rng.integers(0, 4))))
+                elif kind == 'pw':
+                    cmds.append(isa.pulse_cmd(
+                        amp_word=int(rng.integers(0, 1 << 16)),
+                        phase_word=int(rng.integers(0, 1 << 17))))
+                elif kind == 'alu':
+                    cmds.append(isa.alu_cmd(
+                        'reg_alu', rng.choice(['i', 'r']),
+                        int(rng.integers(-50, 50)),
+                        rng.choice(['add', 'sub', 'eq', 'le', 'ge']),
+                        alu_in1=int(rng.integers(0, 4)),
+                        write_reg_addr=int(rng.integers(0, 4))))
+                elif kind == 'idle':
+                    t += int(rng.integers(0, 80))
+                    cmds.append(isa.idle(t))
+                elif kind == 'rst':
+                    cmds.append(isa.pulse_reset())
+                else:
+                    cmds.append(isa.alu_cmd('inc_qclk', 'i',
+                                            int(rng.integers(-30, 30)),
+                                            'add'))
+
+        def branchy(n):
+            for _ in range(n):
+                r = rng.random()
+                if r < 0.25:
+                    cmds.append(('jc', int(rng.integers(-20, 20)),
+                                 rng.choice(['eq', 'le', 'ge'])))
+                elif r < 0.35:
+                    cmds.append(('ji',))
+                elif r < 0.55:
+                    cmds.append(('fproc', int(rng.integers(0, 2))))
+                else:
+                    plain(1)
+
+        def loop(counter_reg):
+            start = len(cmds)
+            plain(int(rng.integers(1, 4)))
+            cmds.append(isa.alu_cmd('reg_alu', 'i', 1, 'add',
+                                    alu_in1=counter_reg,
+                                    write_reg_addr=counter_reg))
+            cmds.append(isa.alu_cmd('jump_cond', 'i',
+                                    int(rng.integers(2, 5)), 'ge',
+                                    alu_in1=counter_reg,
+                                    jump_cmd_ptr=start))
+
+        branchy(int(rng.integers(3, 7)))
+        loop(4)
+        if use_sync:
+            cmds.append(isa.sync(0))
+        branchy(int(rng.integers(2, 6)))
+        if rng.integers(0, 2):
+            loop(5)
+        # forward targets, landing inside the body or on DONE
+        n = len(cmds) + 1
+        out = []
+        for i, cmd in enumerate(cmds):
+            if isinstance(cmd, tuple) and cmd[0] == 'jc':
+                out.append(isa.alu_cmd(
+                    'jump_cond', 'i', cmd[1], cmd[2],
+                    alu_in1=int(rng.integers(0, 4)),
+                    jump_cmd_ptr=int(rng.integers(i + 1, n))))
+            elif isinstance(cmd, tuple) and cmd[0] == 'ji':
+                out.append(isa.jump_i(int(rng.integers(i + 1, n))))
+            elif isinstance(cmd, tuple) and cmd[0] == 'fproc':
+                op = 'jump_fproc' if cmd[1] else 'alu_fproc'
+                out.append(isa.alu_cmd(
+                    op, 'i', int(rng.integers(0, 2)), 'eq',
+                    write_reg_addr=int(rng.integers(0, 4)),
+                    jump_cmd_ptr=int(rng.integers(i + 1, n)), func_id=c))
+            else:
+                out.append(cmd)
+        out.append(isa.done_cmd())
+        cores.append(out)
+    return from_cmds(cores)
+
+
+def looped_program(n_qubits=3, depth=3, loops=3):
+    """Active reset + RB inside the on-device shot loop (``loops`` + 1
+    iterations: the loop is a do-while on ``ge``)."""
+    from distributed_processor_tpu_torch.models.experiments import \
+        loop_shots_program
+    qubits = [f'Q{i}' for i in range(n_qubits)]
+    body = active_reset(qubits) + rb_program(qubits, depth, seed=1234)
+    return compile_to_machine(loop_shots_program(body, loops, scope=qubits),
+                              make_default_qchip(max(n_qubits, 2)),
+                              n_qubits=n_qubits)
+
+
+def _block_programs():
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    return [looped_program()] + [
+        branchy_program(np.random.default_rng(300 + s), isa,
+                        machine_program_from_cmds) for s in range(3)]
+
+
+@pytest.mark.parametrize('record', [False, True])
+def test_k1_block_matches_plain_version(card, record):
+    """``engine='pallas'`` on looping programs (the block engine with K1
+    block as its bodies) against ``engine='block'`` (the plain bodies) on
+    the card: every output key identical, ``steps`` included, and one
+    launch per block-engine iteration."""
+    from distributed_processor_tpu_torch.ops.exec_span import (exec_blocks,
+                                                               exec_span)
+    for k, mp in enumerate(_block_programs()):
+        rng = np.random.default_rng(20 + k)
+        B = 3000
+        bits = torch.as_tensor(rng.integers(0, 2, (B, mp.n_cores, 8)),
+                               dtype=torch.int32, device=card)
+        kw = dict(mp.static_bounds(), max_meas=8, max_resets=128,
+                  record_pulses=record, opcode_histogram=True)
+        before, span_before = exec_blocks.launches, exec_span.launches
+        got = simulate_batch(mp, bits, cfg=InterpreterConfig(
+            engine='pallas', **kw), device=card)
+        assert exec_blocks.launches - before == int(got['steps'])
+        assert exec_span.launches == span_before
+        want = simulate_batch(mp, bits, cfg=InterpreterConfig(
+            engine='block', **kw), device=card)
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+        assert not bool(got['incomplete'])
+
+
+def test_k1_block_serves_auto_on_the_card(card):
+    from distributed_processor_tpu_torch.ops.exec_span import exec_blocks
+    mp = looped_program()
+    bits = torch.zeros((64, mp.n_cores, 8), dtype=torch.int32, device=card)
+    before = exec_blocks.launches
+    out = simulate_batch(mp, bits, cfg=InterpreterConfig(
+        engine='auto', **mp.static_bounds(), max_meas=8), device=card)
+    assert exec_blocks.launches - before == int(out['steps']) > 0
+    assert bool(out['done'].all())
+
+
+def test_block_physics_on_card_matches_cpu(card):
+    """The block engine's physics mode (plain bodies, K2 per epoch) on
+    the card against the CPU at sigma = 0: bits and integer outputs
+    identical."""
+    mp = looped_program()
+    B = 256
+    init = np.random.default_rng(8).integers(0, 2, (B, mp.n_cores))
+    cfg = InterpreterConfig(**mp.static_bounds(), max_meas=8, max_resets=2,
+                            record_pulses=False, engine='auto')
+    model = ReadoutPhysics(sigma=0.0, resolve_mode='fused',
+                           resolve_chunk=256)
+    before = resolve_windows_fused.launches
+    outs = {d: run_physics_batch(mp, model, 1, B, init_states=init, cfg=cfg,
+                                 device=d) for d in (card, 'cpu')}
+    assert resolve_windows_fused.launches - before \
+        == int(outs[card]['epochs'])
+    for key in ('meas_bits', 'meas_bits_valid', 'n_pulses', 'n_meas', 'err',
+                'fault', 'qturns', 'epochs', 'steps'):
+        assert torch.equal(outs[card][key].cpu(), outs['cpu'][key]), key
+    assert bool(outs['cpu']['meas_bits_valid'].all())
+
+
+def test_k1_block_rejects_bad_inputs(card):
+    from distributed_processor_tpu_torch.ops.exec_span import (block_table,
+                                                               exec_blocks)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _block_plan, _init_state, _program_constants, _soa_np)
+    mp = looped_program()
+    cfg = InterpreterConfig(max_meas=8)
+    _soa, spc, interp, _sync = _program_constants(mp, card)
+    st = _init_state(8, mp.n_cores, cfg, None, card)
+    soa_np = _soa_np(mp)
+    bid_at, bodies = _block_plan(soa_np)
+    with pytest.raises(ValueError, match='block table'):
+        block_table(soa_np, bid_at[:-1], bodies, spc, interp, cfg)
+    with pytest.raises(ValueError, match='block table'):
+        block_table(soa_np, bid_at, [(0, mp.n_instr)], spc, interp, cfg)
+    table = block_table(soa_np, bid_at, bodies, spc, interp, cfg)
+    with pytest.raises(ValueError, match='physics'):
+        exec_blocks(st, table, dataclasses.replace(cfg, physics=True))
+    cpu_table = block_table(soa_np, bid_at, bodies, spc.cpu(), interp.cpu(),
+                            cfg)
+    with pytest.raises(ValueError, match='block table lies on'):
+        exec_blocks(st, cpu_table, cfg)
 
 
 # ---------------------------------------------------------------------------

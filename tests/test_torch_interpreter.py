@@ -235,13 +235,13 @@ def test_engine_selection():
     ref = torch_simulate_batch(mp, meas, device='cpu')
     for kw in ({}, {'engine': 'generic'}, {'engine': 'auto'},
                {'straightline': None}, {'engine': 'straightline'},
-               {'engine': 'pallas'}, {'straightline': True}):
+               {'engine': 'pallas'}, {'straightline': True},
+               {'engine': 'block'}):
         out = torch_simulate_batch(mp, meas, device='cpu', **kw)
         for key in ref:
             if key != 'steps':
                 assert torch.equal(out[key], ref[key]), (kw, key)
-    for kw in ({'engine': 'block'}, {'trace': True},
-               {'cores_axis': 'cores'}):
+    for kw in ({'trace': True}, {'cores_axis': 'cores'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             torch_simulate_batch(mp, meas, device='cpu', **kw)
     # the fused engine closes the physics loop: not on injected bits

@@ -268,12 +268,20 @@ def test_forced_engine_errors_match_jax():
                       device='parity')
     assert_same_error(span, bits_s, engine='fused')
     assert_same_error(span, bits_s, engine='nope')
-    # what the port has not ported yet names its ROADMAP item
-    for kw in (dict(engine='block'), dict(engine='pallas'),
-               dict(engine='auto')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_simulate_batch(_to_port(loop), bits_l, device='cpu',
-                                 max_steps=100, **kw)
+    # the engines a loop may take run it as JAX does: 'pallas' on a loop
+    # is the block engine with K1 block's bodies (plain on the CPU), so
+    # it is held against JAX 'block'; 'auto' against JAX 'auto'
+    for eng, jax_eng in (('block', 'block'), ('pallas', 'block'),
+                         ('auto', 'auto')):
+        out_j = jax_simulate_batch(loop, bits_l, cfg=JCfg(
+            engine=jax_eng, max_steps=100))
+        out_t = torch_simulate_batch(_to_port(loop), bits_l, device='cpu',
+                                     engine=eng, max_steps=100)
+        assert set(out_t) == set(out_j)
+        for key in out_j:
+            np.testing.assert_array_equal(out_t[key].numpy(),
+                                          np.asarray(out_j[key]),
+                                          err_msg=f'{eng}: {key}')
 
 
 # ---------------------------------------------------------------------------
