@@ -74,15 +74,29 @@ def check(cond, msg: str):
 # tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# float32 operations per resolved sample (csrc/resolve.cu): the chain
-# (carrier rotation, envelope product, amplitude, channel, matched
-# filter) is 36; Box-Muller noise adds log, sqrt, sin, cos and ~10 more
-CHAIN_OPS, NOISE_OPS = 36, 14
+# issue rates of one H100 SXM per clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0): 128
+# 32-bit instructions (float32 add/multiply/FMA, logic, shifts), 64
+# 32-bit integer multiplies, 16 special-function operations (log2, rsqrt,
+# sqrt, sin, cos); 132 SMs at the 1.98 GHz boost clock (NVIDIA H100 data
+# sheet)
+H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
+ISSUE_PER_CLK, IMUL_PER_CLK, SFU_PER_CLK = 128, 64, 16
+# K2's work per noisy sample, whatever implements it (csrc/resolve.cu):
+# half a Philox4x32-10 call (10 32x32->64-bit multiplies and 10
+# three-way xors), Box-Muller (2 uniforms from random bits, 3 shifts and
+# ors each; log, sqrt, sin and cos on the special-function unit; the log's
+# scale, the angle and 2 radius products) and the 4-FMA projection onto
+# the window's carrier: 38 instructions, 4 of them special-function
+# operations, 10 multiplies; per window: its scalars, the row select, the
+# prefix reads, the deterministic products and the warp's reduce, ~32
+K2_SAMPLE_INSTR, K2_SAMPLE_SFU, K2_SAMPLE_IMUL = 38, 4, 10
+K2_WINDOW_INSTR = 32
 # 32-bit operations per retired instruction of the span kernels
 # (csrc/exec_span.cu: decode and dispatch, ALU, pulse latch and trigger,
 # next pc/time), counted against the float32 peak — the card's integer
 # rate is no higher; per K3 measurement, the discriminator's 21 float32
-# operations besides one add per energy sample
+# operations and one read of the window's energy prefix
 SPAN_OPS_PER_INSTR, DISCRIMINATE_OPS = 40, 21
 
 # float32 operations per in-window sample of the waveform kernel
@@ -99,6 +113,11 @@ HEADLINE = dict(n_qubits=8, depth=12, batch=262144, sweep_batches=4,
 # at smaller batches
 LOOP = dict(n_shots=7, batch=32768, record_batch=4096, cpu_batch=1024,
             max_meas=16, max_resets=2, sigma=0.05)
+# K2's synthetic tables: four static rows (the last two run past the
+# 64-sample envelope into its held last sample), two carrier frequencies
+# and mixed interpolation per core
+SYNTH = dict(rows=(0, 8, 28, 40), n_freqs=2, env_len=64,
+             interps=(4, 2, 1, 4, 2, 1, 4, 2))
 # K4's long capture: a trace the render never reaches
 CAPTURE = dict(n_clks=65536, spc=16, n_pulses=64, env_len=1024)
 # stated tolerances of the two new kernels against their plain versions
@@ -259,11 +278,43 @@ def phase_environment() -> dict:
     return dict(smi=smi, name=name)
 
 
+def synthetic_tables(C: int, W: int, seed: int) -> dict:
+    """Resolver tables with :data:`SYNTH`'s static rows and carrier
+    frequencies over a seeded random envelope, on the card: the row and
+    frequency select of the prefix tables, which the headline (one row,
+    one frequency) never exercises."""
+    import torch
+    from distributed_processor_tpu_torch.ops.resolve import \
+        build_fused_tables
+    from distributed_processor_tpu_torch.sim.physics import (
+        _aligned_chunk, _carrier_basis, _pad_env_planes)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    interps = SYNTH['interps'][:C]
+    env = 2 * torch.rand((C, SYNTH['env_len'], 2), generator=gen,
+                         device=DEV) - 1
+    freq = 0.4 * torch.rand((C, SYNTH['n_freqs']), generator=gen,
+                            device=DEV) - 0.2
+    env_pads = _pad_env_planes(env, _aligned_chunk(256, W, interps))
+    return build_fused_tables(env_pads, _carrier_basis(freq, W), W, interps,
+                              SYNTH['rows'])
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors``."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in tensors}
+    return sum(seen.values())
+
+
 def phase_kernels(mp) -> dict:
-    """The resolve kernel against its plain version on the card."""
+    """The resolve kernel against its plain version on the card, in rows
+    mode (prefix tables) and full-table mode (the per-sample chain), on
+    the headline's tables and on synthetic ones with several rows and
+    frequencies; the two modes timed in turns on the same inputs."""
     import torch
     from distributed_processor_tpu_torch.ops.resolve import (
-        resolve_windows_fused, resolve_windows_reference)
+        build_prefix_tables, resolve_windows_fused,
+        resolve_windows_reference)
     from distributed_processor_tpu_torch.sim.physics import \
         prepare_physics_tables
     model = headline_model()
@@ -277,50 +328,64 @@ def phase_kernels(mp) -> dict:
     # lanes [B, C] and grid the main path gives it
     B = HEADLINE['batch']
     sigma = float(HEADLINE['sigma'])
-    max_err, max_ratio = 0.0, 0.0
+    max_err = 0.0
 
     def agree(got, want, what):
-        nonlocal max_err, max_ratio
+        """Hold the kernel's sums to the plain version's; print this
+        check's worst error and share of the tolerance."""
+        nonlocal max_err
         scale = float(want[2].abs().max())
+        worst, ratio = 0.0, 0.0
         for name, g, w in zip(('acc_i', 'acc_q', 'energy'), got, want):
             err = (g - w).abs()
             tol = 1e-5 * w.abs() + 1e-5 * scale
-            max_err = max(max_err, float(err.max()))
-            max_ratio = max(max_ratio, float((err / tol).max()))
+            worst = max(worst, float(err.max()))
+            ratio = max(ratio, float((err / tol).max()))
             bad = err > tol
             check(not bool(bad.any()),
                   f'{what}: {name} differs from the plain version at '
                   f'{int(bad.sum())} windows (max |err| '
                   f'{float(err.max()):.3e}, scale {scale:.3e})')
+        max_err = max(max_err, worst)
+        print(f'kernel vs plain ({what}, B={B} C={C} W={W}): agree, max '
+              f'|err| {worst:.3e}, max |err|/tol {ratio:.3f}')
 
-    for label, tabs, ring in (('rows, sigma=0', tables, False),
-                              ('full table, sigma=0', full_tables, False),
-                              ('rows, ring, sigma=0', tables, True)):
+    def streamed(tabs, seed, label):
+        """Identical streamed noise into both ([2, C, B, W] float32, 17
+        GB at the main path's batch)."""
+        sc, gs_i, gs_q = resolve_inputs(tabs, B, seed=seed)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(seed + 1)
+        noise = torch.randn((2, C, B, W), generator=gen,
+                            device=DEV).mul_(sigma)
+        args = (sc, tabs, gs_i, gs_q, sigma, 0.0, 7, W,
+                tabs['env'].shape[2])
+        got = resolve_windows_fused(*args, noise=noise)
+        want = resolve_windows_reference(*args, noise=noise, ck=ck)
+        sync()
+        agree(got, want, label)
+        del noise, got, want
+        if DEV == 'cuda':
+            torch.cuda.empty_cache()
+        return args
+
+    synth = synthetic_tables(C, W, seed=5)
+    R, F = synth['rows'].numel(), synth['bas'].shape[2]
+    for label, tabs, ring in (
+            ('rows, sigma=0', tables, False),
+            ('full table, sigma=0', full_tables, False),
+            ('rows, ring, sigma=0', tables, True),
+            (f'R={R} F={F} rows, sigma=0', synth, False),
+            (f'R={R} F={F} rows, ring, sigma=0', synth, True)):
         sc, gs_i, gs_q = resolve_inputs(tabs, B, seed=1)
-        args = (sc, tabs, gs_i, gs_q, 0.0, 1.0 / 40.0, 7, W, Lp)
+        args = (sc, tabs, gs_i, gs_q, 0.0, 1.0 / 40.0, 7, W,
+                tabs['env'].shape[2])
         got = resolve_windows_fused(*args, ring=ring)
         want = resolve_windows_reference(*args, ring=ring, ck=ck)
         sync()
         agree(got, want, label)
-        print(f'kernel vs plain ({label}, B={B} C={C} W={W}): agree, '
-              f'max |err| {max_err:.3e}, max |err|/tol {max_ratio:.3f}')
-
-    # identical streamed noise into both ([2, C, B, W] float32, 17 GB at
-    # the main path's batch)
-    sc, gs_i, gs_q = resolve_inputs(tables, B, seed=2)
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(3)
-    noise = torch.randn((2, C, B, W), generator=gen, device=DEV).mul_(sigma)
-    args = (sc, tables, gs_i, gs_q, sigma, 0.0, 7, W, Lp)
-    got = resolve_windows_fused(*args, noise=noise)
-    want = resolve_windows_reference(*args, noise=noise, ck=ck)
-    sync()
-    agree(got, want, 'streamed noise')
-    print(f'kernel vs plain (streamed noise, B={B}): agree, max |err| '
-          f'{max_err:.3e}, max |err|/tol {max_ratio:.3f}')
-    del noise, got, want
-    if DEV == 'cuda':
-        torch.cuda.empty_cache()
+    streamed(synth, 8, f'R={R} F={F} rows, streamed noise')
+    args = streamed(tables, 2, 'streamed noise')
 
     # the kernel's own Philox noise against the plain version's torch
     # noise: the deviation from the sigma = 0 sums, normalised by
@@ -352,29 +417,55 @@ def phase_kernels(mp) -> dict:
           f'{float(dm):.4f} < {tol_mean:.4f}, var diff {float(dv):.4f} < '
           f'{tol_var:.4f}; kernel var {kvar}')
 
-    # time per epoch at bench shape: all windows full length, as the
-    # headline program's are
+    # time per epoch at bench shape (all windows full length, as the
+    # headline program's are): rows mode (prefix tables) and full-table
+    # mode (the per-sample chain) on the same inputs, in turns
     sc, gs_i, gs_q = resolve_inputs(tables, B, seed=4, full_windows=True)
-    args = (sc, tables, gs_i, gs_q, sigma, 0.0, 7, W, Lp)
-    ms = cuda_time_ms(lambda: resolve_windows_fused(*args), reps=10)
+    run = {'rows': (sc, tables, gs_i, gs_q, sigma, 0.0, 7, W, Lp),
+           'full table': (sc, dict(tables, rows=tables['rows'][:0]), gs_i,
+                          gs_q, sigma, 0.0, 7, W, Lp)}
+    turns = {'rows': [], 'full table': []}
+    for mode in ('rows', 'full table', 'full table', 'rows'):
+        turns[mode].append(cuda_time_ms(
+            lambda: resolve_windows_fused(*run[mode]), reps=10))
+    ms = sum(turns['rows']) / 2
+    clean_args = run['rows'][:4] + (0.0,) + run['rows'][5:]
+    clean_ms = cuda_time_ms(lambda: resolve_windows_fused(*clean_args),
+                            reps=20)
     plain_ms = cuda_time_ms(
-        lambda: resolve_windows_reference(*args, ck=ck), reps=2)
-    samples = float(sc['n_samp'].clamp(max=W).sum())
-    ops = samples * (CHAIN_OPS + NOISE_OPS)
-    nbytes = B * C * (8 * 4 + 3 * 4) + sum(
-        t.numel() * t.element_size() for t in
-        (tables['env'], tables['bas'], tables['rows'], tables['interps']))
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    print(f'resolve epoch at B={B} C={C} W={W}: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
-          f'(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)')
+        lambda: resolve_windows_reference(*run['rows'], ck=ck), reps=2)
+    # the least time for this work: bytes (window scalars in, sums out,
+    # the prefix tables once) or, with noise, the issue of its
+    # instructions, its multiplies or its special-function operations
+    windows = B * C
+    noisy = float(sc['n_samp'].clamp(0, W).sum())
+    pre = build_prefix_tables(tables)
+    nbytes = windows * (8 * 4 + 3 * 4) + _nbytes(
+        pre['p1'], pre['pw'], pre['z'], tables['rows'])
+    per_s = H100_SMS * H100_CLOCK_HZ / 1e3                   # per ms
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_issue = (noisy * K2_SAMPLE_INSTR + windows * K2_WINDOW_INSTR) \
+        / (ISSUE_PER_CLK * per_s)
+    t_sfu = noisy * K2_SAMPLE_SFU / (SFU_PER_CLK * per_s)
+    t_mul = noisy * K2_SAMPLE_IMUL / (IMUL_PER_CLK * per_s)
+    bound_ms = max(t_bytes, t_issue, t_sfu, t_mul)
+    clean_bound = max(t_bytes, windows * K2_WINDOW_INSTR
+                      / (ISSUE_PER_CLK * per_s))
+    print(f'resolve epoch at B={B} C={C} W={W}, sigma={sigma}, in turns '
+          f"(rows, full table, full table, rows): rows mode "
+          f"{turns['rows'][0]:.4f}, {turns['rows'][1]:.4f} ms; full-table "
+          f"mode {turns['full table'][0]:.4f}, {turns['full table'][1]:.4f}"
+          f' ms; rows mode at sigma=0 {clean_ms:.4f} ms (bound '
+          f'{clean_bound:.4f} ms, bytes); plain {plain_ms:.4f} ms; bound '
+          f'{bound_ms:.4f} ms (issue {t_issue:.4f} ms, special-function '
+          f'{t_sfu:.4f} ms, multiplies {t_mul:.4f} ms, bytes {t_bytes:.4f} '
+          f'ms; {noisy:.0f} noisy samples)')
     return dict(name='resolve_windows', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/resolve.cu',
                 replaces='distributed_processor_tpu/ops/resolve_pallas.py:196',
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
-                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                bound_by='operations' if bound_ms > t_bytes else 'bytes',
                 library_ms=None)
 
 
@@ -514,12 +605,11 @@ def phase_k3(mp) -> dict:
     from distributed_processor_tpu_torch.sim.interpreter import \
         _exec_straightline
     from distributed_processor_tpu_torch.sim.physics import (
-        _physics_tables, fused_readout, physics_config,
-        prepare_physics_tables, run_physics_batch)
+        fused_readout, physics_config, prepare_physics_tables,
+        run_physics_batch)
     B, C = HEADLINE['batch'], mp.n_cores
     model = headline_model(sigma=0.0)
     fused = fused_readout(mp, model, prepare_physics_tables(mp, model, DEV))
-    interp_m = _physics_tables(mp, model.meas_elem)[3]
     bits0 = torch.zeros((B, C, 2), dtype=torch.int32, device=DEV)
     valid0 = torch.zeros(bits0.shape, dtype=torch.bool, device=DEV)
 
@@ -573,29 +663,26 @@ def phase_k3(mp) -> dict:
     ms = cuda_time_ms(kernel, reps=20)
     plain_ms = cuda_time_ms(plain, reps=1)
     out, bits, valid = kernel()
-    # operations this run's data needs: the integer work per retired
-    # instruction, one add per energy sample of every window and the
-    # discriminator per measurement
-    env_len = (out['meas_env'] >> 12) & 0xfff
+    # operations these inputs need: the integer work per retired
+    # instruction and, per measurement, one read of its window's energy
+    # prefix (the table is an input: no per-sample work is left) and the
+    # discriminator
     fired = torch.arange(cfg.max_meas, device=DEV)[None, None, :] \
         < out['n_meas'][..., None]
-    interp_c = torch.as_tensor(interp_m, device=DEV)[None, :, None]
-    count = torch.where(env_len == 0xfff, 0,
-                        (env_len * 4 * interp_c).clamp(max=fused['w']))
-    samples = int((count * fired).sum())
     n_meas = int(fired.sum())
-    ops = retired * SPAN_OPS_PER_INSTR + samples + n_meas * DISCRIMINATE_OPS
+    ops = retired * SPAN_OPS_PER_INSTR + n_meas * (1 + DISCRIMINATE_OPS)
     nbytes = _carry_bytes(st) + _carry_bytes(out) + 2 * sum(
         t.numel() * t.element_size() for t in (bits, valid)) + sum(
         t.numel() * t.element_size() for t in
-        (spc, interp, fused['e2'], fused['g0'], fused['g1'])) + soa_np.nbytes
+        (spc, interp, fused['e2p'], fused['g0'], fused['g1'])) \
+        + soa_np.nbytes
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     print(f'K3 at B={B} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
           f'bound {bound_ms:.4f} ms (bytes {nbytes / 1e9:.3f} GB = '
           f'{t_bytes:.4f} ms, operations {ops:.3e} = {t_ops:.4f} ms; '
-          f'{n_meas} windows, {samples} energy samples)')
+          f'{n_meas} windows, one energy prefix read each)')
     return dict(name='exec_span_fused', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/exec_span.cu',
                 replaces='distributed_processor_tpu/sim/interpreter.py:3206',
@@ -1444,8 +1531,8 @@ def profile_batch(fn, label: str):
     wall, kernels = device_kernel_times(fn)
     dev_us = sum(us for us, _n in kernels.values())
     n_kernels = sum(n for _us, n in kernels.values())
-    ours = {'resolve_kernel': 0.0, 'exec_span_kernel': 0.0,
-            'exec_blocks_kernel': 0.0}
+    ours = {'resolve_rows': 0.0, 'resolve_full_table': 0.0,
+            'exec_span_kernel': 0.0, 'exec_blocks_kernel': 0.0}
     for name, (us, _n) in kernels.items():
         for k in ours:
             if k in name:

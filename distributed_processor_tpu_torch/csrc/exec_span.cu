@@ -56,8 +56,13 @@
 //
 // Readout (K3).  At sigma = 0 a window's matched-filter sums are g_s * E
 // with E = amp^2 * sum_{s < count} |env|^2 >= 0, so the bit is the sign of
-// a projection that depends only on which response scaled E: the kernel
-// sums the energy row in its own order and only the bit leaves it.  The
+// a projection that depends only on which response scaled E, not on how E
+// was summed (E is 0 only when every summed sample is).  So the kernel
+// reads the sum from a prefix table of the energy rows,
+// E2p[c, r, n] = sum_{s < n} |env|^2 (ops/resolve.py
+// build_energy_prefix: float64 sums stored as float32), at
+// E2p[c, r, count]: one read per measurement where a walk of the row
+// read up to W samples from L1/L2.  Only the bit leaves the kernel.  The
 // projection is computed with the plain version's float32 operations one
 // by one (no contraction into FMAs).
 //
@@ -65,9 +70,9 @@
 // at the headline (B = 262144, C = 8, max_meas = max_resets = 2, no pulse
 // records) that is ~280 bytes per lane, ~0.6 GB per launch, ~0.18 ms at
 // 3.35 TB/s; the integer work per retired instruction is a few dozen
-// operations and does not bind.  K3 adds one pass over an energy row per
-// measurement (count float32 adds, ~1024 at the headline), read from
-// L1/L2, not counted as device-memory bytes.  Block mode reads and writes
+// operations and does not bind.  K3 adds one prefix read and the
+// discriminator's ~20 float32 operations per measurement.  Block mode
+// reads and writes
 // the carry of the lanes it retires (at most the whole carry) per launch;
 // its launches are one per block-engine iteration.
 
@@ -206,9 +211,10 @@ struct Lane {
   const int* bits_rd;
 };
 
-// K3's sigma = 0 readout: energy rows, responses and envelope addresses
+// K3's sigma = 0 readout: energy prefix rows, responses and envelope
+// addresses
 struct Readout {
-  const float* e2;
+  const float* e2p;
   const float* g0;
   const float* g1;
   const int* addrs;
@@ -395,13 +401,10 @@ __device__ __forceinline__ bool exec_row(Lane& s, int* regs, const int* f,
         const int addr = (s.pp[0] & 0xfff) * 4;
         const int n_addrs = pv[P_N_ADDRS], Wp = pv[P_WP];
         float tot = 0.0f;
-        for (int r = 0; r < n_addrs; ++r) {
-          if (ro.addrs[r] != addr) continue;
-          const float* row = ro.e2 + ((size_t)c * n_addrs + r) * Wp;
-          float acc = 0.0f;
-          for (int k = 0; k < count; ++k) acc += row[k];
-          tot = __fadd_rn(tot, acc);
-        }
+        for (int r = 0; r < n_addrs; ++r)
+          if (ro.addrs[r] == addr)
+            tot = __fadd_rn(tot, ro.e2p[((size_t)c * n_addrs + r) * Wp
+                                        + count]);
         const float amp = __fdiv_rn((float)s.pp[3], ro.amp_scale);
         const float energy = __fmul_rn(__fmul_rn(amp, amp), tot);
         s.bits[slot] = discriminate(energy, state_bit, ro.g0 + 2 * c,
@@ -615,14 +618,15 @@ int launch_span(const Leaves& lv, const Params& prm, const int* prog,
 // pointers each (0 = leaf absent; out may equal in).  params: N_PARAMS ints.
 // prog: [C, N, N_FIELDS] int32; spc/interp: [C, E] int32.  K1 (fused = 0)
 // reads the injected bits_in [B, C, M] int32; K3 (fused = 1) carries the
-// bits in the L_MEAS_BITS/L_MEAS_VALID leaves and reads e2 [C, n_addrs, Wp]
-// float32, g0/g1 [C, 2] float32 and addrs [n_addrs] int32.  Returns the
+// bits in the L_MEAS_BITS/L_MEAS_VALID leaves and reads the energy prefix
+// e2p [C, n_addrs, Wp] float32 (Wp = params[P_WP] > W), g0/g1 [C, 2]
+// float32 and addrs [n_addrs] int32.  Returns the
 // launch's cudaError as an int (0 = launched).
 extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
                             const unsigned long long* out_ptrs, int n_leaves,
                             const int* params, int n_params, const int* prog,
                             const int* spc, const int* interp,
-                            const int* bits_in, const float* e2,
+                            const int* bits_in, const float* e2p,
                             const float* g0, const float* g1,
                             const int* addrs, float amp_scale, int fused,
                             void* stream) {
@@ -630,7 +634,7 @@ extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
     return (int)cudaErrorInvalidValue;
   const Leaves lv = leaves(in_ptrs, out_ptrs);
   const Params prm = params_of(params);
-  const Readout ro = {e2, g0, g1, addrs, amp_scale};
+  const Readout ro = {e2p, g0, g1, addrs, amp_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fused)
     return launch_span<true>(lv, prm, prog, spc, interp, bits_in, ro, s);

@@ -11,56 +11,137 @@
 //   acc_i = sum(r_i y_i + r_q y_q), acc_q = sum(r_q y_i - r_i y_q),
 //   energy = sum(y_i^2 + y_q^2).
 //
-// Design.  One thread owns one (shot, core) window and loops over its
-// samples s < min(nsamp, W), so a whole epoch is ONE launch: the loop
-// replaces the TPU's sequential grid over sample chunks, and samples past
-// nsamp (exact zeros in the TPU kernel) are never visited.  Threads of a
-// block share the core (blockIdx.y), so the per-core envelope and carrier
-// basis rows they read are the same addresses across the warp (broadcast
-// loads from L1).  The envelope sample is a direct read of the per-core
-// plane at min(base + s / interp, Lp - 1): `base` is the window's start
-// row, picked from the static row list by address equality (the TPU
-// kernel's row select, default row 0) or, without a row list, the clipped
-// address.  No one-hot product: a per-thread read is cheap on this card.
+// Rows mode (a static row list: the main path).  Write the window as
+// y(s) = a e^{iA} z(s), z(s) = env(base + s / interp) * basis_f(s).  Then,
+// exactly in real arithmetic, with n = min(nsamp, W) and g = gs_i + i gs_q,
+//   acc_i + i acc_q = g a^2 |e^{iA}|^2 Pw[n] + a e^{-iA} sum_{s<n} nz(s) z*(s)
+//   energy          =   a^2 |e^{iA}|^2 P1[n]
+// where P1 and Pw (ring-weighted) are prefix sums of |z|^2 over the
+// window.  They depend only on (core, row, frequency, n), so the wrapper
+// builds them once per run (ops/resolve.py build_prefix_tables, float64
+// sums stored as float32) and the deterministic part is one read per
+// window.  The row is picked by address equality (the TPU kernel's row
+// select, default row 0).
 //
-// Noise.  By default Philox4x32-10 in the kernel: key = the 64-bit seed,
-// counter = (sample pair, shot, core, epoch); each call feeds two samples'
-// Box-Muller pairs, u1 = ((bits >> 8) + 1) * 2^-24 in (0, 1] and
-// u2 = (bits >> 8) * 2^-24 in [0, 1), shifts logical on uint32.  The noise
-// never touches device memory.  With `noise` given, it is read from a
-// streamed [2, C, B, W] float32 array instead (already scaled by sigma),
-// so the kernel and the plain torch version can see identical noise.
+// Design.  Without noise (sigma = 0, nothing streamed) one thread owns
+// one window: O(1) work, bound by the bytes of the window scalars.  With
+// noise, only the projection sum_{s<n} nz(s) z*(s) is left per sample, and
+// one warp owns one window: lane l takes the sample pairs p = l, l + 32,
+// ..., so every lane of a warp has the same trip count to within one,
+// and a warp-shuffle reduce of two floats ends the window.  A block's
+// warps share its core (blockIdx.y) and walk its windows grid-stride; the
+// core's z rows (R * F * W * 8 bytes, 8 KB at the headline) sit in shared
+// memory, copied once per block, as float4 pairs (z(2p), z(2p+1)).  All
+// lanes of a warp read one row, 16 consecutive bytes each, so the warp's
+// read is conflict-free without padding (padding would break the 16-byte
+// alignment of the pairs).  Rows too large for shared memory are read
+// from global memory (L1/L2).  No integer division per sample.
+//
+// Noise.  By default Philox4x32-10 in the kernel: key = the 64-bit seed
+// (its ten round keys hoisted out of the sample loop), counter =
+// (sample pair, shot, core, epoch); each call feeds the two samples of a
+// pair, one Box-Muller pair each, on the special-function unit: u1 =
+// 2 - 1.m in [2^-23, 1] and u2 = 1.m - 1.5 in [-1/2, 1/2), 1.m the float
+// with 23 random mantissa bits (no integer-to-float conversion), radius
+// sqrt(-2 ln u1) by lg2.approx and sqrt.approx, angle 2 pi u2 centred at
+// 0 by __sincosf.  The normals are the same in law as the full-table
+// kernel's (24-bit uniforms, accurate functions), not the same numbers.
+// The noise never touches device memory.  With `noise` given
+// it is read from a streamed [2, C, B, W] float32 array instead (already
+// scaled by sigma), so the kernel and the plain torch version can see
+// identical noise.
+//
+// Full-table mode (no static rows: resolve_mode='persample', or more than
+// 8 static addresses; not on the main path) keeps the per-sample chain,
+// one thread per window, with accurate log, sqrt and sincospi on 24-bit
+// uniforms, as the port first wrote it: it serves as the same-call
+// comparison with the rows-mode design.
 //
 // Bound on this card.  Device memory sees ~10 scalars in and 3 out per
-// window, and the small per-core tables: ~0.1 GB per epoch at B = 262144,
-// C = 8, tens of microseconds at 3.35 TB/s.  Per sample the kernel does
-// ~36 float32 operations for the chain plus, with noise, a log, a sqrt, a
-// sincos and ~10 more float32 operations, and half a Philox call (~25
-// integer multiply/xor operations).  So it is bound by operations: at
-// W = 1024 an epoch is 2.1e9 samples, about a millisecond and a half at
-// the 67 TFLOP/s float32 peak.
+// window (0.09 GB per epoch at B = 262144, C = 8: 0.03 ms at 3.35 TB/s);
+// that bounds the kernel at sigma = 0.  With noise, per noisy sample: 4
+// special-function operations (log, sqrt, sin, cos; 16 per clock per SM),
+// half a Philox call (10 32x32->64-bit multiplies at 64 per clock per SM,
+// 10 three-way xors) and ~18 more instructions (uniforms, Box-Muller
+// products, the 4-FMA projection), at 128 per clock per SM: at W = 1024,
+// 2.1e9 noisy samples per epoch, ~2.4 ms of instruction issue on 132 SMs
+// at 1.98 GHz.  The design does nothing per sample that the noise does
+// not need; what the compiled loop issues beyond that (round keys, loop
+// control, the odd-tail select) and the multiply and special-function
+// pipes' latencies keep it above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0,
-                                               uint32_t k1) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+// largest z table (per core) kept in shared memory
+constexpr size_t MAX_SMEM_Z = 96 * 1024;
+constexpr uint32_t PH_M0 = 0xD2511F53u, PH_M1 = 0xCD9E8D57u;
+constexpr uint32_t PH_W0 = 0x9E3779B9u, PH_W1 = 0xBB67AE85u;
+
+struct Lanes {
+  const float *amp, *cosa, *sina, *gs_i, *gs_q;
+  const int *f_idx, *addr, *nsamp;
+};
+
+struct Outs {
+  float *acc_i, *acc_q, *energy;
+};
+
+// the ten round keys of one Philox4x32-10 key
+struct PhiloxKey {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKey philox_key(uint32_t k0, uint32_t k1) {
+  PhiloxKey k;
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
-    const uint32_t hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ k0, lo1, hi0 ^ ctr.w ^ k1, lo0);
-    k0 += W0;
-    k1 += W1;
+    k.k0[i] = k0 + (uint32_t)i * PH_W0;
+    k.k1[i] = k1 + (uint32_t)i * PH_W1;
+  }
+  return k;
+}
+
+__device__ __forceinline__ uint4 philox(uint4 ctr, const PhiloxKey& k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(PH_M0, ctr.x), lo0 = PH_M0 * ctr.x;
+    const uint32_t hi1 = __umulhi(PH_M1, ctr.z), lo1 = PH_M1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ k.k0[i], lo1, hi0 ^ ctr.w ^ k.k1[i], lo0);
   }
   return ctr;
 }
 
-// one N(0, sigma^2) I/Q pair from two uniform words (Box-Muller)
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// one unit-variance Box-Muller I/Q pair from two uniform words, on the
+// special-function unit: u1 in [2^-23, 1] is never denormal, so the log
+// needs no range fix-up; the angle is 2 pi (1.m - 1.5) in one FMA
+__device__ __forceinline__ float2 box_muller_fast(uint32_t a, uint32_t b) {
+  const float u1 = 2.0f - __uint_as_float(0x3f800000u | (a >> 9));
+  const float r = sqrt_approx(-1.3862943611198906f * lg2_approx(u1));
+  const float t = fmaf(6.2831853071795865f,
+                       __uint_as_float(0x3f800000u | (b >> 9)),
+                       -9.4247779607693797f);
+  float sn, cs;
+  __sincosf(t, &sn, &cs);
+  return make_float2(r * cs, r * sn);
+}
+
+// one N(0, sigma^2) I/Q pair, accurate functions (full-table kernel)
 __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
                                            float sigma, float* nz_i,
                                            float* nz_q) {
@@ -73,35 +154,157 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b,
   *nz_q = r * sn;
 }
 
-__global__ void resolve_kernel(
-    const float* __restrict__ amp, const float* __restrict__ cosa,
-    const float* __restrict__ sina, const float* __restrict__ gs_i,
-    const float* __restrict__ gs_q, const int* __restrict__ f_idx,
-    const int* __restrict__ addr, const int* __restrict__ nsamp,
-    const float* __restrict__ env, const float* __restrict__ bas,
-    const int* __restrict__ rows, int n_rows,
+// index of the static row whose address equals `ad` (row 0 when none
+// does; the last when several do)
+__device__ __forceinline__ int row_of(int ad, const int* __restrict__ rows,
+                                      int n_rows) {
+  int r0 = 0;
+  for (int r = 1; r < n_rows; ++r)
+    if (ad == rows[r]) r0 = r;
+  return r0;
+}
+
+// one window: its scalars, sample count n, (core, row, frequency) table
+// row zrow, and its deterministic sums read from the prefix tables
+struct Window {
+  float a, ca, sa, det_i, det_q, energy;
+  int n, zrow;
+};
+
+__device__ __forceinline__ Window window_of(
+    const Lanes& in, size_t lane, int c, const int* __restrict__ rows,
+    int n_rows, const float* __restrict__ p1, const float* __restrict__ pw,
+    int W, int F) {
+  Window w;
+  w.a = in.amp[lane];
+  w.ca = in.cosa[lane];
+  w.sa = in.sina[lane];
+  w.n = min(max(in.nsamp[lane], 0), W);
+  const int r = row_of(in.addr[lane], rows, n_rows);
+  w.zrow = (c * n_rows + r) * F + in.f_idx[lane];
+  const size_t off = (size_t)w.zrow * (W + 1) + w.n;
+  const float k = w.a * w.a * (w.ca * w.ca + w.sa * w.sa);
+  const float kw = k * pw[off];
+  w.energy = k * p1[off];
+  w.det_i = in.gs_i[lane] * kw;
+  w.det_q = in.gs_q[lane] * kw;
+  return w;
+}
+
+// rows mode without noise: one thread per window, lanes flattened so
+// that neighbouring threads read neighbouring words
+__global__ void resolve_rows_clean(Lanes in, const int* __restrict__ rows,
+                                   int n_rows, const float* __restrict__ p1,
+                                   const float* __restrict__ pw, long long BC,
+                                   int C, int W, int F, Outs out) {
+  const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= BC) return;
+  const Window w =
+      window_of(in, lane, (int)(lane % C), rows, n_rows, p1, pw, W, F);
+  out.acc_i[lane] = w.det_i;
+  out.acc_q[lane] = w.det_q;
+  out.energy[lane] = w.energy;
+}
+
+// rows mode with noise: one warp per window, its lanes over sample pairs
+template <bool STREAM, bool SMEM_Z>
+__global__ void __launch_bounds__(THREADS) resolve_rows_noisy(
+    Lanes in, const int* __restrict__ rows, int n_rows,
+    const float* __restrict__ p1, const float* __restrict__ pw,
+    const float2* __restrict__ z, const float* __restrict__ noise,
+    float sigma, uint32_t k0, uint32_t k1, uint32_t epoch, int B, int C,
+    int W, int F, Outs out) {
+  extern __shared__ float4 zs[];
+  const int c = blockIdx.y;
+  const int wh = (W + 1) >> 1;          // pairs per z row
+  const int n_zrows = n_rows * F;
+  if (SMEM_Z) {
+    // this core's z rows as (z(2p), z(2p+1)) pairs, a zero past the end
+    const float2* zc = z + (size_t)c * n_zrows * W;
+    for (int i = threadIdx.x; i < n_zrows * wh; i += THREADS) {
+      const int row = i / wh, s = 2 * (i - row * wh);
+      const float2 z0 = zc[(size_t)row * W + s];
+      const float2 z1 =
+          s + 1 < W ? zc[(size_t)row * W + s + 1] : make_float2(0.f, 0.f);
+      zs[i] = make_float4(z0.x, z0.y, z1.x, z1.y);
+    }
+    __syncthreads();
+  }
+  const PhiloxKey key = philox_key(k0, k1);
+  const int lane_id = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < B; b += stride) {
+    const size_t lane = (size_t)b * C + c;
+    const Window w = window_of(in, lane, c, rows, n_rows, p1, pw, W, F);
+    const int n_pairs = (w.n + 1) >> 1;
+    const float* n_i = STREAM ? noise + ((size_t)c * B + b) * W : nullptr;
+    const float* n_q = STREAM ? noise + ((size_t)(C + c) * B + b) * W
+                              : nullptr;
+    float x = 0.0f, y = 0.0f;   // sum nz(s) conj(z(s)), real and imaginary
+    for (int p = lane_id; p < n_pairs; p += 32) {
+      const int s = 2 * p;
+      const bool second = s + 1 < w.n;
+      float4 zz;
+      if (SMEM_Z) {
+        zz = zs[(size_t)(w.zrow - c * n_zrows) * wh + p];
+      } else {
+        const float2* zr = z + (size_t)w.zrow * W;
+        const float2 z0 = zr[s];
+        const float2 z1 = second ? zr[s + 1] : make_float2(0.f, 0.f);
+        zz = make_float4(z0.x, z0.y, z1.x, z1.y);
+      }
+      float2 n0, n1;
+      if (STREAM) {
+        n0 = make_float2(n_i[s], n_q[s]);
+        n1 = second ? make_float2(n_i[s + 1], n_q[s + 1])
+                    : make_float2(0.f, 0.f);
+      } else {
+        const uint4 bits =
+            philox(make_uint4((uint32_t)p, (uint32_t)b, (uint32_t)c, epoch),
+                   key);
+        n0 = box_muller_fast(bits.x, bits.y);
+        n1 = box_muller_fast(bits.z, bits.w);
+        if (!second) n1 = make_float2(0.f, 0.f);
+      }
+      x = fmaf(n0.x, zz.x, x);
+      x = fmaf(n0.y, zz.y, x);
+      x = fmaf(n1.x, zz.z, x);
+      x = fmaf(n1.y, zz.w, x);
+      y = fmaf(n0.y, zz.x, y);
+      y = fmaf(-n0.x, zz.y, y);
+      y = fmaf(n1.y, zz.z, y);
+      y = fmaf(-n1.x, zz.w, y);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      x += __shfl_xor_sync(0xffffffffu, x, o);
+      y += __shfl_xor_sync(0xffffffffu, y, o);
+    }
+    if (lane_id == 0) {
+      // a e^{-iA} (x + i y), the Philox normals scaled by sigma
+      const float sc = STREAM ? w.a : w.a * sigma;
+      out.acc_i[lane] = w.det_i + sc * (x * w.ca + y * w.sa);
+      out.acc_q[lane] = w.det_q + sc * (y * w.ca - x * w.sa);
+      out.energy[lane] = w.energy;
+    }
+  }
+}
+
+// full-table mode: the per-sample chain, one thread per window
+__global__ void resolve_full_table(
+    Lanes in, const float* __restrict__ env, const float* __restrict__ bas,
     const int* __restrict__ interps, const float* __restrict__ noise,
     float sigma, float inv_ring, int ring, uint32_t k0, uint32_t k1,
-    uint32_t epoch, int B, int C, int W, int Lp, int F,
-    float* __restrict__ acc_i, float* __restrict__ acc_q,
-    float* __restrict__ energy) {
+    uint32_t epoch, int B, int C, int W, int Lp, int F, Outs out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const int c = blockIdx.y;
   if (b >= B) return;
   const size_t lane = (size_t)b * C + c;
-  const float a = amp[lane], ca = cosa[lane], sa = sina[lane];
-  const float gi = gs_i[lane], gq = gs_q[lane];
-  const int f = f_idx[lane];
-  const int ns = min(nsamp[lane], W);
-  int base;
-  if (n_rows > 0) {
-    const int ad = addr[lane];
-    base = rows[0];
-    for (int r = 1; r < n_rows; ++r)
-      if (ad == rows[r]) base = rows[r];
-  } else {
-    base = min(max(addr[lane], 0), Lp - 1);
-  }
+  const float a = in.amp[lane], ca = in.cosa[lane], sa = in.sina[lane];
+  const float gi = in.gs_i[lane], gq = in.gs_q[lane];
+  const int f = in.f_idx[lane];
+  const int ns = min(in.nsamp[lane], W);
+  const int base = min(max(in.addr[lane], 0), Lp - 1);
   const int it = interps[c];
   const float* e_i = env + (size_t)(2 * c) * Lp;
   const float* e_q = e_i + Lp;
@@ -110,6 +313,7 @@ __global__ void resolve_kernel(
   const float* n_i = noise ? noise + ((size_t)c * B + b) * W : nullptr;
   const float* n_q = noise ? noise + ((size_t)(C + c) * B + b) * W : nullptr;
   const bool draw = noise == nullptr && sigma != 0.0f;
+  const PhiloxKey key = philox_key(k0, k1);
 
   float ai = 0.0f, aq = 0.0f, en = 0.0f;
   uint4 bits = make_uint4(0u, 0u, 0u, 0u);
@@ -128,9 +332,9 @@ __global__ void resolve_kernel(
       nzq = n_q[s];
     } else if (draw) {
       if ((s & 1) == 0)
-        bits = philox4x32_10(
+        bits = philox(
             make_uint4((uint32_t)(s >> 1), (uint32_t)b, (uint32_t)c, epoch),
-            k0, k1);
+            key);
       if ((s & 1) == 0)
         box_muller(bits.x, bits.y, sigma, &nzi, &nzq);
       else
@@ -142,31 +346,100 @@ __global__ void resolve_kernel(
     aq += rq * yi - ri * yq;
     en += yi * yi + yq * yq;
   }
-  acc_i[lane] = ai;
-  acc_q[lane] = aq;
-  energy[lane] = en;
+  out.acc_i[lane] = ai;
+  out.acc_q[lane] = aq;
+  out.energy[lane] = en;
+}
+
+template <bool STREAM, bool SMEM_Z>
+cudaError_t launch_noisy(const Lanes& in, const int* rows, int n_rows,
+                         const float* p1, const float* pw, const float2* z,
+                         const float* noise, float sigma, uint32_t k0,
+                         uint32_t k1, uint32_t epoch, int B, int C, int W,
+                         int F, const Outs& out, cudaStream_t stream) {
+  auto kernel = resolve_rows_noisy<STREAM, SMEM_Z>;
+  const size_t smem =
+      SMEM_Z ? (size_t)n_rows * F * ((W + 1) / 2) * sizeof(float4) : 0;
+  cudaError_t rc = cudaSuccess;
+  if (smem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  int dev = 0, sms = 0;
+  rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  // 64 blocks per SM over all cores, some ten waves of resident blocks,
+  // their warps walking the windows: with fewer, the last wave's tail
+  // leaves SMs idle; with one block per 8 windows, each block's z copy
+  // and start-up cost more than they save
+  const int per_core = (B + WARPS - 1) / WARPS;
+  const int want = (64 * sms + C - 1) / C;
+  const dim3 grid(per_core < want ? per_core : want, C);
+  kernel<<<grid, THREADS, smem, stream>>>(in, rows, n_rows, p1, pw, z, noise,
+                                          sigma, k0, k1, epoch, B, C, W, F,
+                                          out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch one epoch's resolve on `stream`.  Lane arrays are [B, C]; env is
-// [C, 2, Lp]; bas is [C, 2, F, W]; rows holds n_rows start addresses (0 =
-// full-table mode); noise is [2, C, B, W] or null.  Returns the launch's
-// cudaGetLastError() as an int (0 = launched).
+// Launch one epoch's resolve on `stream`.  Lane arrays are [B, C].  Rows
+// mode (n_rows > 0): rows holds the n_rows static start addresses; p1/pw
+// are [C, n_rows, F, W + 1] prefix sums and z is [C, n_rows, F, W, 2]
+// (ops/resolve.py build_prefix_tables); env/bas/interps are not read.
+// Full-table mode (n_rows = 0): env is [C, 2, Lp], bas [C, 2, F, W],
+// interps [C]; p1/pw/z are not read.  noise is [2, C, B, W] or null.
+// Returns the launch's cudaError as an int (0 = launched).
 extern "C" int dp_resolve_windows(
     const float* amp, const float* cosa, const float* sina,
     const float* gs_i, const float* gs_q, const int* f_idx,
     const int* addr, const int* nsamp, const float* env, const float* bas,
-    const int* rows, int n_rows, const int* interps, const float* noise,
-    float sigma, float inv_ring, int ring, unsigned long long seed,
-    int epoch, int B, int C, int W, int Lp, int F, float* acc_i,
-    float* acc_q, float* energy, void* stream) {
-  const int threads = 256;
-  const dim3 grid((B + threads - 1) / threads, C);
-  resolve_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      amp, cosa, sina, gs_i, gs_q, f_idx, addr, nsamp, env, bas, rows,
-      n_rows, interps, noise, sigma, inv_ring, ring,
-      (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
-      (uint32_t)epoch, B, C, W, Lp, F, acc_i, acc_q, energy);
-  return (int)cudaGetLastError();
+    const int* rows, int n_rows, const int* interps, const float* p1,
+    const float* pw, const float* z, const float* noise, float sigma,
+    float inv_ring, int ring, unsigned long long seed, int epoch, int B,
+    int C, int W, int Lp, int F, float* acc_i, float* acc_q, float* energy,
+    void* stream) {
+  if ((long long)B * C == 0) return 0;
+  const Lanes in = {amp, cosa, sina, gs_i, gs_q, f_idx, addr, nsamp};
+  const Outs out = {acc_i, acc_q, energy};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t k0 = (uint32_t)(seed & 0xffffffffull);
+  const uint32_t k1 = (uint32_t)(seed >> 32);
+  if (n_rows == 0) {
+    const dim3 grid((B + THREADS - 1) / THREADS, C);
+    resolve_full_table<<<grid, THREADS, 0, st>>>(
+        in, env, bas, interps, noise, sigma, inv_ring, ring, k0, k1,
+        (uint32_t)epoch, B, C, W, Lp, F, out);
+    return (int)cudaGetLastError();
+  }
+  if (noise == nullptr && sigma == 0.0f) {
+    const long long BC = (long long)B * C;
+    resolve_rows_clean<<<(unsigned)((BC + THREADS - 1) / THREADS), THREADS,
+                         0, st>>>(in, rows, n_rows, p1, pw, BC, C, W, F,
+                                  out);
+    return (int)cudaGetLastError();
+  }
+  const float2* z2 = reinterpret_cast<const float2*>(z);
+  const bool smem =
+      (size_t)n_rows * F * ((W + 1) / 2) * sizeof(float4) <= MAX_SMEM_Z;
+  cudaError_t rc;
+  if (noise != nullptr)
+    rc = smem ? launch_noisy<true, true>(in, rows, n_rows, p1, pw, z2, noise,
+                                         sigma, k0, k1, epoch, B, C, W, F,
+                                         out, st)
+              : launch_noisy<true, false>(in, rows, n_rows, p1, pw, z2,
+                                          noise, sigma, k0, k1, epoch, B, C,
+                                          W, F, out, st);
+  else
+    rc = smem ? launch_noisy<false, true>(in, rows, n_rows, p1, pw, z2,
+                                          noise, sigma, k0, k1, epoch, B, C,
+                                          W, F, out, st)
+              : launch_noisy<false, false>(in, rows, n_rows, p1, pw, z2,
+                                           noise, sigma, k0, k1, epoch, B,
+                                           C, W, F, out, st);
+  return (int)rc;
 }

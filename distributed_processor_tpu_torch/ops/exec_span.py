@@ -89,9 +89,10 @@ def exec_span_fused(st: dict, soa_np, spc, interp, bits, valid, cfg,
     measurement bits ``bits`` int32 / ``valid`` bool ``[B, C, M]`` as
     state, each measurement window resolved at its trigger against
     ``fused``: ``e2 [C, R, Wp]`` float32 energy rows of the static
-    envelope addresses ``addrs`` (R ints), ``g0``/``g1 [C, 2]`` float32
-    responses, the window ``w`` and ``amp_scale``.  Returns
-    ``(st, bits, valid)``."""
+    envelope addresses ``addrs`` (R ints) and their prefix sums ``e2p
+    [C, R, Wp + 1]`` (the kernel reads ``e2p``, the plain version
+    ``e2``), ``g0``/``g1 [C, 2]`` float32 responses, the window ``w`` and
+    ``amp_scale``.  Returns ``(st, bits, valid)``."""
     device = st['pc'].device
     carry = dict(st, meas_bits=bits, meas_valid=valid)
     if device.type == 'cpu':
@@ -308,7 +309,7 @@ def _launch(st: dict, soa_np, spc, interp, cfg, bits_in=None,
     ptr = lambda t: t.data_ptr() if t is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     n_addrs = W = Wp = 0
-    e2 = g0 = g1 = addrs = None
+    e2p = g0 = g1 = addrs = None
     amp_scale = 1.0
     if fused is None:
         _check('meas_bits', bits_in, torch.int32, shapes['meas_bits'], device)
@@ -316,13 +317,13 @@ def _launch(st: dict, soa_np, spc, interp, cfg, bits_in=None,
         for k in ('qturns', 'meas_bits', 'meas_valid', 'meas_state'):
             if k not in st:
                 raise ValueError(f'exec_span kernel: physics carry lacks {k}')
-        e2 = fused['e2']
-        n_addrs, Wp = len(fused['addrs']), e2.shape[2]
+        e2p = fused['e2p']
+        n_addrs, Wp = len(fused['addrs']), e2p.shape[2]
         W = int(fused['w'])
-        _check('e2', e2, torch.float32, (C, n_addrs, Wp), device)
-        if not 0 <= W <= Wp:
+        _check('e2p', e2p, torch.float32, (C, n_addrs, Wp), device)
+        if not 0 <= W < Wp:
             raise ValueError(f'exec_span kernel: window {W} exceeds the '
-                             f'energy rows ({Wp} samples)')
+                             f'energy prefix rows ({Wp - 1} samples)')
         g0, g1 = fused['g0'], fused['g1']
         _check('g0', g0, torch.float32, (C, 2), device)
         _check('g1', g1, torch.float32, (C, 2), device)
@@ -334,7 +335,7 @@ def _launch(st: dict, soa_np, spc, interp, cfg, bits_in=None,
         (ctypes.c_uint64 * len(LEAVES))(*ins),
         (ctypes.c_uint64 * len(LEAVES))(*outs), len(LEAVES), pvals,
         len(PARAMS), ptr(prog), ptr(spc), ptr(interp), ptr(bits_in),
-        ptr(e2), ptr(g0), ptr(g1), ptr(addrs), amp_scale,
+        ptr(e2p), ptr(g0), ptr(g1), ptr(addrs), amp_scale,
         int(fused is not None), stream)
     if rc != 0:
         raise RuntimeError(f'exec_span kernel launch failed: cudaError {rc}')

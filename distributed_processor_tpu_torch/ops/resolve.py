@@ -16,11 +16,19 @@ window mask ``s < nsamp``, amplitude, state-dependent channel
 * :func:`resolve_windows_reference` — the same chain in plain torch,
   streamed over chunks of ``ck`` samples like the JAX ``physics._resolve``.
   The CPU tests and the kernel's on-card comparison use it.
+* :func:`build_prefix_tables` — what the kernel reads in rows mode.  With
+  ``y(s) = a e^{iA} z(s)``, ``z(s) = env(base + s // interp) basis_f(s)``,
+  the sums factor exactly:
+  ``acc = g a^2 |e^{iA}|^2 sum_{s<n} w(s)|z(s)|^2 + a e^{-iA} sum_{s<n}
+  noise(s) conj(z(s))`` and ``energy = a^2 |e^{iA}|^2 sum_{s<n} |z(s)|^2``.
+  The deterministic sums depend only on (core, static row, frequency,
+  n), so they are prefix tables, one read per window; only the noise
+  projection is left per sample.
 
-Numbers: at sigma = 0 the two agree to float32 summation order (the
-kernel sums sample by sample, the reference chunk by chunk); with the
-same streamed ``noise`` likewise; with the kernel's own Philox noise they
-agree in distribution.
+Numbers: at sigma = 0 the two agree to float32 rounding (the kernel
+reads float64 prefix sums stored as float32, the reference sums chunk by
+chunk); with the same streamed ``noise`` likewise; with the kernel's own
+Philox noise they agree in distribution.
 """
 
 from __future__ import annotations
@@ -95,6 +103,72 @@ def build_energy_tables(env_pads, addrs, W: int, interps, lane: int = 128):
                          + s[None, :] // it, Lp - 1)      # [R, Wp]
         rows.append(env2[c][torch.as_tensor(idx, device=env2.device)])
     return torch.stack(rows, 0).to(torch.float32)
+
+
+def build_energy_prefix(e2) -> torch.Tensor:
+    """Prefix sums along the last axis, ``out[..., n] = sum_{s < n}
+    e2[..., s]`` for ``n = 0..len``, accumulated in float64 and stored as
+    float32 with a leading 0: for K3's energy rows
+    (:func:`build_energy_tables`, ``[C, R, Wp]`` -> ``[C, R, Wp + 1]``)
+    a window's energy is one read at its sample count."""
+    acc = torch.cumsum(e2.to(torch.float64), -1)
+    return torch.nn.functional.pad(acc, (1, 0)).to(torch.float32) \
+        .contiguous()
+
+
+def build_prefix_tables(tables: dict, inv_ring: float = None) -> dict:
+    """The rows-mode kernel's tables, from ``tables`` of
+    :func:`build_fused_tables` (static rows, not full-table mode) exactly
+    as the chain reads them: for core ``c``, row ``r`` and frequency
+    ``f``, ``z[c, r, f, s] = env_c[min(rows[r] + s // interp_c, Lp - 1)]
+    * (bas_cos + i bas_sin)[c, f, s]`` and
+
+    * ``'p1'``: ``P1[c, r, f, n] = sum_{s < n} |z|^2``, ``n = 0..W``;
+    * ``'pw'``: ``Pw[c, r, f, n] = sum_{s < n} w(s) |z|^2`` with the
+      ring-up of ``inv_ring`` (float32 value; None: ``w = 1``, ``Pw`` is
+      ``P1``);
+    * ``'z'``: ``z`` as ``[C, R, F, W, 2]`` (real, imaginary).
+
+    Accumulated in float64, stored as float32 ``[C, R, F, W + 1]``."""
+    rows = tables['rows']
+    if rows.numel() == 0:
+        raise ValueError('prefix tables need the static row list; '
+                         'full-table mode reads the envelope per sample')
+    env = tables['env'].to(torch.float64)                  # [C, 2, Lp]
+    bas = tables['bas'].to(torch.float64)                  # [C, 2, F, W]
+    C, _two, Lp = env.shape
+    W, dev = bas.shape[3], env.device
+    s = torch.arange(W, device=dev)
+    it = tables['interps'].long()[:, None, None]
+    idx = (rows.long()[None, :, None]
+           + torch.div(s[None, None, :], it, rounding_mode='floor')
+           ).clamp(max=Lp - 1)                              # [C, R, W]
+    e_i = env[:, 0].gather(1, idx.flatten(1)).view(idx.shape)[:, :, None]
+    e_q = env[:, 1].gather(1, idx.flatten(1)).view(idx.shape)[:, :, None]
+    b_c, b_s = bas[:, 0, None], bas[:, 1, None]            # [C, 1, F, W]
+    z_re = e_i * b_c - e_q * b_s                           # [C, R, F, W]
+    z_im = e_i * b_s + e_q * b_c
+    z2 = z_re * z_re + z_im * z_im
+    out = {'p1': build_energy_prefix(z2),
+           'z': torch.stack([z_re, z_im], -1).to(torch.float32)
+           .contiguous()}
+    if inv_ring is None:
+        out['pw'] = out['p1']
+    else:
+        s1 = torch.arange(1, W + 1, dtype=torch.float64, device=dev)
+        out['pw'] = build_energy_prefix(z2 * -torch.expm1(-s1 * inv_ring))
+    return out
+
+
+def _prefix_tables(tables: dict, inv_ring: float, ring: bool) -> dict:
+    """:func:`build_prefix_tables` of ``tables``, built on first use and
+    cached in ``tables['prefix']``, keyed by the float32 ``inv_ring``
+    (None without a ring): once per run, never per epoch."""
+    key = float(np.float32(inv_ring)) if ring else None
+    cache = tables.setdefault('prefix', {})
+    if key not in cache:
+        cache[key] = build_prefix_tables(tables, key)
+    return cache[key]
 
 
 def _window_base(addr, rows, Lp: int):
@@ -186,9 +260,9 @@ def _lane(x, dtype) -> torch.Tensor:
     return x.to(dtype).contiguous()
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-             ctypes.c_uint64] + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                ctypes.c_uint64] + [ctypes.c_int] * 6
              + [ctypes.c_void_p] * 4)
 
 
@@ -219,9 +293,12 @@ def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
     Arguments as :func:`resolve_windows_reference`; ``seed`` (64 bits)
     and ``epoch`` key the kernel's in-kernel Philox noise.  CUDA tensors
     launch ``csrc/resolve.cu`` on the current stream and count one in
-    ``resolve_windows_fused.launches``; CPU tensors take the plain
-    version (``ck`` applies to it only).  Returns ``(acc_i, acc_q,
-    energy)``, each ``[B, C]`` float32."""
+    ``resolve_windows_fused.launches``; with a static row list (rows
+    mode) the kernel reads :func:`build_prefix_tables`, built on the
+    first call and cached in ``tables``, and without one (full-table
+    mode) the per-sample chain.  CPU tensors take the plain version
+    (``ck`` applies to it only).  Returns ``(acc_i, acc_q, energy)``,
+    each ``[B, C]`` float32."""
     device = sc['amp'].device
     if device.type == 'cpu':
         return resolve_windows_reference(
@@ -246,14 +323,22 @@ def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
     _check('interps', interps, i32, (C,), device)
     if noise is not None:
         _check('noise', noise, f32, (2, C, B, W), device)
+    p1 = pw = z = None
+    R = rows.numel()
+    if R:
+        pre = _prefix_tables(tables, inv_ring, ring)
+        p1, pw, z = pre['p1'], pre['pw'], pre['z']
+        _check('p1', p1, f32, (C, R, F, W + 1), device)
+        _check('pw', pw, f32, (C, R, F, W + 1), device)
+        _check('z', z, f32, (C, R, F, W, 2), device)
     outs = [torch.empty((B, C), dtype=f32, device=device) for _ in range(3)]
     if B == 0:
         return tuple(outs)
     fn = _kernel_fn()
     ptr = lambda t: t.data_ptr() if t is not None else None
-    rc = fn(*[ptr(t) for t in lanes], ptr(env), ptr(bas), ptr(rows),
-            int(rows.numel()), ptr(interps), ptr(noise), float(sigma),
-            float(inv_ring), int(bool(ring)),
+    rc = fn(*[ptr(t) for t in lanes], ptr(env), ptr(bas), ptr(rows), R,
+            ptr(interps), ptr(p1), ptr(pw), ptr(z), ptr(noise),
+            float(sigma), float(inv_ring), int(bool(ring)),
             int(seed) & 0xffffffffffffffff, int(epoch), B, C, W, Lp, F,
             *[ptr(t) for t in outs],
             torch.cuda.current_stream(device).cuda_stream)

@@ -36,8 +36,8 @@ import torch
 
 from ..elements import ENV_CW_SENTINEL, IQ_SCALE
 from ..ops.exec_span import exec_span_fused
-from ..ops.resolve import build_energy_tables, build_fused_tables, \
-    fused_chunk, resolve_windows_fused
+from ..ops.resolve import build_energy_prefix, build_energy_tables, \
+    build_fused_tables, fused_chunk, resolve_windows_fused
 from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
     carrier_phase
 from .device import DeviceModel
@@ -331,15 +331,17 @@ def _as_iq(g, C: int, device) -> torch.Tensor:
 def fused_readout(mp, model: ReadoutPhysics, tables: dict) -> dict:
     """The sigma = 0 readout directive of the span kernel K3: the energy
     rows of the program's static envelope addresses over the envelope
-    planes of ``tables`` (:func:`prepare_physics_tables`), the clean
-    responses and the window."""
+    planes of ``tables`` (:func:`prepare_physics_tables`) and their
+    prefix sums (the kernel reads one prefix per window, the plain
+    version sums the row), the clean responses and the window."""
     _env, _freq, _spc, interp_m, w_auto = _physics_tables(mp,
                                                           model.meas_elem)
     W = int(model.window_samples or w_auto)
     rows = _static_meas_env_addrs(mp)
     env = tables['env']
-    return {'e2': build_energy_tables((env[:, 0], env[:, 1]), rows, W,
-                                      tuple(int(x) for x in interp_m)),
+    e2 = build_energy_tables((env[:, 0], env[:, 1]), rows, W,
+                             tuple(int(x) for x in interp_m))
+    return {'e2': e2, 'e2p': build_energy_prefix(e2),
             'g0': _as_iq(model.g0, mp.n_cores, env.device),
             'g1': _as_iq(model.g1, mp.n_cores, env.device),
             'addrs': rows, 'w': W, 'amp_scale': float(AMP_SCALE)}

@@ -8,9 +8,12 @@ them on the card with::
 (``--noconftest``: tests/conftest.py configures JAX, which the card's
 host does not have.)  The kernel ``csrc/resolve.cu`` is held against
 its plain torch version on the same inputs (rtol 1e-5, atol 1e-5 *
-max|energy|: the kernel sums sample by sample, the plain version chunk
-by chunk), and the physics loop on the card against the same loop on
-the CPU (identical bits at sigma = 0).  The megastep kernels of
+max|energy|: the kernel reads float64 prefix sums of the deterministic
+chain and sums the noise projection in its own order, the plain version
+sums chunk by chunk), on the program's tables and on seeded ones with
+four static rows and two or four frequencies, and the physics loop on
+the card against the same loop on the CPU (identical bits at
+sigma = 0).  The megastep kernels of
 ``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
 engine on the card, K3 against its plain version and against the
 generic engine, K1 block (``engine='pallas'`` on a looping program)
@@ -151,22 +154,41 @@ def _inputs(tables, B, seed):
     return sc, gs[0].contiguous(), gs[1].contiguous()
 
 
-@pytest.mark.parametrize('mode', ['fused', 'persample'])
-@pytest.mark.parametrize('ring', [False, True])
-@pytest.mark.parametrize('streamed', [False, True])
-def test_kernel_matches_plain_version(card, program, mode, ring, streamed):
-    model = ReadoutPhysics(resolve_mode=mode, resolve_chunk=256)
-    tables = prepare_physics_tables(program, model, card)
+# static rows (the last two past the envelope's end), carrier
+# frequencies and mixed interpolation: the prefix tables' row and
+# frequency select, which the program's one row and one frequency skip.
+# 'wide' has z rows (R * F * W * 8 bytes) too large for the kernel's
+# shared memory, so it reads them from global memory.
+MULTI_ROWS, MULTI_INTERPS = (0, 8, 28, 40), (4, 2, 1)
+MULTI_F = {'multirow': 2, 'wide': 4}
+
+
+def _tables(card, program, kind, mode):
+    """The program's resolve tables, or seeded multi-row ones."""
+    if kind == 'program':
+        return prepare_physics_tables(program, ReadoutPhysics(
+            resolve_mode=mode, resolve_chunk=256), card)
+    from distributed_processor_tpu_torch.ops.resolve import \
+        build_fused_tables
+    from distributed_processor_tpu_torch.sim.physics import (
+        _aligned_chunk, _carrier_basis, _pad_env_planes)
+    rng = np.random.default_rng(12)
+    W, C = 1024, len(MULTI_INTERPS)
+    env = torch.as_tensor(rng.uniform(-1, 1, (C, 64, 2)), dtype=torch.float32,
+                          device=card)
+    freq = torch.as_tensor(rng.uniform(-0.2, 0.2, (C, MULTI_F[kind])),
+                           dtype=torch.float32, device=card)
+    env_pads = _pad_env_planes(env, _aligned_chunk(256, W, MULTI_INTERPS))
+    return build_fused_tables(env_pads, _carrier_basis(freq, W), W,
+                              MULTI_INTERPS,
+                              MULTI_ROWS if mode == 'fused' else None)
+
+
+def _against_plain(tables, sigma, ring, noise, B):
     C, W, Lp = tables['env'].shape[0], tables['bas'].shape[3], \
         tables['env'].shape[2]
-    B = 1000
     sc, gs_i, gs_q = _inputs(tables, B, 1)
-    noise = None
-    if streamed:
-        gen = torch.Generator(device=card)
-        gen.manual_seed(2)
-        noise = 0.1 * torch.randn((2, C, B, W), generator=gen, device=card)
-    args = (sc, tables, gs_i, gs_q, 0.0, 1 / 30, 3, W, Lp)
+    args = (sc, tables, gs_i, gs_q, sigma, 1 / 30, 3, W, Lp)
     before = resolve_windows_fused.launches
     got = resolve_windows_fused(*args, ring=ring, noise=noise)
     assert resolve_windows_fused.launches == before + 1
@@ -175,6 +197,38 @@ def test_kernel_matches_plain_version(card, program, mode, ring, streamed):
     scale = float(want[2].abs().max())
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize('kind', ['program', 'multirow', 'wide'])
+@pytest.mark.parametrize('mode', ['fused', 'persample'])
+@pytest.mark.parametrize('ring', [False, True])
+@pytest.mark.parametrize('streamed', [False, True])
+def test_kernel_matches_plain_version(card, program, kind, mode, ring,
+                                      streamed):
+    tables = _tables(card, program, kind, mode)
+    C, W = tables['env'].shape[0], tables['bas'].shape[3]
+    B = 1000
+    noise = None
+    if streamed:
+        gen = torch.Generator(device=card)
+        gen.manual_seed(2)
+        noise = 0.1 * torch.randn((2, C, B, W), generator=gen, device=card)
+    _against_plain(tables, 0.0, ring, noise, B)
+
+
+@pytest.mark.parametrize('kind', ['program', 'multirow', 'wide'])
+@pytest.mark.parametrize('ring', [False, True])
+def test_kernel_sigma0_is_deterministic_part(card, program, kind, ring):
+    """sigma = 0 without streamed noise: the rows-mode kernel reads only
+    the prefix tables (one thread per window), at a batch that fills the
+    card's grid; its sums are the plain chain's."""
+    tables = _tables(card, program, kind, 'fused')
+    assert tables['rows'].numel() > 0
+    _against_plain(tables, 0.0, ring, None, 20000)
+    # the prefix tables are built once per ring and kept with the tables
+    cached = dict(tables['prefix'])
+    _against_plain(tables, 0.0, ring, None, 64)
+    assert all(tables['prefix'][k] is v for k, v in cached.items())
 
 
 def test_kernel_rejects_bad_inputs(card, program):

@@ -9,7 +9,11 @@ output key identical, value and dtype, ``steps`` and ``epochs``
 included.  K3 is held at sigma = 0 with explicit initial states, also
 against the port's generic engine (one epoch instead of two).
 ``build_energy_tables`` (K3's energy rows) is held against JAX's at
-rtol 1e-6.  The model gates of the fused engine raise the JAX package's
+rtol 1e-6, and ``build_energy_prefix`` (the prefix sums the kernel reads,
+one per window) against their float64 cumulative sum; the kernel's
+prefix read, emulated in torch inside the plain fused engine, matches
+the masked row sum to rtol 1e-6 and gives identical outputs on the
+8-qubit headline.  The model gates of the fused engine raise the JAX package's
 exception types.
 """
 
@@ -29,12 +33,14 @@ from distributed_processor_tpu.sim.physics import (
     _static_meas_env_addrs as jax_env_addrs)
 
 from distributed_processor_tpu_torch.ops import exec_span, exec_span_fused
-from distributed_processor_tpu_torch.ops.resolve import build_energy_tables
+from distributed_processor_tpu_torch.ops.resolve import (
+    build_energy_prefix, build_energy_tables)
+from distributed_processor_tpu_torch.sim import interpreter as tinterp
 from distributed_processor_tpu_torch.sim.interpreter import (
     InterpreterConfig as TCfg, simulate_batch as torch_simulate_batch)
 from distributed_processor_tpu_torch.sim.physics import (
-    physics_from_dict, prepare_physics_tables, run_physics_batch,
-    _physics_tables, _static_meas_env_addrs)
+    fused_readout, physics_from_dict, prepare_physics_tables,
+    run_physics_batch, _physics_tables, _static_meas_env_addrs)
 
 from test_torch_interpreter import _to_port
 from test_torch_straightline import _sl_feedback_program
@@ -153,6 +159,75 @@ def test_energy_tables_match_jax(headline):
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     assert float(got.max()) > 0
+
+
+def test_energy_prefix_is_cumsum_of_jax_rows(headline):
+    mp_j, mp_t, _cfg = headline
+    model = physics_from_dict(dataclasses.asdict(JPhysics(
+        resolve_chunk=256, resolve_mode='fused')))
+    tabs = prepare_physics_tables(mp_t, model, 'cpu')
+    _env, _freq, _spc, interp_m, W = _physics_tables(mp_t, model.meas_elem)
+    rows = _static_meas_env_addrs(mp_t)
+    env = tabs['env']
+    e2_j = np.asarray(jax_energy_tables(
+        (env[:, 0].numpy(), env[:, 1].numpy()), rows, W,
+        tuple(int(x) for x in interp_m)), np.float64)
+    want = np.concatenate([np.zeros(e2_j.shape[:-1] + (1,)),
+                           np.cumsum(e2_j, -1)], -1)
+    got = build_energy_prefix(torch.as_tensor(e2_j, dtype=torch.float32))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert float(got[..., 0].abs().max()) == 0.0
+    fused = fused_readout(mp_t, model, tabs)
+    assert torch.equal(fused['e2p'], build_energy_prefix(fused['e2']))
+
+
+def _prefix_energy(fused, pp, nsamp, env_len):
+    """K3's window energy as the kernel reads it (test only): one entry
+    of the prefix table ``e2p[c, row, count]`` per window."""
+    e2p = fused['e2p']
+    count = torch.where(env_len == 0xfff, 0, nsamp.clamp(max=fused['w']))
+    addr = (pp[..., 0] & 0xfff) * 4
+    c = torch.arange(e2p.shape[0])[None, :]
+    tot = torch.zeros(addr.shape, dtype=torch.float32)
+    for r, a in enumerate(fused['addrs']):
+        tot = tot + torch.where(addr == a, e2p[c, r, count.long()], 0.0)
+    amp = pp[..., 3].to(torch.float32) / fused['amp_scale']
+    return amp * amp * tot
+
+
+def test_prefix_energy_read_matches_masked_sum_headline(monkeypatch):
+    """The 8-qubit headline at sigma = 0 through the plain fused engine,
+    once with the masked row sum and once with the kernel's prefix read:
+    the energies agree to rtol 1e-6 at every measurement and every
+    output is identical."""
+    mp = _to_port(bench.build_machine_program(8, 12))
+    cfg = TCfg(engine='fused', max_steps=2 * mp.n_instr + 64,
+               max_pulses=int(mp.max_pulses_per_core(1)) + 4, max_meas=2,
+               max_resets=2, record_pulses=False)
+    init = np.random.default_rng(8).integers(0, 2, (64, 8))
+    model = physics_from_dict(dataclasses.asdict(JPhysics(
+        sigma=0.0, p1_init=0.15, resolve_chunk=256, resolve_mode='fused')))
+    want = run_physics_batch(mp, model, 1, 64, init_states=init, cfg=cfg,
+                             device='cpu')
+    masked_sum, seen = tinterp._fused_window_energy, []
+
+    def prefix_read(fused, pp, nsamp, env_len):
+        ref = masked_sum(fused, pp, nsamp, env_len)
+        got = _prefix_energy(fused, pp, nsamp, env_len)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=0)
+        seen.append(int((ref > 0).sum()))
+        return got
+    monkeypatch.setattr(tinterp, '_fused_window_energy', prefix_read)
+    got = run_physics_batch(mp, model, 1, 64, init_states=init, cfg=cfg,
+                            device='cpu')
+    assert sum(seen) > 0
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    bits = want['meas_bits'][..., 0]
+    assert 0 < float(bits.float().mean()) < 1
 
 
 @pytest.mark.parametrize('model_kw', [
