@@ -12,8 +12,12 @@ Phases, in order (any failure exits nonzero):
    its bound: the resolver K2 (sigma = 0, identical streamed noise, and
    the kernel's own Philox noise held to CLT bounds); the span kernel K1
    (``engine='pallas'``) against the straight-line engine on seeded
-   injected bits; the span kernel K3 (``engine='fused'``) against its
-   plain version and against the generic engine at sigma = 0; the
+   injected bits, then its tile kernel and its one-thread-per-lane
+   kernel (K3's, the design before the tile) held to each other and
+   timed on the same inputs, CUDA events around the wrapper and device
+   time under the profiler; the span kernel K3
+   (``engine='fused'``) against its plain version and against the
+   generic engine at sigma = 0, with both times; the
    waveform kernel K4 on every (core, element) of a headline run's
    records and on a 1,048,576-sample capture (64 seeded pulses, one CW,
    one overrunning its table, interp 1 and 16); the demod kernel K5 at
@@ -22,7 +26,9 @@ Phases, in order (any failure exits nonzero):
    (``engine='pallas'`` on the looped headline, the headline inside the
    on-device shot loop) against the plain block engine at 32768 lanes x
    8 iterations and, with records and the opcode histogram, at 4096
-   lanes, then each launch of a batch replayed against the plain bodies;
+   lanes, then each launch of a batch replayed against the plain bodies
+   and the one-thread-per-lane kernel against the tile kernel, each
+   kernel's batch timed both ways;
 3. the paths at full width, each driven with every launch count set to 0
    just before it and read just after: the main path (the headline
    program, 8-qubit active reset + depth-12 RB, compiled by the port and
@@ -92,10 +98,17 @@ ISSUE_PER_CLK, IMUL_PER_CLK, SFU_PER_CLK = 128, 64, 16
 # prefix reads, the deterministic products and the warp's reduce, ~32
 K2_SAMPLE_INSTR, K2_SAMPLE_SFU, K2_SAMPLE_IMUL = 38, 4, 10
 K2_WINDOW_INSTR = 32
-# 32-bit operations per retired instruction of the span kernels
+# K1's work is 32-bit integer add, compare and logic, which compute
+# capability 9.0 issues at 64 per clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): 132 x 64 x 1.98e9 = 1.67e13
+# per second; every instruction, integer or float32, at 128 per clock
+# per SM
+INT_PER_CLK = 64
+PEAK_INT32_OPS = H100_SMS * INT_PER_CLK * H100_CLOCK_HZ
+PEAK_ISSUE = H100_SMS * ISSUE_PER_CLK * H100_CLOCK_HZ
+# 32-bit integer operations per retired row of the megastep kernels
 # (csrc/exec_span.cu: decode and dispatch, ALU, pulse latch and trigger,
-# next pc/time), counted against the float32 peak — the card's integer
-# rate is no higher; per K3 measurement, the discriminator's 21 float32
+# next pc/time); per K3 measurement, the discriminator's 21 float32
 # operations and one read of the window's energy prefix
 SPAN_OPS_PER_INSTR, DISCRIMINATE_OPS = 40, 21
 
@@ -524,12 +537,12 @@ def _carry_bytes(st: dict) -> int:
 
 def _span_inputs(mp, cfg, B: int, seed: int, physics: bool = False):
     """The span kernels' inputs at batch ``B`` on the card: the initial
-    carry, the packed program, element geometry and seeded injected bits
-    (or, for ``physics``, seeded initial qubit states)."""
+    carry, the program's span table and seeded injected bits (or, for
+    ``physics``, seeded initial qubit states)."""
     import torch
     from distributed_processor_tpu_torch.sim.interpreter import (
-        _init_state, _program_constants, _soa_np)
-    _soa, spc, interp, _sync = _program_constants(mp, DEV)
+        _init_state, _span_table)
+    table = _span_table(mp, cfg, DEV, fused=physics)
     st = _init_state(B, mp.n_cores, cfg, None, DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
@@ -537,15 +550,44 @@ def _span_inputs(mp, cfg, B: int, seed: int, physics: bool = False):
                          device=DEV, dtype=torch.int32)
     if physics:
         st['qturns'] = 2 * bits[..., 0]
-    return st, _soa_np(mp), spc, interp, bits
+    return st, table, bits
 
 
-def phase_k1(mp) -> dict:
+def _kernel_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` under the profiler: the megastep
+    kernels' own time, without the wrapper's host work (0.0 when the
+    profiler saw no CUDA kernel)."""
+    _wall, kernels = device_kernel_times(lambda: [fn() for _ in range(reps)])
+    return sum(us for name, (us, _n) in kernels.items()
+               if 'exec_' in name) / 1e3 / reps
+
+
+def _device_note(dev_ms: float) -> str:
+    return f'{dev_ms:.5f}' if dev_ms > 0 else 'not measured'
+
+
+def _time_kernels(make, names, reps: int) -> dict:
+    """``{name: (event ms, device ms)}`` per call of ``make(name,
+    calls)``, a function good for ``calls`` calls: CUDA events around the
+    wrapper and the profiler's device time, each kernel timed twice in
+    turns (forward, then backward), means of the two."""
+    got = {d: [] for d in names}
+    for d in list(names) + list(reversed(names)):
+        got[d].append((cuda_time_ms(make(d, reps + 1), reps),
+                       _kernel_ms(make(d, reps), reps)))
+    return {d: tuple(sum(v) / len(v) for v in zip(*t))
+            for d, t in got.items()}
+
+
+def phase_k1(mp, env) -> dict:
     """K1 (engine='pallas') against the straight-line engine on the card,
-    on seeded injected bits at the main path's batch; its time beside
-    the plain version's and its bound."""
+    on seeded injected bits at the main path's batch; then the tile
+    kernel and the one-thread-per-lane kernel (``lane``) timed on the
+    same inputs, CUDA events around the wrapper and device time under the
+    profiler, beside the plain version's time and the bound."""
     import torch
-    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_span_per_lane, exec_span)
     from distributed_processor_tpu_torch.sim.interpreter import (
         _exec_straightline, simulate_batch)
     B = HEADLINE['batch']
@@ -553,7 +595,7 @@ def phase_k1(mp) -> dict:
     for record in (False, True):
         cfg = headline_config(mp, record_pulses=record,
                               opcode_histogram=True)
-        _st, _soa, _spc, _interp, bits = _span_inputs(mp, cfg, B, seed=21)
+        _st, _table, bits = _span_inputs(mp, cfg, B, seed=21)
         outs = {eng: simulate_batch(mp, bits, cfg=headline_config(
             mp, engine=eng, record_pulses=record, opcode_histogram=True),
             device=DEV) for eng in ('pallas', 'straightline')}
@@ -568,23 +610,31 @@ def phase_k1(mp) -> dict:
     # time at the main path's config (no records, no histogram) on the
     # same bits, which retire the instructions counted above
     cfg = headline_config(mp)
-    st, soa_np, spc, interp, bits = _span_inputs(mp, cfg, B, seed=21)
+    st, table, bits = _span_inputs(mp, cfg, B, seed=21)
     valid = torch.ones(bits.shape, dtype=torch.bool, device=DEV)
-    ms = cuda_time_ms(lambda: exec_span(st, soa_np, spc, interp, bits, cfg),
-                      reps=20)
+    kernels = {'lane': _exec_span_per_lane, 'tile': exec_span}
+    want = exec_span(st, table, bits, cfg)
+    _max_abs_diff(_exec_span_per_lane(st, table, bits, cfg), want,
+                  'K1 one thread per lane vs tile')
+    times = _time_kernels(lambda d, _calls: lambda: kernels[d](
+        st, table, bits, cfg), tuple(kernels), reps=20)
+    ms = times['tile'][0]
     plain_ms = cuda_time_ms(lambda: _exec_straightline(
-        st, soa_np, spc, interp, bits, valid, cfg), reps=3)
-    out = exec_span(st, soa_np, spc, interp, bits, cfg)
-    nbytes = _carry_bytes(st) + _carry_bytes(out) + sum(
-        t.numel() * t.element_size() for t in (bits, spc, interp)) \
-        + soa_np.nbytes
+        st, table.soa_np, table.spc, table.interp, bits, valid, cfg), reps=3)
+    nbytes = _carry_bytes(st) + _carry_bytes(want) + sum(
+        t.numel() * t.element_size() for t in (bits, table.spc,
+                                               table.interp)) \
+        + table.soa_np.nbytes
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = retired * SPAN_OPS_PER_INSTR / PEAK_F32_FLOPS * 1e3
+    t_ops = retired * SPAN_OPS_PER_INSTR / PEAK_INT32_OPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f'K1 at B={B} C={mp.n_cores} N={mp.n_instr}: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes '
-          f'{nbytes / 1e9:.3f} GB = {t_bytes:.4f} ms, operations '
-          f'{t_ops:.4f} ms)')
+    print(f'K1 at B={B} C={mp.n_cores} N={mp.n_instr}: '
+          + ', '.join(f'kernel {d} {e:.4f} ms events / {_device_note(v)} ms '
+                      f'device' for d, (e, v) in times.items())
+          + f'; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes '
+          f'{nbytes / 1e9:.3f} GB = {t_bytes:.4f} ms, operations {retired} '
+          f'rows x {SPAN_OPS_PER_INSTR} = {t_ops:.4f} ms at '
+          f'{PEAK_INT32_OPS:.3e}/s) on {env["smi"]}')
     return dict(name='exec_span', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/exec_span.cu',
                 replaces='distributed_processor_tpu/ops/exec_pallas.py:349',
@@ -594,7 +644,7 @@ def phase_k1(mp) -> dict:
                 library_ms=None)
 
 
-def phase_k3(mp) -> dict:
+def phase_k3(mp, env) -> dict:
     """K3 (engine='fused') against its plain version (the fused
     straight-line pass) and against the generic engine, at sigma = 0 and
     the main path's batch; its time beside the plain version's and its
@@ -615,23 +665,21 @@ def phase_k3(mp) -> dict:
 
     def inputs(**kw):
         cfg = physics_config(headline_config(mp, **kw), model)
-        st, soa_np, spc, interp, init = _span_inputs(mp, cfg, B, seed=31,
-                                                     physics=True)
-        return cfg, st, soa_np, spc, interp, init
+        st, table, init = _span_inputs(mp, cfg, B, seed=31, physics=True)
+        return cfg, st, table, init
 
     def kernel():
-        return exec_span_fused(st, soa_np, spc, interp, bits0, valid0, cfg,
-                               fused)
+        return exec_span_fused(st, table, bits0, valid0, cfg, fused)
 
     def plain():
         out = _exec_straightline(dict(st, meas_bits=bits0,
                                       meas_valid=valid0),
-                                 soa_np, spc, interp, None, None, cfg,
-                                 fused=fused)
+                                 table.soa_np, table.spc, table.interp,
+                                 None, None, cfg, fused=fused)
         return out, out.pop('meas_bits'), out.pop('meas_valid')
 
     # compare with the opcode histogram on, to count retired instructions
-    cfg, st, soa_np, spc, interp, init = inputs(opcode_histogram=True)
+    cfg, st, table, init = inputs(opcode_histogram=True)
     got, want = kernel(), plain()
     sync()
     retired = int(got[0]['op_hist'].sum())
@@ -659,8 +707,9 @@ def phase_k3(mp) -> dict:
           f'outputs identical, epochs 1 vs 2')
     del runs, got
     # time at the path's config (no histogram) on the same inputs
-    cfg, st, soa_np, spc, interp, init = inputs()
+    cfg, st, table, init = inputs()
     ms = cuda_time_ms(kernel, reps=20)
+    dev_ms = _kernel_ms(kernel, reps=20)
     plain_ms = cuda_time_ms(plain, reps=1)
     out, bits, valid = kernel()
     # operations these inputs need: the integer work per retired
@@ -670,19 +719,22 @@ def phase_k3(mp) -> dict:
     fired = torch.arange(cfg.max_meas, device=DEV)[None, None, :] \
         < out['n_meas'][..., None]
     n_meas = int(fired.sum())
-    ops = retired * SPAN_OPS_PER_INSTR + n_meas * (1 + DISCRIMINATE_OPS)
+    # (integer work at the integer rate; all of it at the issue rate)
+    int_ops = retired * SPAN_OPS_PER_INSTR
+    ops = int_ops + n_meas * (1 + DISCRIMINATE_OPS)
     nbytes = _carry_bytes(st) + _carry_bytes(out) + 2 * sum(
         t.numel() * t.element_size() for t in (bits, valid)) + sum(
         t.numel() * t.element_size() for t in
-        (spc, interp, fused['e2p'], fused['g0'], fused['g1'])) \
-        + soa_np.nbytes
+        (table.spc, table.interp, fused['e2p'], fused['g0'], fused['g1'])) \
+        + table.soa_np.nbytes
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(int_ops / PEAK_INT32_OPS, ops / PEAK_ISSUE) * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f'K3 at B={B} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+    print(f'K3 at B={B} C={C}: kernel {ms:.4f} ms events / '
+          f'{_device_note(dev_ms)} ms device, plain {plain_ms:.4f} ms, '
           f'bound {bound_ms:.4f} ms (bytes {nbytes / 1e9:.3f} GB = '
           f'{t_bytes:.4f} ms, operations {ops:.3e} = {t_ops:.4f} ms; '
-          f'{n_meas} windows, one energy prefix read each)')
+          f'{n_meas} windows, one energy prefix read each) on {env["smi"]}')
     return dict(name='exec_span_fused', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/exec_span.cu',
                 replaces='distributed_processor_tpu/sim/interpreter.py:3206',
@@ -746,8 +798,8 @@ def phase_k1_block(mp, env) -> dict:
     with their times per launch and per batch and the bound."""
     import numpy as np
     import torch
-    from distributed_processor_tpu_torch.ops.exec_span import (block_table,
-                                                               exec_blocks)
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_blocks_per_lane, block_table, exec_blocks)
     from distributed_processor_tpu_torch.sim.interpreter import (
         _apply_blocks, _block_ids, _block_plan, _program_constants, _soa_np,
         simulate_batch)
@@ -799,37 +851,45 @@ def phase_k1_block(mp, env) -> dict:
             + table.bid.numel() * 4 + table.body_tab.numel() * 4 \
             + 2 * spc.numel() * 4
     n = len(inputs)
-    clones = [[{k: v.clone() for k, v in st.items()} for st in inputs]
-              for _ in range(5)]
-    it = iter(clones)
-    batch_ms = cuda_time_ms(lambda: [exec_blocks(st, table, cfg)
-                                     for st in next(it)], reps=3)
+    # both kernels on fresh clones of the batch's inputs (they work in
+    # place): CUDA events around the 27 wrapper calls, and the kernels'
+    # device time under the profiler; one thread per lane agrees with the
+    # tile kernel launch by launch
+    kernels = {'lane': _exec_blocks_per_lane, 'tile': exec_blocks}
+    for st in inputs:
+        _max_abs_diff(_exec_blocks_per_lane(
+            {k: v.clone() for k, v in st.items()}, table, cfg),
+            exec_blocks({k: v.clone() for k, v in st.items()}, table, cfg),
+            'K1 block one thread per lane vs tile')
+
+    def batch(d, calls):
+        sets = iter([[{k: v.clone() for k, v in st.items()} for st in inputs]
+                     for _ in range(calls)])
+        sync()
+        return lambda: [kernels[d](st, table, cfg) for st in next(sets)]
+
+    times = _time_kernels(batch, tuple(kernels), reps=2)
+    batch_ms = times['tile'][0]
     # the plain bodies ran on these inputs above: no warm-up
     plain_batch_ms = cuda_time_ms(lambda: [_apply_blocks(st, table, cfg)
                                            for st in inputs], reps=1,
                                   warmup=0)
-    # the kernel's own device time, without the wrapper's host work
-    _wall, kernels = device_kernel_times(
-        lambda: [exec_blocks(st, table, cfg) for st in next(it)])
-    dev_ms = sum(us for name, (us, _n) in kernels.items()
-                 if 'exec_blocks_kernel' in name) / 1e3
-    device = (f'{dev_ms / n:.5f} ms per launch, {dev_ms:.4f} ms per batch'
-              if dev_ms > 0 else 'not measured (the profiler saw no CUDA '
-                                 'kernels)')
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = retired * SPAN_OPS_PER_INSTR / PEAK_F32_FLOPS * 1e3
+    t_ops = retired * SPAN_OPS_PER_INSTR / PEAK_INT32_OPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     print(f'K1 block at B={B} C={C} N={mp.n_instr}, {len(table.bodies)} '
           f'bodies ({sum(L for _, L in table.bodies)} rows), {n} launches '
-          f'per batch: kernel {batch_ms / n:.5f} ms per launch, '
-          f'{batch_ms:.4f} ms per batch (CUDA events around the wrapper; '
-          f'device time under the profiler {device}); plain '
-          f'{plain_batch_ms / n:.4f} ms per launch, {plain_batch_ms:.4f} ms '
-          f'per batch; bound {bound_ms / n:.6f} ms per launch, '
-          f'{bound_ms:.5f} ms per batch (bytes {nbytes / 1e9:.4f} GB = '
-          f'{t_bytes:.5f} ms, operations {retired} rows retired = '
-          f'{t_ops:.5f} ms; {active} lane-bodies) on {env["smi"]}')
-    del inputs, clones
+          f'per batch, per launch (per batch): '
+          + ', '.join(f'kernel {d} {e / n:.5f} ({e:.4f}) ms events / '
+                      f'{_device_note(v / n)} ({_device_note(v)}) ms device'
+                      for d, (e, v) in times.items())
+          + f'; plain {plain_batch_ms / n:.4f} ms per launch, '
+          f'{plain_batch_ms:.4f} ms per batch; bound {bound_ms / n:.6f} ms '
+          f'per launch, {bound_ms:.5f} ms per batch (bytes '
+          f'{nbytes / 1e9:.4f} GB = {t_bytes:.5f} ms, operations {retired} '
+          f'rows retired = {t_ops:.5f} ms; {active} lane-bodies) on '
+          f'{env["smi"]}')
+    del inputs
     return dict(name='exec_blocks', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/exec_span.cu',
                 replaces='distributed_processor_tpu/sim/interpreter.py:3274',
@@ -1532,7 +1592,8 @@ def profile_batch(fn, label: str):
     dev_us = sum(us for us, _n in kernels.values())
     n_kernels = sum(n for _us, n in kernels.values())
     ours = {'resolve_rows': 0.0, 'resolve_full_table': 0.0,
-            'exec_span_kernel': 0.0, 'exec_blocks_kernel': 0.0}
+            'exec_span_kernel': 0.0, 'exec_blocks_kernel': 0.0,
+            'exec_tile_kernel': 0.0}
     for name, (us, _n) in kernels.items():
         for k in ours:
             if k in name:
@@ -1631,8 +1692,8 @@ def main() -> int:
     mp = headline_program()
     resolve = timed(phase_kernels, mp)
     torch.cuda.empty_cache()
-    k1 = timed(phase_k1, mp)
-    k3 = timed(phase_k3, mp)
+    k1 = timed(phase_k1, mp, env)
+    k3 = timed(phase_k3, mp, env)
     torch.cuda.empty_cache()
     from distributed_processor_tpu_torch import Simulator
     sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)

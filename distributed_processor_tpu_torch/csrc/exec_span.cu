@@ -16,37 +16,70 @@
 // The semantics are those of interpreter._sl_apply_instr and
 // _blk_apply_row, whose ports are the plain versions
 // (distributed_processor_tpu_torch/sim/interpreter.py _exec_straightline and
-// _apply_blocks).  Both modes run one instruction row with the same device
-// code (exec_row).
+// _apply_blocks).  Every kernel here retires a row with the same device
+// code (exec_row), one case per kind.
 //
-// Design.  In span mode the cores of a shot are independent: no SYNC, and
-// an fproc read sees only the core's own sticky channel.  So one thread
-// owns one (shot, core) lane and walks its program with the lane's state in
-// registers (regs[16] in a thread-local array).  The program is
-// data, not traced code: the [C, N, 18] int32 field table sits in shared
-// memory (21 KB at the 8-core, 37-instruction headline; read from global
-// memory when it exceeds MAX_SMEM_PROG).  A lane executes index i iff
-// pc == i, and jumps only go forward, so the thread jumps straight from
-// index to index along its pc; it stops at DONE, at a pc past the program,
-// at a pc that does not move forward (the TPU kernel's ascending index loop
-// would never revisit it), or at an fproc read whose bit is not valid yet
-// (K3: phys_wait).  Arrays that instructions update by slot (rst_time,
-// meas_avail, the pulse records, the opcode histogram, the measurement
-// planes) are copied in -> out once per lane and updated in global memory.
-// The TPU kernel's shot tiles, row-replication padding and constant
-// lifting have no counterpart.
+// Design.  The program is data, not traced code: a [C, N, 18] int32 field
+// table.  A lane executes index i iff pc == i, and jumps only go forward
+// in span mode, so one ascending pass over the indices retires every lane;
+// a lane stops at DONE, at a pc past the program, at a pc that does not
+// move forward (the TPU kernel's ascending index loop would never revisit
+// it), or (K3) at an fproc read whose bit is not valid yet (phys_wait).
+//
+// K1 span and K1 block (the tile kernel, exec_tile_kernel).  The lanes of
+// one core walk the same program, so a warp serves one core's 32 shots
+// and is core-uniform: a thread block owns a tile of `sub` x 32
+// consecutive shots x every core (about 16 warps, one per (32 shots,
+// core) item; items beyond the block's warps are looped; a ragged last
+// tile is masked), a persistent grid striding over the tiles.  In span
+// mode the warp visits the indices in ascending order, each the least pc
+// of its live lanes, and the lanes at that pc retire the row together:
+// one row read (a shared-memory broadcast), one case of the row's kind
+// (exec_row, the pulse rows tested first).  Lanes split only where a
+// data-dependent jump (an fproc read of the injected bits, a conditional
+// jump on per-shot registers) sends them to different indices, and meet
+// again at the next common one.  In block mode bid_at[pc] is shared by
+// all cores; the warp retires one deduplicated body at a time for the
+// lanes whose block id selects it.  A pulse's duration divides by the
+// element's samples per clock with a multiply and a shift (Dur), from a
+// per-block table of the [C, 4] element geometry.
+//
+// The carry tile.  A tile's lanes [l0, l0 + sub*32*C) are contiguous in
+// every [B, C, ...] leaf, so the block stages the leaves a row reads and
+// writes (`BODY_LEAVES` of chip_smoke.py: regs, pp, pc, time, offset,
+// err, fault, n_pulses, n_resets, n_meas, done) into shared memory:
+// consecutive threads take consecutive lanes and load every word of
+// their lane before storing any (one memory latency per lane, the
+// register row as 16-byte vectors), transposed to [column][item][pitch].
+// A warp-uniform register index then reads 32 consecutive words, and the
+// pitch, 32 + 32 / C, keeps the staging threads on 32 banks as well; the
+// register file never lives in thread-local memory.  After the rows, the
+// tile goes back the same way.  The leaves that rows write by slot stay in
+// global memory and are written in place: rst_time, meas_avail (read by
+// fproc), the pulse records rec [B, C, 9, P] and the opcode histogram; in
+// span mode (out of place) the tile's segment of each is first copied
+// in -> out with 16-byte loads.  In block mode a tile first reads pc and
+// done; only the lanes that run a body are staged and written back, and
+// a tile with none is left untouched.  The program table is staged in
+// shared memory beside the tile where it fits (21 KB at the headline),
+// else read through L1.  The geometry (`sub`, warps, column stride,
+// pitch) is the wrapper's tile_geometry; a tile that would not fit in
+// shared memory falls back to one thread per lane.
+//
+// One thread per lane (exec_span_kernel, exec_blocks_kernel): the first
+// design, which K3 runs and K1 falls back to — regs[16] in a
+// thread-local array, each lane reading its own rows with warp-strided
+// loads, the program in shared memory, a pulse's duration by division.
 //
 // Block mode.  The TPU code launches one masked pallas_call per
 // deduplicated body per iteration of the block engine; here one launch per
-// iteration serves every body.  A thread reads its lane's pc and block id
-// bid_at[pc] once; a live lane with a block walks that body's rows of its
-// core's table, pc advancing by one per retired row (a deduplicated body
-// serves segments at other start addresses), and stops at a DONE row.  A
-// body holds no jump, fproc read or sync (those end a block), so a lane
-// needs nothing of any other lane.  The carry is updated in place: a lane
-// with no block, or done, is not touched at all, and there is no
-// out-of-place copy of the whole carry per iteration.  The boundary step
-// between launches is the plain torch generic step.
+// iteration serves every body.  A live lane with a block walks that body's
+// rows of its core's table, pc advancing by one per retired row (a
+// deduplicated body serves segments at other start addresses), and stops
+// at a DONE row.  A body holds no jump, fproc read or sync (those end a
+// block), so a lane needs nothing of any other lane.  The carry is updated
+// in place.  The boundary step between launches is the plain torch
+// generic step.
 //
 // Integers.  Every add and subtract that the JAX engine lets wrap in int32
 // is done in uint32 (signed overflow is undefined in C++); cmd_time holds
@@ -66,18 +99,26 @@
 // projection is computed with the plain version's float32 operations one
 // by one (no contraction into FMAs).
 //
-// Bound on this card.  Each lane reads its carry once and writes it once:
-// at the headline (B = 262144, C = 8, max_meas = max_resets = 2, no pulse
-// records) that is ~280 bytes per lane, ~0.6 GB per launch, ~0.18 ms at
-// 3.35 TB/s; the integer work per retired instruction is a few dozen
-// operations and does not bind.  K3 adds one prefix read and the
-// discriminator's ~20 float32 operations per measurement.  Block mode
-// reads and writes
-// the carry of the lanes it retires (at most the whole carry) per launch;
-// its launches are one per block-engine iteration.
+// Bound on this card.  Bytes: each lane's carry read once and written
+// once; at the headline (B = 262144, C = 8, max_meas = max_resets = 2, no
+// pulse records) 0.575 GB per launch, 0.17 ms at 3.35 TB/s.  Operations:
+// ~40 32-bit integer adds, compares and logic operations per retired row
+// (decode, ALU, pulse latch and trigger, next pc and time), issued at 64
+// per clock per SM on compute capability 9.0 (132 SMs at 1.98 GHz: 1.67e13
+// per second); the headline's 74.4M retired rows give 0.178 ms, so K1 span
+// is bound by operations.  Block mode moves only what a body needs: pc and
+// done of every lane, the staged leaves of the lanes that run a body (117
+// bytes each way) and one slot per reset or measurement, one launch per
+// block-engine iteration: bound by bytes.  What the kernels take against
+// these bounds, and what the designs tried and dropped took, is in
+// PERF.md.  K3 adds one prefix read and the discriminator's ~20 float32
+// operations per measurement.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -120,6 +161,21 @@ constexpr int FAULT_PULSE_OVERFLOW = 8, FAULT_MEAS_OVERFLOW = 16,
               FAULT_JUMP_OOB = 128;
 constexpr size_t MAX_SMEM_PROG = 200 * 1024;
 constexpr int THREADS = 256;
+// the tile kernel: 32 shots per warp, at most 16 warps per block
+// (ops/exec_span.py TILE_SHOTS, TILE_WARPS), two blocks per SM (at most 64
+// registers a thread)
+constexpr int TILE_SHOTS = 32, TILE_MAX_THREADS = 512;
+// the elements a pulse can name (cfg & 3): the tile kernel's Dur entries
+// per core
+constexpr int DUR_ELEMS = 4;
+// shared memory a block may take on the card
+constexpr size_t MAX_SMEM_BLOCK = 227 * 1024;
+constexpr unsigned FULL = 0xffffffffu;
+// the staged scalar columns, in shared memory after regs and pp
+enum Scalar {
+  S_PC, S_TIME, S_OFFSET, S_ERR, S_FAULT, S_N_PULSES, S_N_RESETS, S_N_MEAS,
+  S_DONE, N_SCALARS
+};
 
 struct Leaves {
   const void* in[N_LEAVES];
@@ -152,9 +208,25 @@ __device__ __forceinline__ int alu(int op, int a, int b) {
   }
 }
 
+// a lane's register file: a thread-local array (one thread per lane) or
+// a column of the tile's [16][item][33] words in shared memory
+struct LocalRegs {
+  int* r;
+  __device__ __forceinline__ int& operator[](int k) const { return r[k]; }
+};
+
+struct TileRegs {
+  int* r;
+  int stride;
+  __device__ __forceinline__ int& operator[](int k) const {
+    return r[k * stride];
+  }
+};
+
 // a register address outside the file reads 0 (the plain version's
 // one-hot select)
-__device__ __forceinline__ int reg_read(const int* regs, int a) {
+template <class Regs>
+__device__ __forceinline__ int reg_read(const Regs& regs, int a) {
   return (a >= 0 && a < N_REGS) ? regs[a] : 0;
 }
 
@@ -199,8 +271,9 @@ __device__ __forceinline__ int discriminate(float e, int state_bit,
 
 // one (shot, core) lane: its scalars and pulse registers in registers, the
 // rows that instructions update by slot in global memory.  The register
-// file, which instructions index at run time, is kept apart (a thread-local
-// array), so that it alone goes to local memory.
+// file, which instructions index at run time, is kept apart: a
+// thread-local array in the one-thread-per-lane design (so that it alone
+// goes to local memory), shared memory in the tile kernel.
 struct Lane {
   int pp[N_PP];
   int pc, time, offset, err, fault, n_pulses, n_resets, n_meas, qturns;
@@ -284,187 +357,266 @@ __device__ __forceinline__ void store_lane(const Lane& s, const int* regs,
   if (FUSED) out_i(lv, L_QTURNS)[lane] = s.qturns;
 }
 
+// a pulse's duration in clocks, ceil(env_len * 4 * interp / spc), for one
+// (core, element): the numerator n = env_len * 4 * interp + spc - 1 lies in
+// [0, 2^31) (the wrapper holds it there), so n / spc is (n * m) >> (31 + l)
+// with l = ceil(log2 spc), m = ceil(2^(31 + l) / spc) < 2^32 (the
+// round-up method of Granlund and Montgomery): one wide multiply in
+// place of a division
+struct Dur {
+  int interp, spc_m1;
+  unsigned m, shift;
+};
+
+__device__ __forceinline__ Dur make_dur(int spc, int interp) {
+  const unsigned l = spc > 1 ? 32 - __clz(spc - 1) : 0;
+  const unsigned long long p = 1ull << (31 + l);
+  return {interp, spc - 1, (unsigned)((p + spc - 1) / spc), 31 + l};
+}
+
+__device__ __forceinline__ int pulse_dur(const Dur& d, int env_len) {
+  const unsigned n = (unsigned)(env_len * 4 * d.interp + d.spc_m1);
+  return (int)(((unsigned long long)n * d.m) >> d.shift);
+}
+
+// the sample count and the duration of a pulse of element `e` on one
+// core: by division of the [C, E] geometry (DivDur, the one-thread-per-lane
+// kernels) or from the block's Dur table (TabDur, the tile kernel); the
+// two agree on every operand the wrapper admits
+struct DivDur {
+  const int* spc_c;
+  const int* interp_c;
+  __device__ __forceinline__ int nsamp(int e, int env_len) const {
+    return env_len * 4 * interp_c[e];
+  }
+  __device__ __forceinline__ int dur(int e, int env_len) const {
+    return (nsamp(e, env_len) + spc_c[e] - 1) / spc_c[e];
+  }
+};
+
+struct TabDur {
+  const Dur* d;
+  __device__ __forceinline__ int nsamp(int e, int env_len) const {
+    return env_len * 4 * d[e].interp;
+  }
+  __device__ __forceinline__ int dur(int e, int env_len) const {
+    return pulse_dur(d[e], env_len);
+  }
+};
+
+// an ALU row's first operand: a register or the immediate
+template <class Regs>
+__device__ __forceinline__ int alu_in0(const Regs& regs, const int* f) {
+  return f[F_IN0_IS_REG] == 1 ? reg_read(regs, f[F_IN0_REG]) : f[F_IMM];
+}
+
+// a taken jump's target; one outside the program faults
+__device__ __forceinline__ int jump_to(Lane& s, const int* f, int N) {
+  const int ja = f[F_JUMP_ADDR];
+  if (ja < 0 || ja >= N) s.fault |= FAULT_JUMP_OOB;
+  return ja;
+}
+
+// K3 at a trigger: the parity device, where a drive pulse adds
+// round(amp / x90) quarter turns
+__device__ __forceinline__ void parity_step(Lane& s, int elem,
+                                            const Params& prm) {
+  const int* pv = prm.v;
+  const int x90 = pv[P_X90_AMP];
+  if (x90 > 0 && elem == pv[P_DRIVE_ELEM])
+    s.qturns = wadd(s.qturns, (2 * s.pp[3] + x90) / (2 * x90));
+}
+
+// K3 at a measurement into `slot` on core `c`: the sigma = 0 readout of
+// its window (physics mode without CW windows flags a CW readout)
+__device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
+                                              int env_len, int nsamp, int c,
+                                              const Params& prm,
+                                              const Readout& ro) {
+  const int* pv = prm.v;
+  const int state_bit = (s.qturns >> 1) & 1;
+  if (env_len == 0xfff) s.err |= ERR_CW_MEAS;
+  s.m_state[slot] = state_bit;
+  s.m_amp[slot] = s.pp[3];
+  s.m_phase[slot] = s.pp[1];
+  s.m_freq[slot] = s.pp[2];
+  s.m_env[slot] = s.pp[0];
+  s.m_gtime[slot] = trig;
+  const int count = env_len == 0xfff ? 0 : min(nsamp, pv[P_W]);
+  const int addr = (s.pp[0] & 0xfff) * 4;
+  const int n_addrs = pv[P_N_ADDRS], Wp = pv[P_WP];
+  float tot = 0.0f;
+  for (int r = 0; r < n_addrs; ++r)
+    if (ro.addrs[r] == addr)
+      tot = __fadd_rn(tot, ro.e2p[((size_t)c * n_addrs + r) * Wp + count]);
+  const float amp = __fdiv_rn((float)s.pp[3], ro.amp_scale);
+  const float energy = __fmul_rn(__fmul_rn(amp, amp), tot);
+  s.bits[slot] = discriminate(energy, state_bit, ro.g0 + 2 * c,
+                              ro.g1 + 2 * c);
+  s.valid[slot] = 1;
+}
+
 // retire the instruction row `f` on core `c`'s lane `s` (register file
-// `regs`): the next pc is
-// pc + 1 or a taken jump's target, and DONE halts without advancing pc.
-// Returns false, with the lane unchanged, when an fproc read's bit is not
-// resolved yet (K3: phys_wait).
-template <bool FUSED>
-__device__ __forceinline__ bool exec_row(Lane& s, int* regs, const int* f,
-                                         int c,
-                                         const Params& prm,
-                                         const int* __restrict__ spc_c,
-                                         const int* __restrict__ interp_c,
+// `regs`, pulse durations from `du`), the one interpreter of every
+// kernel here: one case per kind, the pulse rows tested first (most rows
+// of a program are pulses), so that a core-uniform warp, whose lanes
+// share the row, runs that case alone.  The next pc is pc + 1 or a taken
+// jump's target, and DONE halts without advancing pc.  Returns false,
+// with the lane unchanged, when an fproc read's bit is not resolved yet
+// (K3: phys_wait).  FUSED: K3's physics mode (injected bits otherwise).
+// HIST: the carry may hold pulse records or the opcode histogram (the
+// tile kernel is specialised on it; without either it carries no code
+// for them).
+template <bool FUSED, bool HIST, class Regs, class DurOf>
+__device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
+                                         const int* f, int c,
+                                         const Params& prm, const DurOf& du,
                                          const Readout& ro) {
   const int* pv = prm.v;
-  const int N = pv[P_N], M = pv[P_M], R = pv[P_R], P = pv[P_P], E = pv[P_E];
   const int kind = f[F_KIND];
-  int err_i = 0, fault_i = 0;
-  if (kind < 0 || kind >= N_KINDS) fault_i |= FAULT_ILLEGAL_OP;
-  const bool is_fproc = kind == K_ALU_FPROC || kind == K_JUMP_FPROC;
-
-  // ---- fproc: own-core sticky read --------------------------------------
-  int f_data = 0;
-  bool f_race = false;
-  if (is_fproc) {
-    const int req = s.time;
-    const int lo = wsub(req, STICKY_RACE_MARGIN);
-    const int hi = wadd(req, STICKY_RACE_MARGIN);
-    int m_cnt = 0;
-    for (int m = 0; m < M; ++m) {
-      const int a = s.meas_avail[m];
-      m_cnt += a <= req;
-      f_race |= a > lo && a <= hi;
-    }
-    const int latest = m_cnt > 0 ? m_cnt - 1 : 0;
-    if (FUSED && m_cnt > 0 && s.valid[latest] == 0) return false;
-    f_data = m_cnt > 0 ? s.bits_rd[latest] : 0;
-  }
-
-  // ---- ALU ----------------------------------------------------------------
-  int alu_res = 0;
-  if (kind == K_REG_ALU || kind == K_INC_QCLK || kind == K_JUMP_COND ||
-      is_fproc) {
-    const int in0 =
-        f[F_IN0_IS_REG] == 1 ? reg_read(regs, f[F_IN0_REG]) : f[F_IMM];
-    int in1;
-    if (kind == K_REG_ALU || kind == K_JUMP_COND)
-      in1 = reg_read(regs, f[F_IN1_REG]);
-    else if (kind == K_INC_QCLK)
-      in1 = wsub(s.time, s.offset);
-    else
-      in1 = f_data;
-    alu_res = alu(f[F_ALU_OP], in0, in1);
-    const int out_reg = f[F_OUT_REG];
-    if ((kind == K_REG_ALU || kind == K_ALU_FPROC) && out_reg >= 0 &&
-        out_reg < N_REGS)
-      regs[out_reg] = alu_res;
-  }
-
-  // ---- pulse latch + trigger ----------------------------------------------
-  int trig = 0;
-  if (kind == K_PULSE_WRITE || kind == K_PULSE_TRIG) {
-    const int wen = f[F_P_WEN], rsel = f[F_P_REGSEL];
-    const int regval = reg_read(regs, f[F_P_REG]);
-    const int pmask[N_PP] = {0xffffff, 0x1ffff, 0x1ff, 0xffff, 0xf};
-#pragma unroll
-    for (int k = 0; k < N_PP; ++k)
-      if ((wen >> k) & 1)
-        s.pp[k] = (((rsel >> k) & 1) ? regval : f[F_P_ENV + k]) & pmask[k];
-  }
-  if (kind == K_PULSE_TRIG) {
-    trig = wadd(s.offset, f[F_CMD_TIME]);
-    if (trig < s.time) err_i |= ERR_MISSED_TRIG;
-    trig = max(trig, s.time);
-    const int elem = s.pp[4] & 3;
-    const int e = min(elem, E - 1);
-    const int env_len = (s.pp[0] >> 12) & 0xfff;
-    const int nsamp = env_len * 4 * interp_c[e];
-    const int dur = env_len == 0xfff ? 0 : (nsamp + spc_c[e] - 1) / spc_c[e];
-    if (s.n_pulses >= P) {
-      err_i |= ERR_PULSE_OVERFLOW;
-      fault_i |= FAULT_PULSE_OVERFLOW;
-    } else if (s.rec != nullptr) {
-      const int vals[N_REC] = {f[F_CMD_TIME], trig, s.pp[0], s.pp[1], s.pp[2],
-                               s.pp[3], s.pp[4], elem, dur};
-#pragma unroll
-      for (int k = 0; k < N_REC; ++k) s.rec[k * P + s.n_pulses] = vals[k];
-    }
-    s.n_pulses += 1;
-    const bool is_meas = elem == pv[P_MEAS_ELEM];
-    const int slot = min(s.n_meas, M - 1);
-    if (is_meas) {
-      if (s.n_meas >= M) {
-        err_i |= ERR_MEAS_OVERFLOW;
-        fault_i |= FAULT_MEAS_OVERFLOW;
-      }
-      s.meas_avail[slot] = wadd(wadd(trig, dur), pv[P_MEAS_LATENCY]);
-      s.n_meas += 1;
-    }
-    if (FUSED) {
-      // the parity device: a drive pulse adds round(amp / x90) quarter
-      // turns; physics mode without CW windows flags a CW readout
-      const int x90 = pv[P_X90_AMP];
-      if (x90 > 0 && elem == pv[P_DRIVE_ELEM])
-        s.qturns = wadd(s.qturns, (2 * s.pp[3] + x90) / (2 * x90));
-      const int state_bit = (s.qturns >> 1) & 1;
-      if (is_meas) {
-        if (env_len == 0xfff) err_i |= ERR_CW_MEAS;
-        s.m_state[slot] = state_bit;
-        s.m_amp[slot] = s.pp[3];
-        s.m_phase[slot] = s.pp[1];
-        s.m_freq[slot] = s.pp[2];
-        s.m_env[slot] = s.pp[0];
-        s.m_gtime[slot] = trig;
-        // sigma = 0 readout of this window
-        const int count = env_len == 0xfff ? 0 : min(nsamp, pv[P_W]);
-        const int addr = (s.pp[0] & 0xfff) * 4;
-        const int n_addrs = pv[P_N_ADDRS], Wp = pv[P_WP];
-        float tot = 0.0f;
-        for (int r = 0; r < n_addrs; ++r)
-          if (ro.addrs[r] == addr)
-            tot = __fadd_rn(tot, ro.e2p[((size_t)c * n_addrs + r) * Wp
-                                        + count]);
-        const float amp = __fdiv_rn((float)s.pp[3], ro.amp_scale);
-        const float energy = __fmul_rn(__fmul_rn(amp, amp), tot);
-        s.bits[slot] = discriminate(energy, state_bit, ro.g0 + 2 * c,
-                                    ro.g1 + 2 * c);
-        s.valid[slot] = 1;
-      }
-    }
-  }
-
-  // ---- phase reset / idle -------------------------------------------------
-  int idle_end = 0;
-  if (kind == K_PULSE_RESET) {
-    s.rst_time[min(s.n_resets, R - 1)] = s.time;
-    if (s.n_resets >= R) fault_i |= FAULT_RESET_OVERFLOW;
-    s.n_resets += 1;
-  } else if (kind == K_IDLE) {
-    idle_end = wadd(s.offset, f[F_CMD_TIME]);
-    if (s.time > idle_end) err_i |= ERR_MISSED_TRIG;
-    idle_end = max(idle_end, s.time);
-  }
-  if (is_fproc && f_race) err_i |= ERR_STICKY_RACE;
-  if (s.op_hist != nullptr && kind >= 0 && kind < N_KINDS)
-    s.op_hist[kind] += 1;
-
-  // ---- next pc / time / offset / done -------------------------------------
   int pc_next = s.pc + 1;
-  const int ja = f[F_JUMP_ADDR];
-  const bool taken =
-      kind == K_JUMP_I ||
-      ((kind == K_JUMP_COND || kind == K_JUMP_FPROC) && (alu_res & 1));
-  if (taken) {
-    pc_next = ja;
-    if (ja < 0 || ja >= N) s.fault |= FAULT_JUMP_OOB;
+  if (__builtin_expect((unsigned)kind <= K_PULSE_TRIG, 1)) {
+    // ---- pulse latch ----------------------------------------------------
+    const int wen = f[F_P_WEN], rsel = f[F_P_REGSEL];
+    const int pmask[N_PP] = {0xffffff, 0x1ffff, 0x1ff, 0xffff, 0xf};
+    if (wen == (1 << N_PP) - 1 && rsel == 0) {
+      // the common row: every pulse register from the row's words
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) s.pp[k] = f[F_P_ENV + k] & pmask[k];
+    } else {
+      const int regval = reg_read(regs, f[F_P_REG]);
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) {
+        const int v =
+            (((rsel >> k) & 1) ? regval : f[F_P_ENV + k]) & pmask[k];
+        s.pp[k] = ((wen >> k) & 1) ? v : s.pp[k];
+      }
+    }
+    if (kind == K_PULSE_WRITE) {
+      s.time = wadd(s.time, pv[P_REGWRITE_CLKS]);
+    } else {
+      // ---- trigger --------------------------------------------------------
+      const int M = pv[P_M], P = pv[P_P];
+      int trig = wadd(s.offset, f[F_CMD_TIME]);
+      if (trig < s.time) s.err |= ERR_MISSED_TRIG;
+      trig = max(trig, s.time);
+      const int elem = s.pp[4] & 3;
+      const int e = min(elem, pv[P_E] - 1);
+      const int env_len = (s.pp[0] >> 12) & 0xfff;
+      const int dur = env_len == 0xfff ? 0 : du.dur(e, env_len);
+      if (s.n_pulses >= P) {
+        s.err |= ERR_PULSE_OVERFLOW;
+        s.fault |= FAULT_PULSE_OVERFLOW;
+      } else if (HIST && s.rec != nullptr) {
+        const int vals[N_REC] = {f[F_CMD_TIME], trig, s.pp[0], s.pp[1],
+                                 s.pp[2], s.pp[3], s.pp[4], elem, dur};
+#pragma unroll
+        for (int k = 0; k < N_REC; ++k) s.rec[k * P + s.n_pulses] = vals[k];
+      }
+      s.n_pulses += 1;
+      if (FUSED) parity_step(s, elem, prm);
+      if (elem == pv[P_MEAS_ELEM]) {
+        const int slot = min(s.n_meas, M - 1);
+        if (s.n_meas >= M) {
+          s.err |= ERR_MEAS_OVERFLOW;
+          s.fault |= FAULT_MEAS_OVERFLOW;
+        }
+        s.meas_avail[slot] = wadd(wadd(trig, dur), pv[P_MEAS_LATENCY]);
+        if (FUSED)
+          fused_readout(s, slot, trig, env_len, du.nsamp(e, env_len), c, prm,
+                        ro);
+        s.n_meas += 1;
+      }
+      s.time = wadd(trig, pv[P_LOAD_CLKS]);
+    }
+  } else {
+    switch (kind) {
+      case K_REG_ALU: {
+        const int res = alu(f[F_ALU_OP], alu_in0(regs, f),
+                            reg_read(regs, f[F_IN1_REG]));
+        const int out_reg = f[F_OUT_REG];
+        if (out_reg >= 0 && out_reg < N_REGS) regs[out_reg] = res;
+        s.time = wadd(s.time, pv[P_ALU_CLKS]);
+        break;
+      }
+      case K_INC_QCLK: {
+        const int res =
+            alu(f[F_ALU_OP], alu_in0(regs, f), wsub(s.time, s.offset));
+        s.offset = wsub(s.time, res);
+        s.time = wadd(s.time, pv[P_ALU_CLKS]);
+        break;
+      }
+      case K_JUMP_I:
+      case K_JUMP_COND: {
+        const bool taken =
+            kind == K_JUMP_I || (alu(f[F_ALU_OP], alu_in0(regs, f),
+                                     reg_read(regs, f[F_IN1_REG])) & 1);
+        s.time = wadd(s.time, pv[P_JCOND_CLKS]);
+        if (taken) pc_next = jump_to(s, f, pv[P_N]);
+        break;
+      }
+      case K_ALU_FPROC:
+      case K_JUMP_FPROC: {
+        // own-core sticky read: the bit of the latest measurement
+        // available at the request
+        const int M = pv[P_M], req = s.time;
+        const int lo = wsub(req, STICKY_RACE_MARGIN);
+        const int hi = wadd(req, STICKY_RACE_MARGIN);
+        int m_cnt = 0;
+        bool race = false;
+        for (int m = 0; m < M; ++m) {
+          const int a = s.meas_avail[m];
+          m_cnt += a <= req;
+          race |= a > lo && a <= hi;
+        }
+        const int latest = m_cnt > 0 ? m_cnt - 1 : 0;
+        if (FUSED && m_cnt > 0 && s.valid[latest] == 0) return false;
+        const int f_data = m_cnt > 0 ? s.bits_rd[latest] : 0;
+        const int res = alu(f[F_ALU_OP], alu_in0(regs, f), f_data);
+        if (race) s.err |= ERR_STICKY_RACE;
+        s.time = wadd(s.time, pv[P_JFPROC_CLKS]);
+        if (kind == K_ALU_FPROC) {
+          const int out_reg = f[F_OUT_REG];
+          if (out_reg >= 0 && out_reg < N_REGS) regs[out_reg] = res;
+        } else if (res & 1) {
+          pc_next = jump_to(s, f, pv[P_N]);
+        }
+        break;
+      }
+      case K_PULSE_RESET: {
+        const int R = pv[P_R];
+        s.rst_time[min(s.n_resets, R - 1)] = s.time;
+        if (s.n_resets >= R) s.fault |= FAULT_RESET_OVERFLOW;
+        s.n_resets += 1;
+        s.time = wadd(s.time, pv[P_REGWRITE_CLKS]);
+        break;
+      }
+      case K_IDLE: {
+        int idle_end = wadd(s.offset, f[F_CMD_TIME]);
+        if (s.time > idle_end) s.err |= ERR_MISSED_TRIG;
+        idle_end = max(idle_end, s.time);
+        s.time = wadd(idle_end, pv[P_LOAD_CLKS]);
+        break;
+      }
+      case K_DONE:
+        s.done = true;
+        pc_next = s.pc;
+        break;
+      case K_SYNC:
+        break;
+      default:
+        s.fault |= FAULT_ILLEGAL_OP;
+        break;
+    }
   }
-  int time_next = s.time;
-  switch (kind) {
-    case K_PULSE_TRIG: time_next = wadd(trig, pv[P_LOAD_CLKS]); break;
-    case K_PULSE_WRITE:
-    case K_PULSE_RESET: time_next = wadd(s.time, pv[P_REGWRITE_CLKS]); break;
-    case K_IDLE: time_next = wadd(idle_end, pv[P_LOAD_CLKS]); break;
-    case K_REG_ALU:
-    case K_INC_QCLK: time_next = wadd(s.time, pv[P_ALU_CLKS]); break;
-    case K_JUMP_I:
-    case K_JUMP_COND: time_next = wadd(s.time, pv[P_JCOND_CLKS]); break;
-    case K_ALU_FPROC:
-    case K_JUMP_FPROC: time_next = wadd(s.time, pv[P_JFPROC_CLKS]); break;
-    default: break;
-  }
-  if (kind == K_INC_QCLK) s.offset = wsub(s.time, alu_res);
-  s.time = time_next;
-  s.err |= err_i;
-  s.fault |= fault_i;
-  if (kind == K_DONE)
-    s.done = true;
-  else
-    s.pc = pc_next;
+  if (HIST && s.op_hist != nullptr && (unsigned)kind < N_KINDS)
+    s.op_hist[kind] += 1;
+  s.pc = pc_next;
   return true;
 }
 
-// span mode: run one (shot, core) lane through the program, index by index
+// span mode, one thread per lane (K3, and K1 where the tile would not
+// fit): run one (shot, core) lane through the program, index by index
 // along its pc
 template <bool FUSED>
 __device__ __forceinline__ void run_lane(long long lane, const Leaves& lv,
@@ -475,15 +627,16 @@ __device__ __forceinline__ void run_lane(long long lane, const Leaves& lv,
                                          const Readout& ro) {
   const int C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
   const int c = (int)(lane % C);
+  const DivDur du{spc + (size_t)c * E, interp + (size_t)c * E};
   Lane s;
   int regs[N_REGS];
   load_lane<FUSED>(s, regs, lane, lv, prm, bits_in);
   bool stalled = false;
   for (int last = -1; !s.done && s.pc > last && s.pc < N;) {
     last = s.pc;
-    if (!exec_row<FUSED>(s, regs, prog + ((size_t)c * N + s.pc) * N_FIELDS,
-                         c, prm, spc + (size_t)c * E, interp + (size_t)c * E,
-                         ro)) {
+    if (!exec_row<FUSED, true>(s, LocalRegs{regs},
+                               prog + ((size_t)c * N + s.pc) * N_FIELDS, c,
+                               prm, du, ro)) {
       stalled = true;   // the bit is not resolved yet: phys_wait
       break;
     }
@@ -507,9 +660,9 @@ __device__ __forceinline__ const int* stage_program(const int* gprog,
 
 template <bool FUSED>
 __global__ void __launch_bounds__(THREADS) exec_span_kernel(
-    Leaves lv, Params prm, const int* __restrict__ gprog, int prog_in_smem,
+    Leaves lv, Params prm, const int* __restrict__ gprog,
     const int* __restrict__ spc, const int* __restrict__ interp,
-    const int* __restrict__ bits_in, Readout ro) {
+    const int* __restrict__ bits_in, Readout ro, int prog_in_smem) {
   extern __shared__ int sprog[];
   const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
   const long long lanes = (long long)prm.v[P_B] * prm.v[P_C];
@@ -519,14 +672,17 @@ __global__ void __launch_bounds__(THREADS) exec_span_kernel(
     run_lane<FUSED>(lane, lv, prm, prog, spc, interp, bits_in, ro);
 }
 
-// block mode: every live lane whose pc starts a block (bid_at[pc] >= 0)
-// retires that block's deduplicated body, rows [start, start + length) of
-// its core's table, with pc advancing by one per retired row; every other
-// lane is left untouched.  The carry is updated in place.
+// block mode, one thread per lane (where the tile would not fit): every
+// live lane whose pc
+// starts a block (bid_at[pc] >= 0) retires that block's deduplicated body,
+// rows [start, start + length) of its core's table, with pc advancing by
+// one per retired row; every other lane is left untouched.  The carry is
+// updated in place.
 __global__ void __launch_bounds__(THREADS) exec_blocks_kernel(
-    Leaves lv, Params prm, const int* __restrict__ gprog, int prog_in_smem,
+    Leaves lv, Params prm, const int* __restrict__ gprog,
     const int* __restrict__ spc, const int* __restrict__ interp,
-    const int* __restrict__ bid_at, const int* __restrict__ bodies) {
+    const int* __restrict__ bid_at, const int* __restrict__ bodies,
+    int prog_in_smem) {
   extern __shared__ int sprog[];
   const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
   const int C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
@@ -543,41 +699,414 @@ __global__ void __launch_bounds__(THREADS) exec_blocks_kernel(
     if (bid < 0) continue;
     const int start = bodies[2 * bid], length = bodies[2 * bid + 1];
     const int c = (int)(lane % C);
+    const DivDur du{spc + (size_t)c * E, interp + (size_t)c * E};
     Lane s;
     int regs[N_REGS];
     load_lane<false>(s, regs, lane, lv, prm, nullptr);
     for (int r = 0; r < length && !s.done; ++r)
-      exec_row<false>(s, regs, prog + ((size_t)c * N + start + r) * N_FIELDS,
-                      c, prm, spc + (size_t)c * E, interp + (size_t)c * E,
-                      none);
+      exec_row<false, true>(s, LocalRegs{regs},
+                            prog + ((size_t)c * N + start + r) * N_FIELDS, c,
+                            prm, du, none);
     store_lane<false>(s, regs, lane, lv);
   }
 }
 
-// a grid-stride loop over the B * C lanes, each block staging the program
-// once: the grid, and the shared memory of `kernel` (0 when the program is
-// read from global memory)
-template <typename Kernel>
-cudaError_t geometry(Kernel kernel, const Params& prm, int* grid,
-                     size_t* smem, int* in_smem) {
-  const long long lanes = (long long)prm.v[P_B] * prm.v[P_C];
-  int dev = 0, sms = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess)
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc != cudaSuccess) return rc;
-  const size_t prog_bytes =
-      (size_t)prm.v[P_C] * prm.v[P_N] * N_FIELDS * sizeof(int);
-  *in_smem = prog_bytes <= MAX_SMEM_PROG;
-  *smem = *in_smem ? prog_bytes : 0;
-  if (*smem > 48 * 1024) {
-    rc = cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
-    if (rc != cudaSuccess) return rc;
+// ---- the tile kernel: K1 span and K1 block -----------------------------------
+
+// the leaf of each staged scalar column but done
+__host__ __device__ constexpr int scalar_leaf(int q) {
+  return q == S_PC ? L_PC : q == S_TIME ? L_TIME : q == S_OFFSET ? L_OFFSET
+       : q == S_ERR ? L_ERR : q == S_FAULT ? L_FAULT
+       : q == S_N_PULSES ? L_N_PULSES : q == S_N_RESETS ? L_N_RESETS
+       : L_N_MEAS;
+}
+
+// the tile's shape (ops/exec_span.py tile_geometry): `sub` rows of 32 shots
+// x C cores, `warps` warps per block, the staged columns `kst` words apart,
+// an item's 32 lanes at `pitch` words
+struct Tile {
+  int sub, warps, kst, pitch;
+};
+
+// the tile's segment of a slot leaf of `w` words per lane, in -> out
+// (span mode); 16-byte loads where both sides are aligned
+__device__ __forceinline__ void tile_copy(const Leaves& lv, int leaf, int w,
+                                          long long l0, int n) {
+  if (lv.out[leaf] == nullptr || lv.in[leaf] == lv.out[leaf]) return;
+  const int* src = in_i(lv, leaf) + l0 * w;
+  int* dst = out_i(lv, leaf) + l0 * w;
+  const int cnt = n * w;
+  int head = 0;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+    const int n4 = cnt >> 2;
+    for (int e = threadIdx.x; e < n4; e += blockDim.x)
+      reinterpret_cast<int4*>(dst)[e] = reinterpret_cast<const int4*>(src)[e];
+    head = n4 << 2;
   }
-  const long long blocks = (lanes + THREADS - 1) / THREADS;
-  *grid = (int)(blocks < (long long)sms * 8 ? blocks : (long long)sms * 8);
+  for (int e = head + threadIdx.x; e < cnt; e += blockDim.x) dst[e] = src[e];
+}
+
+// stage the tile's lanes in (IN) or out: consecutive threads on
+// consecutive lanes of the leaves' own order, each thread moving every
+// staged word of its lane at once (the register row as 16-byte vectors
+// where aligned), so that a lane costs one memory latency.  Lane l sits at
+// column word slot[l]; `pick`: only the lanes l with pick[l] >= 0 (block
+// mode), or every lane when null.
+template <bool IN>
+__device__ __forceinline__ void tile_stage(const Leaves& lv, int* regs_s,
+                                           int* pp_s, int* sc_s, int kst,
+                                           const int* slot, const int* pick,
+                                           long long l0, int n) {
+  const void* gregs = IN ? lv.in[L_REGS] : lv.out[L_REGS];
+  const bool vec = ((uintptr_t)gregs & 15) == 0;
+  for (int l = threadIdx.x; l < n; l += blockDim.x) {
+    if (pick != nullptr && pick[l] < 0) continue;
+    const long long lane = l0 + l;
+    const int sl = slot[l];
+    int r[N_REGS], p[N_PP], q[N_SCALARS];
+    if (IN) {
+      const int* g = in_i(lv, L_REGS) + lane * N_REGS;
+      if (vec) {
+#pragma unroll
+        for (int k = 0; k < N_REGS / 4; ++k) {
+          const int4 v = reinterpret_cast<const int4*>(g)[k];
+          r[4 * k] = v.x;
+          r[4 * k + 1] = v.y;
+          r[4 * k + 2] = v.z;
+          r[4 * k + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < N_REGS; ++k) r[k] = g[k];
+      }
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) p[k] = in_i(lv, L_PP)[lane * N_PP + k];
+#pragma unroll
+      for (int k = 0; k < N_SCALARS - 1; ++k)
+        q[k] = in_i(lv, scalar_leaf(k))[lane];
+      q[S_DONE] = static_cast<const uint8_t*>(lv.in[L_DONE])[lane];
+#pragma unroll
+      for (int k = 0; k < N_REGS; ++k) regs_s[k * kst + sl] = r[k];
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) pp_s[k * kst + sl] = p[k];
+#pragma unroll
+      for (int k = 0; k < N_SCALARS; ++k) sc_s[k * kst + sl] = q[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < N_REGS; ++k) r[k] = regs_s[k * kst + sl];
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) p[k] = pp_s[k * kst + sl];
+#pragma unroll
+      for (int k = 0; k < N_SCALARS; ++k) q[k] = sc_s[k * kst + sl];
+      int* g = out_i(lv, L_REGS) + lane * N_REGS;
+      if (vec) {
+#pragma unroll
+        for (int k = 0; k < N_REGS / 4; ++k)
+          reinterpret_cast<int4*>(g)[k] =
+              make_int4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < N_REGS; ++k) g[k] = r[k];
+      }
+#pragma unroll
+      for (int k = 0; k < N_PP; ++k) out_i(lv, L_PP)[lane * N_PP + k] = p[k];
+#pragma unroll
+      for (int k = 0; k < N_SCALARS - 1; ++k)
+        out_i(lv, scalar_leaf(k))[lane] = q[k];
+      static_cast<uint8_t*>(lv.out[L_DONE])[lane] = q[S_DONE] != 0;
+    }
+  }
+}
+
+// block mode: each thread reads its lanes' pc and done and, for a lane
+// that may run a body, its staged words in the same pass, then keeps the
+// lane (bid_l[l] = its block id) only where bid_at[pc] names a body.
+// Returns whether any lane of the tile runs a body.
+__device__ __forceinline__ int tile_pick_stage(
+    const Leaves& lv, int* regs_s, int* pp_s, int* sc_s, int kst,
+    const int* slot, int* bid_l, const int* __restrict__ bid_at, int N,
+    long long l0, int n, int L) {
+  const bool vec = (reinterpret_cast<uintptr_t>(lv.in[L_REGS]) & 15) == 0;
+  int any = 0;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    int b = -1;
+    if (l < n) {
+      const long long lane = l0 + l;
+      const int pc = in_i(lv, L_PC)[lane];
+      const bool done = static_cast<const uint8_t*>(lv.in[L_DONE])[lane];
+      if (!done && pc >= 0 && pc < N) {
+        int r[N_REGS], p[N_PP], q[N_SCALARS];
+        const int* g = in_i(lv, L_REGS) + lane * N_REGS;
+        b = bid_at[pc];
+        if (vec) {
+#pragma unroll
+          for (int k = 0; k < N_REGS / 4; ++k) {
+            const int4 v = reinterpret_cast<const int4*>(g)[k];
+            r[4 * k] = v.x;
+            r[4 * k + 1] = v.y;
+            r[4 * k + 2] = v.z;
+            r[4 * k + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < N_REGS; ++k) r[k] = g[k];
+        }
+#pragma unroll
+        for (int k = 0; k < N_PP; ++k) p[k] = in_i(lv, L_PP)[lane * N_PP + k];
+#pragma unroll
+        for (int k = 1; k < N_SCALARS - 1; ++k)
+          q[k] = in_i(lv, scalar_leaf(k))[lane];
+        q[S_PC] = pc;
+        q[S_DONE] = 0;
+        if (b >= 0) {
+          const int sl = slot[l];
+#pragma unroll
+          for (int k = 0; k < N_REGS; ++k) regs_s[k * kst + sl] = r[k];
+#pragma unroll
+          for (int k = 0; k < N_PP; ++k) pp_s[k * kst + sl] = p[k];
+#pragma unroll
+          for (int k = 0; k < N_SCALARS; ++k) sc_s[k * kst + sl] = q[k];
+        }
+      }
+    }
+    bid_l[l] = b;
+    any |= b >= 0;
+  }
+  return __syncthreads_or(any);
+}
+
+// one lane of the tile in from the staged columns, with its slot rows at
+// `lane` of the output leaves: the fields exec_row reads
+__device__ __forceinline__ void tile_load_lane(Lane& s, long long lane,
+                                               int sl, int kst,
+                                               const int* pp_s,
+                                               const int* sc_s,
+                                               const Leaves& lv,
+                                               const Params& prm,
+                                               const int* bits_in) {
+  const int M = prm.v[P_M], R = prm.v[P_R], P = prm.v[P_P];
+  s.rst_time = lv.out[L_RST_TIME] ? out_i(lv, L_RST_TIME) + lane * R
+                                  : nullptr;
+  s.meas_avail = lv.out[L_MEAS_AVAIL] ? out_i(lv, L_MEAS_AVAIL) + lane * M
+                                      : nullptr;
+  s.rec = lv.out[L_REC] ? out_i(lv, L_REC) + lane * N_REC * P : nullptr;
+  s.op_hist = lv.out[L_OP_HIST] ? out_i(lv, L_OP_HIST) + lane * N_KINDS
+                                : nullptr;
+  s.bits_rd = bits_in ? bits_in + lane * M : nullptr;
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) s.pp[k] = pp_s[k * kst + sl];
+  s.pc = sc_s[S_PC * kst + sl];
+  s.time = sc_s[S_TIME * kst + sl];
+  s.offset = sc_s[S_OFFSET * kst + sl];
+  s.err = sc_s[S_ERR * kst + sl];
+  s.fault = sc_s[S_FAULT * kst + sl];
+  s.n_pulses = sc_s[S_N_PULSES * kst + sl];
+  s.n_resets = sc_s[S_N_RESETS * kst + sl];
+  s.n_meas = sc_s[S_N_MEAS * kst + sl];
+  s.done = sc_s[S_DONE * kst + sl] != 0;
+}
+
+__device__ __forceinline__ void tile_store_lane(const Lane& s, int sl,
+                                                int kst, int* pp_s,
+                                                int* sc_s) {
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) pp_s[k * kst + sl] = s.pp[k];
+  sc_s[S_PC * kst + sl] = s.pc;
+  sc_s[S_TIME * kst + sl] = s.time;
+  sc_s[S_OFFSET * kst + sl] = s.offset;
+  sc_s[S_ERR * kst + sl] = s.err;
+  sc_s[S_FAULT * kst + sl] = s.fault;
+  sc_s[S_N_PULSES * kst + sl] = s.n_pulses;
+  sc_s[S_N_RESETS * kst + sl] = s.n_resets;
+  sc_s[S_N_MEAS * kst + sl] = s.n_meas;
+  sc_s[S_DONE * kst + sl] = s.done ? 1 : 0;
+}
+
+// the shared memory of the tile kernel's tile, in words: the lane -> slot
+// map, block mode's block id per lane, the register file, pp and the
+// scalar columns (ops/exec_span.py tile_geometry counts the same, with
+// the Dur table)
+__host__ __device__ __forceinline__ size_t tile_words(const Tile& tg, int C,
+                                                      bool blocks) {
+  const size_t lanes = (size_t)tg.sub * TILE_SHOTS * C;
+  return lanes * (blocks ? 2 : 1) + (size_t)tg.kst * (N_REGS + N_PP +
+                                                       N_SCALARS);
+}
+
+// K1 span (BLOCKS = false: one ascending pass per warp, out of place) and
+// K1 block (BLOCKS = true: each running lane retires its block's body, in
+// place) over tiles of `sub` x 32 shots x C cores, a persistent grid
+// striding over the tiles, the carry tile in shared memory (block mode
+// stages only the running lanes and skips a tile with none).  PROG_SMEM:
+// the program table staged in shared memory beside the tile (else read
+// through L1).  HIST: the carry holds pulse records or the opcode
+// histogram.
+template <bool BLOCKS, bool PROG_SMEM, bool HIST>
+__global__ void __launch_bounds__(TILE_MAX_THREADS, 2) exec_tile_kernel(
+    Leaves lv, Params prm, Tile tg, const int* __restrict__ gprog,
+    const int* __restrict__ spc,
+    const int* __restrict__ interp, const int* __restrict__ bits_in,
+    const int* __restrict__ bid_at, const int* __restrict__ bodies) {
+  extern __shared__ int4 smem4[];   // 16-byte aligned
+  int* smem = reinterpret_cast<int*>(smem4);
+  const int B = prm.v[P_B], C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
+  const int items = tg.sub * C, L = items * TILE_SHOTS, kst = tg.kst;
+  int* slot = smem;
+  int* bid_l = slot + L;   // block mode only
+  int* regs_s = bid_l + (BLOCKS ? L : 0);
+  int* pp_s = regs_s + N_REGS * kst;
+  int* sc_s = pp_s + N_PP * kst;
+  // after the tile: the Dur table [C][DUR_ELEMS], then the program
+  const int tw = (int)tile_words(tg, C, BLOCKS);
+  Dur* dur = reinterpret_cast<Dur*>(smem + tw);
+  for (int k = threadIdx.x; k < C * DUR_ELEMS; k += blockDim.x) {
+    const int c = k / DUR_ELEMS, e = min(k % DUR_ELEMS, E - 1);
+    dur[k] = make_dur(spc[c * E + e], interp[c * E + e]);
+  }
+  const int* prog = gprog;
+  if (PROG_SMEM) {
+    // 16-byte aligned after the Dur table (indexed from the shared array,
+    // so that row reads stay shared-memory loads); 16-byte copies, four
+    // in flight
+    int* sprog = smem + ((tw + C * DUR_ELEMS * 4 + 3) & ~3);
+    const int n = C * N * N_FIELDS;
+    int head = 0;
+    if ((reinterpret_cast<uintptr_t>(gprog) & 15) == 0) {
+#pragma unroll 4
+      for (int k = threadIdx.x; k < n / 4; k += blockDim.x)
+        reinterpret_cast<int4*>(sprog)[k] =
+            reinterpret_cast<const int4*>(gprog)[k];
+      head = n / 4 * 4;
+    }
+    for (int k = head + threadIdx.x; k < n; k += blockDim.x)
+      sprog[k] = gprog[k];
+    prog = sprog;
+  }
+  // lane l = t * C + c of a tile (t its shot in the tile) is item
+  // (t / 32) * C + c, slot item * pitch + t % 32
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const int t = l / C, c = l - t * C;
+    slot[l] = ((t / TILE_SHOTS) * C + c) * tg.pitch + t % TILE_SHOTS;
+  }
+  const Readout none = {nullptr, nullptr, nullptr, nullptr, 1.0f};
+  const long long lanes = (long long)B * C;
+  const long long n_tiles =
+      ((long long)B + tg.sub * TILE_SHOTS - 1) / (tg.sub * TILE_SHOTS);
+  const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long l0 = tile * L;
+    const int n = (int)min((long long)L, lanes - l0);
+    __syncthreads();   // the previous tile is written back
+    if (BLOCKS) {
+      if (!tile_pick_stage(lv, regs_s, pp_s, sc_s, kst, slot, bid_l, bid_at,
+                           N, l0, n, L))
+        continue;
+    } else {
+      tile_copy(lv, L_RST_TIME, prm.v[P_R], l0, n);
+      tile_copy(lv, L_MEAS_AVAIL, prm.v[P_M], l0, n);
+      tile_copy(lv, L_REC, N_REC * prm.v[P_P], l0, n);
+      tile_copy(lv, L_OP_HIST, N_KINDS, l0, n);
+      tile_stage<true>(lv, regs_s, pp_s, sc_s, kst, slot, nullptr, l0, n);
+    }
+    __syncthreads();
+    for (int item = warp; item < items; item += tg.warps) {
+      const int j = item / C, c = item - j * C;
+      const int l = (j * TILE_SHOTS + ln) * C + c;
+      const long long lane = l0 + l;
+      const int sl = item * tg.pitch + ln;
+      const TileRegs regs{regs_s + sl, kst};
+      const int* row0 = prog + (size_t)c * N * N_FIELDS;
+      const TabDur du{dur + c * DUR_ELEMS};
+      const int bid = BLOCKS && l < n ? bid_l[l] : -1;
+      const bool run = l < n && (!BLOCKS || bid >= 0);
+      Lane s;
+      if (run)
+        tile_load_lane(s, lane, sl, kst, pp_s, sc_s, lv, prm,
+                       BLOCKS ? nullptr : bits_in);
+      if (BLOCKS) {
+        // one body at a time, for the lanes whose block id selects it
+        bool pend = run;
+        for (unsigned m; (m = __ballot_sync(FULL, pend)) != 0;) {
+          const int b = __shfl_sync(FULL, bid, __ffs(m) - 1);
+          if (pend && bid == b) {
+            const int start = bodies[2 * b], length = bodies[2 * b + 1];
+            for (int r = 0; r < length && !s.done; ++r)
+              exec_row<false, HIST>(s, regs,
+                                    row0 + (size_t)(start + r) * N_FIELDS, c,
+                                    prm, du, none);
+            pend = false;
+          }
+        }
+      } else {
+        // ascending over the indices the live lanes stand at
+        for (int cur = -1;;) {
+          const bool live = run && !s.done && s.pc > cur && s.pc < N;
+          const int i = __reduce_min_sync(FULL, live ? s.pc : INT32_MAX);
+          if (i == INT32_MAX) break;
+          if (live && s.pc == i)
+            exec_row<false, HIST>(s, regs, row0 + (size_t)i * N_FIELDS, c,
+                                  prm, du, none);
+          cur = i;
+        }
+      }
+      if (run) tile_store_lane(s, sl, kst, pp_s, sc_s);
+    }
+    __syncthreads();
+    tile_stage<false>(lv, regs_s, pp_s, sc_s, kst, slot,
+                      BLOCKS ? bid_l : nullptr, l0, n);
+  }
+}
+
+// what the card holds of one kernel at one block size and shared-memory
+// size: the SM count and the blocks an SM takes, asked once per (kernel,
+// device, threads, shared memory) under a lock, since a launch per
+// block-engine iteration would otherwise ask every time.  The first
+// question for a kernel on a device raises its dynamic shared-memory
+// limit to the card's most, so no launch ever lowers it under another's.
+struct Occupancy {
+  const void* fn;
+  int dev, threads;
+  size_t smem;
+  int sms, per_sm;
+};
+
+cudaError_t occupancy(const void* fn, int threads, size_t smem, int* sms,
+                      int* per_sm) {
+  static std::mutex mu;
+  static std::vector<Occupancy> known;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const std::lock_guard<std::mutex> lock(mu);
+  bool raised = false;
+  for (const Occupancy& o : known) {
+    if (o.fn != fn || o.dev != dev) continue;
+    raised = true;
+    if (o.threads == threads && o.smem == smem) {
+      *sms = o.sms;
+      *per_sm = o.per_sm;
+      return cudaSuccess;
+    }
+  }
+  Occupancy o = {fn, dev, threads, smem, 0, 0};
+  int most = 0;
+  rc = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess && !raised)
+    rc = cudaDeviceGetAttribute(&most,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc == cudaSuccess && !raised)
+    rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              most);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, fn,
+                                                       threads, smem);
+  if (rc != cudaSuccess) return rc;
+  // programs of many sizes: forget the oldest answers (asking again is
+  // only slower)
+  if (known.size() >= 64) known.erase(known.begin());
+  known.push_back(o);
+  *sms = o.sms;
+  *per_sm = o.per_sm;
   return cudaSuccess;
 }
 
@@ -597,19 +1126,86 @@ Params params_of(const int* params) {
   return prm;
 }
 
-template <bool FUSED>
-int launch_span(const Leaves& lv, const Params& prm, const int* prog,
-                const int* spc, const int* interp, const int* bits_in,
-                const Readout& ro, cudaStream_t stream) {
-  if ((long long)prm.v[P_B] * prm.v[P_C] == 0) return 0;
-  int grid = 0, in_smem = 0;
-  size_t smem = 0;
-  const cudaError_t rc =
-      geometry(exec_span_kernel<FUSED>, prm, &grid, &smem, &in_smem);
+// the one-thread-per-lane kernels' launch (K3, and K1 where the tile
+// would not fit): a grid-stride loop over the B * C lanes, each block
+// staging the program in shared memory where it fits
+template <typename Kernel, typename... Args>
+int launch_lanes(Kernel kernel, const Params& prm, cudaStream_t stream,
+                 Args... args) {
+  const long long lanes = (long long)prm.v[P_B] * prm.v[P_C];
+  const size_t prog_bytes =
+      (size_t)prm.v[P_C] * prm.v[P_N] * N_FIELDS * sizeof(int);
+  const int in_smem = prog_bytes <= MAX_SMEM_PROG;
+  const size_t smem = in_smem ? prog_bytes : 0;
+  int sms = 0, per_sm = 0;
+  const cudaError_t rc = occupancy(reinterpret_cast<const void*>(kernel),
+                                   THREADS, smem, &sms, &per_sm);
   if (rc != cudaSuccess) return (int)rc;
-  exec_span_kernel<FUSED><<<grid, THREADS, smem, stream>>>(
-      lv, prm, prog, in_smem, spc, interp, bits_in, ro);
+  const long long blocks = (lanes + THREADS - 1) / THREADS;
+  const int grid =
+      (int)(blocks < (long long)sms * 8 ? blocks : (long long)sms * 8);
+  kernel<<<grid, THREADS, smem, stream>>>(args..., in_smem);
   return (int)cudaGetLastError();
+}
+
+// the tile kernel's launch: a persistent grid of as many blocks as the
+// card holds at once, each striding over the tiles
+template <bool BLOCKS, bool PROG_SMEM, bool HIST>
+int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
+                const int* prog, const int* spc, const int* interp,
+                const int* bits_in, const int* bid_at, const int* bodies,
+                size_t smem, cudaStream_t stream) {
+  const auto kernel = exec_tile_kernel<BLOCKS, PROG_SMEM, HIST>;
+  const int threads = tg.warps * 32;
+  int sms = 0, per_sm = 0;
+  const cudaError_t rc = occupancy(reinterpret_cast<const void*>(kernel),
+                                   threads, smem, &sms, &per_sm);
+  if (rc != cudaSuccess) return (int)rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long n_tiles = ((long long)prm.v[P_B] + tg.sub * TILE_SHOTS - 1)
+                            / (tg.sub * TILE_SHOTS);
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(n_tiles < most ? n_tiles : most);
+  kernel<<<grid, threads, smem, stream>>>(lv, prm, tg, prog, spc, interp,
+                                          bits_in, bid_at, bodies);
+  return (int)cudaGetLastError();
+}
+
+// the tile kernel with the program in shared memory where it fits beside
+// the tile and the Dur table
+template <bool BLOCKS, bool HIST>
+int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
+                const int* prog, const int* spc, const int* interp,
+                const int* bits_in, const int* bid_at, const int* bodies,
+                cudaStream_t stream) {
+  const size_t tile = tile_words(tg, prm.v[P_C], BLOCKS) * 4 +
+                      (size_t)prm.v[P_C] * DUR_ELEMS * sizeof(Dur);
+  const size_t prog_bytes =
+      (size_t)prm.v[P_C] * prm.v[P_N] * N_FIELDS * sizeof(int) + 16;
+  if (tile + prog_bytes <= MAX_SMEM_BLOCK)
+    return launch_tile<BLOCKS, true, HIST>(lv, prm, tg, prog, spc, interp,
+                                           bits_in, bid_at, bodies,
+                                           tile + prog_bytes, stream);
+  return launch_tile<BLOCKS, false, HIST>(lv, prm, tg, prog, spc, interp,
+                                          bits_in, bid_at, bodies, tile,
+                                          stream);
+}
+
+// the tile kernel, specialised on whether the carry holds pulse records
+// or the opcode histogram
+template <bool BLOCKS>
+int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
+                const int* prog, const int* spc, const int* interp,
+                const int* bits_in, const int* bid_at, const int* bodies,
+                cudaStream_t stream) {
+  if (tg.warps < 1 || tg.warps * 32 > TILE_MAX_THREADS ||
+      tg.pitch < TILE_SHOTS || tg.kst < tg.sub * prm.v[P_C] * tg.pitch)
+    return (int)cudaErrorInvalidValue;
+  if (lv.out[L_REC] != nullptr || lv.out[L_OP_HIST] != nullptr)
+    return launch_tile<BLOCKS, true>(lv, prm, tg, prog, spc, interp, bits_in,
+                                     bid_at, bodies, stream);
+  return launch_tile<BLOCKS, false>(lv, prm, tg, prog, spc, interp, bits_in,
+                                    bid_at, bodies, stream);
 }
 
 }  // namespace
@@ -620,8 +1216,10 @@ int launch_span(const Leaves& lv, const Params& prm, const int* prog,
 // reads the injected bits_in [B, C, M] int32; K3 (fused = 1) carries the
 // bits in the L_MEAS_BITS/L_MEAS_VALID leaves and reads the energy prefix
 // e2p [C, n_addrs, Wp] float32 (Wp = params[P_WP] > W), g0/g1 [C, 2]
-// float32 and addrs [n_addrs] int32.  Returns the
-// launch's cudaError as an int (0 = launched).
+// float32 and addrs [n_addrs] int32.  tile: the tile's sub, warps, column
+// stride and slot pitch (ops/exec_span.py tile_geometry) for K1's tile
+// kernel, or sub = 0 for one thread per lane (K3 runs only that).
+// Returns the launch's cudaError as an int (0 = launched).
 extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
                             const unsigned long long* out_ptrs, int n_leaves,
                             const int* params, int n_params, const int* prog,
@@ -629,40 +1227,48 @@ extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
                             const int* bits_in, const float* e2p,
                             const float* g0, const float* g1,
                             const int* addrs, float amp_scale, int fused,
-                            void* stream) {
-  if (n_leaves != N_LEAVES || n_params != N_PARAMS)
+                            const int* tile, void* stream) {
+  const Tile tg = {tile[0], tile[1], tile[2], tile[3]};
+  if (n_leaves != N_LEAVES || n_params != N_PARAMS || (fused && tg.sub != 0))
     return (int)cudaErrorInvalidValue;
   const Leaves lv = leaves(in_ptrs, out_ptrs);
   const Params prm = params_of(params);
+  if ((long long)prm.v[P_B] * prm.v[P_C] == 0) return 0;
   const Readout ro = {e2p, g0, g1, addrs, amp_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fused)
-    return launch_span<true>(lv, prm, prog, spc, interp, bits_in, ro, s);
-  return launch_span<false>(lv, prm, prog, spc, interp, bits_in, ro, s);
+    return launch_lanes(exec_span_kernel<true>, prm, s, lv, prm, prog, spc,
+                        interp, bits_in, ro);
+  if (tg.sub == 0)
+    return launch_lanes(exec_span_kernel<false>, prm, s, lv, prm, prog, spc,
+                        interp, bits_in, ro);
+  return launch_tile<false>(lv, prm, tg, prog, spc, interp, bits_in, nullptr,
+                            nullptr, s);
 }
 
 // Launch one block-mode pass on `stream`, updating the carry in place:
 // ptrs holds N_LEAVES device pointers (0 = leaf absent).  bid_at: [N]
 // int32 block id of each program index (-1: no block starts there);
 // bodies: [n_bodies, 2] int32 (start, length) of each deduplicated body.
-// Returns the launch's cudaError as an int (0 = launched).
+// tile as for dp_exec_span.  Returns the launch's cudaError as an int (0 =
+// launched).
 extern "C" int dp_exec_blocks(const unsigned long long* ptrs, int n_leaves,
                               const int* params, int n_params,
                               const int* prog, const int* spc,
                               const int* interp, const int* bid_at,
-                              const int* bodies, void* stream) {
+                              const int* bodies, const int* tile,
+                              void* stream) {
   if (n_leaves != N_LEAVES || n_params != N_PARAMS)
     return (int)cudaErrorInvalidValue;
   const Leaves lv = leaves(ptrs, ptrs);
   const Params prm = params_of(params);
   if ((long long)prm.v[P_B] * prm.v[P_C] == 0) return 0;
-  int grid = 0, in_smem = 0;
-  size_t smem = 0;
-  const cudaError_t rc =
-      geometry(exec_blocks_kernel, prm, &grid, &smem, &in_smem);
-  if (rc != cudaSuccess) return (int)rc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  exec_blocks_kernel<<<grid, THREADS, smem, s>>>(lv, prm, prog, in_smem, spc,
-                                                 interp, bid_at, bodies);
-  return (int)cudaGetLastError();
+  const Tile tg = {tile[0], tile[1], tile[2], tile[3]};
+  if (tg.sub == 0)
+    return launch_lanes(exec_blocks_kernel, prm, s, lv, prm, prog, spc,
+                        interp, bid_at, bodies);
+  return launch_tile<true>(lv, prm, tg, prog, spc, interp, nullptr, bid_at,
+                           bodies, s);
 }
+

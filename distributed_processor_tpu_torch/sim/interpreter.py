@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from .. import isa
-from ..ops.exec_span import block_table, exec_blocks, exec_span
+from ..ops.exec_span import block_table, exec_blocks, exec_span, span_table
 
 # timing constants of the scalar golden model (the JAX package's
 # sim/oracle.py): program start time, sync release -> qclk zero, rdlo
@@ -541,11 +541,9 @@ def program_traits(mp) -> tuple:
             bool(np.any(np.asarray(soa.p_regsel))))
 
 
-def _program_constants(mp, device):
-    """The decoded program as device tensors: the packed ``[C, N, F]``
-    instruction table, per-element samples-per-clock and interpolation
-    ``[C, E]``, and the sync participants ``[C]``."""
-    soa = torch.as_tensor(_soa_np(mp), device=device)
+def _element_geometry(mp) -> tuple:
+    """Per-element samples-per-clock and interpolation ``[C, E]`` int32
+    numpy arrays of the decoded program."""
     n_cores = mp.n_cores
     max_elems = max((len(t.elem_cfgs) for t in mp.tables), default=0) or 1
     spc = np.ones((n_cores, max_elems), dtype=np.int32)
@@ -554,6 +552,23 @@ def _program_constants(mp, device):
         for e, ec in enumerate(t.elem_cfgs):
             spc[c, e] = ec.samples_per_clk
             interp[c, e] = ec.interp_ratio
+    return spc, interp
+
+
+def _span_table(mp, cfg, device, fused: bool = False):
+    """The span kernels' table of ``mp`` on ``device``
+    (:func:`..ops.exec_span.span_table`, cached on the program's
+    content)."""
+    return span_table(_soa_np(mp), *_element_geometry(mp), cfg, device,
+                      fused=fused)
+
+
+def _program_constants(mp, device):
+    """The decoded program as device tensors: the packed ``[C, N, F]``
+    instruction table, per-element samples-per-clock and interpolation
+    ``[C, E]``, and the sync participants ``[C]``."""
+    soa = torch.as_tensor(_soa_np(mp), device=device)
+    spc, interp = _element_geometry(mp)
     return (soa, torch.as_tensor(spc, device=device),
             torch.as_tensor(interp, device=device),
             torch.as_tensor(np.asarray(mp.sync_participants), device=device))
@@ -1500,13 +1515,12 @@ def simulate_batch(mp, meas_bits, init_regs=None,
                             meas_bits, meas_valid, cfg, program_traits(mp))
     else:
         # one pass retires every lane: every injected bit is valid
-        soa_np = _soa_np(mp)
         if eng == 'straightline':
-            st = _exec_straightline(st, soa_np, spc, interp, meas_bits,
+            st = _exec_straightline(st, _soa_np(mp), spc, interp, meas_bits,
                                     meas_valid, cfg)
         else:   # 'pallas', span mode: the K1 kernel
-            st = exec_span(st, soa_np, spc, interp, meas_bits, cfg)
-        steps = soa_np.shape[1]
+            st = exec_span(st, _span_table(mp, cfg, device), meas_bits, cfg)
+        steps = mp.n_instr
     st.pop('phys_wait', None)
     return _check_strict(_finalize(st, steps, cfg), strict)
 

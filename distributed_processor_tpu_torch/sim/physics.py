@@ -42,7 +42,7 @@ from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
     carrier_phase
 from .device import DeviceModel
 from .interpreter import (InterpreterConfig, _program_constants,
-                          _init_state, _exec_blocks, _exec_loop,
+                          _span_table, _init_state, _exec_blocks, _exec_loop,
                           _exec_straightline, _finalize, _fault_policy,
                           _check_strict, _soa_np, check_supported,
                           program_traits, not_ported, torch_device)
@@ -477,6 +477,8 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     traits = program_traits(mp)
     soa_np = _soa_np(mp)
     fused = fused_readout(mp, model, tables) if eng == 'fused' else None
+    span = _span_table(mp, cfg, device, fused=True) if eng == 'fused' \
+        else None
 
     B = init_states.shape[0]
     st = _init_state(B, C, cfg, init_regs, device)
@@ -500,8 +502,8 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
         if eng == 'fused':
             # the K3 kernel: exec and resolve in one pass, every bit
             # landing in its slot at its trigger
-            st, bits, valid = exec_span_fused(st, soa_np, spc, interp, bits,
-                                              valid, cfg, fused)
+            st, bits, valid = exec_span_fused(st, span, bits, valid, cfg,
+                                              fused)
             steps += soa_np.shape[1]
             ep += 1
             continue

@@ -356,22 +356,334 @@ def test_k3_matches_plain_version_and_generic(card, program):
 
 
 def test_k1_rejects_bad_inputs(card, program):
-    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.ops.exec_span import (exec_span,
+                                                               span_table)
     from distributed_processor_tpu_torch.sim.interpreter import (
-        _init_state, _program_constants, _soa_np)
+        _element_geometry, _init_state, _soa_np, _span_table)
     cfg = _span_cfg(program)
-    _soa, spc, interp, _sync = _program_constants(program, card)
+    table = _span_table(program, cfg, card)
     st = _init_state(8, program.n_cores, cfg, None, card)
     bits = torch.zeros((8, program.n_cores, 2), dtype=torch.int32,
                        device=card)
     with pytest.raises(ValueError, match='meas_bits'):
-        exec_span(st, _soa_np(program), spc, interp, bits[:, :, :1], cfg)
+        exec_span(st, table, bits[:, :, :1], cfg)
     with pytest.raises(ValueError, match='time'):
-        exec_span(dict(st, time=st['time'].long()), _soa_np(program), spc,
-                  interp, bits, cfg)
+        exec_span(dict(st, time=st['time'].long()), table, bits, cfg)
+    spc, interp = _element_geometry(program)
     with pytest.raises(ValueError, match='geometry'):
-        exec_span(st, _soa_np(program), torch.zeros_like(spc), interp, bits,
-                  cfg)
+        span_table(_soa_np(program), 0 * spc, interp, cfg, card)
+    with pytest.raises(ValueError, match='span table lies on'):
+        exec_span(st, _span_table(program, cfg, 'cpu'), bits, cfg)
+
+
+# the tile kernel's edges (csrc/exec_span.cu exec_tile_kernel): ragged
+# tiles of 32 shots, core counts that do not fill a block, a program too
+# large for the one-thread-per-lane kernel's shared memory; each held,
+# with that kernel (K3's, and K1's past the tile's budget), to the plain
+# versions
+
+def _reg_addrs_outside(mp, rng, share=0.1):
+    """``mp`` with a share of its register addresses (ALU inputs and
+    output, the pulse register) moved outside the 16-word file: reads
+    give 0, writes are dropped."""
+    soa = mp.soa
+    fields = {}
+    for name in ('in0_reg', 'in1_reg', 'out_reg', 'p_reg'):
+        a = np.asarray(getattr(soa, name)).copy()
+        hit = rng.random(a.shape) < share
+        a[hit] = rng.choice([-1, 16, 31, 1 << 20], int(hit.sum()))
+        fields[name] = a
+    return dataclasses.replace(mp, soa=dataclasses.replace(soa, **fields))
+
+
+def _body_program(rng, n_cores, lengths):
+    """Loop-free programs of plain rows (pulses, ALU, resets, idles,
+    qclk) and now and then a jump to the next row, which ends a block, of
+    a random length per core in ``lengths``: the shorter cores' DONE
+    padding lands inside the block bodies of the longer ones."""
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    progs = []
+    for core in range(n_cores):
+        cmds, t = [], 40
+        for _ in range(int(rng.integers(*lengths))):
+            r = rng.random()
+            if r < 0.4:
+                t += int(rng.integers(-5, 80))
+                cmds.append(isa.pulse_cmd(
+                    freq_word=int(rng.integers(1 << 9)),
+                    phase_word=int(rng.integers(1 << 17)),
+                    amp_word=int(rng.integers(1 << 16)),
+                    env_word=int(rng.integers(0, 1 << 14)),
+                    cfg_word=int(rng.integers(3)), cmd_time=max(t, 0)))
+            elif r < 0.5:
+                cmds.append(isa.pulse_cmd(amp_regaddr=int(rng.integers(4))))
+            elif r < 0.75:
+                cmds.append(isa.alu_cmd(
+                    'reg_alu', 'i', int(rng.integers(-1000, 1000)),
+                    list(isa.ALU_OPS)[int(rng.integers(8))],
+                    int(rng.integers(4)),
+                    write_reg_addr=int(rng.integers(4))))
+            elif r < 0.85:
+                t += int(rng.integers(150))
+                cmds.append(isa.idle(t) if rng.integers(2)
+                            else isa.pulse_reset())
+            elif r < 0.93:
+                cmds.append(isa.alu_cmd('inc_qclk', 'i',
+                                        int(rng.integers(-50, 50))))
+            else:
+                # a jump to the next row ends a block: several bodies
+                cmds.append(isa.jump_i(len(cmds) + 1))
+        cmds.append(isa.done_cmd())
+        progs.append(cmds)
+    return machine_program_from_cmds(progs)
+
+
+def _random_carry(rng, B, C, N, cfg, card):
+    """A seeded carry at random points of a program of ``N`` rows: pcs
+    inside and outside it, a fifth of the lanes done, random registers,
+    pulse registers, clocks and counters (some past their bounds)."""
+    from distributed_processor_tpu_torch.sim.interpreter import _init_state
+    st = _init_state(B, C, cfg, None, card)
+    M, R, P = cfg.max_meas, cfg.max_resets, cfg.max_pulses
+    i = lambda lo, hi, *s: torch.as_tensor(
+        rng.integers(lo, hi, s), dtype=torch.int32, device=card)
+    st.update(pc=i(-2, N + 2, B, C), regs=i(-2**31, 2**31, B, C, 16),
+              pp=i(0, 1 << 24, B, C, 5), time=i(-1000, 1 << 20, B, C),
+              offset=i(-500, 500, B, C), err=i(0, 4, B, C),
+              fault=i(0, 2, B, C), n_pulses=i(0, P + 2, B, C),
+              n_resets=i(0, R + 2, B, C), n_meas=i(0, M + 2, B, C),
+              rst_time=i(0, 1 << 20, B, C, R),
+              meas_avail=i(0, 1 << 20, B, C, M),
+              done=torch.as_tensor(rng.random((B, C)) < 0.2, device=card))
+    if 'rec' in st:
+        st['rec'] = i(0, 1 << 16, *st['rec'].shape)
+    if 'op_hist' in st:
+        st['op_hist'] = i(0, 100, *st['op_hist'].shape)
+    return st
+
+
+@pytest.mark.parametrize('C', [1, 3, 8])
+@pytest.mark.parametrize('B', [1, 31, 33, 4097])
+def test_k1_tile_edges_match_plain_version(card, B, C):
+    """K1 span (the tile kernel and one thread per lane) against the
+    straight-line engine on the
+    card at ragged batches and core counts: fproc branches on random
+    bits send the lanes of a warp to different pcs, a tenth of the
+    register addresses lie outside the file, records and histogram on,
+    random initial registers — every key identical."""
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_span_per_lane, exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, _init_state, _span_table)
+    rng = np.random.default_rng(1000 * C + B)
+    mp = _reg_addrs_outside(sl_feedback_program(
+        rng, isa, machine_program_from_cmds, n_cores=C, n_instr=40), rng)
+    cfg = _span_cfg(mp, record_pulses=True, opcode_histogram=True)
+    table = _span_table(mp, cfg, card)
+    init = torch.as_tensor(rng.integers(-3, 3, (B, C, 16)),
+                           dtype=torch.int32, device=card)
+    st = _init_state(B, C, cfg, init, card)
+    bits = torch.as_tensor(rng.integers(0, 2, (B, C, 2)), dtype=torch.int32,
+                           device=card)
+    want = _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                              bits, torch.ones_like(bits, dtype=torch.bool),
+                              cfg)
+    for run in (exec_span, _exec_span_per_lane):
+        got = run(st, table, bits, cfg)
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+
+
+def test_k1_odd_element_geometry_matches_plain_version(card):
+    """The tile kernel divides a pulse's sample count by the samples per
+    clock with a multiply and a shift: element geometry far from the
+    programs' own (samples per clock 1, 3, 7, 1000, 2**20 + 1;
+    interpolation 0 to 9; envelope lengths to 4094) in K1 span and K1
+    block, tile and one-thread-per-lane kernels, against the plain
+    versions: every key identical."""
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_blocks_per_lane, _exec_span_per_lane, block_table,
+        exec_blocks, exec_span, span_table)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _apply_blocks, _block_plan, _element_geometry, _exec_straightline,
+        _init_state, _soa_np)
+    rng = np.random.default_rng(79)
+    mp = sl_feedback_program(rng, isa, machine_program_from_cmds,
+                             n_cores=3, n_instr=40)
+    soa = _soa_np(mp).copy()
+    # envelope words with lengths up to 4094 (4095 is CW)
+    env = soa[..., 10]
+    soa[..., 10] = np.where(env != 0, env | (int(rng.integers(1, 4095)) << 12),
+                            env)
+    spc, interp = _element_geometry(mp)
+    spc = np.asarray([1, 3, 7, 1000, 2**20 + 1], np.int32)[
+        rng.integers(0, 5, spc.shape)]
+    interp = rng.integers(0, 10, interp.shape).astype(np.int32)
+    cfg = _span_cfg(mp, record_pulses=True, opcode_histogram=True)
+    table = span_table(soa, spc, interp, cfg, card)
+    B = 333
+    st = _init_state(B, 3, cfg, None, card)
+    bits = torch.as_tensor(rng.integers(0, 2, (B, 3, 2)), dtype=torch.int32,
+                           device=card)
+    want = _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                              bits, torch.ones_like(bits, dtype=torch.bool),
+                              cfg)
+    for run in (exec_span, _exec_span_per_lane):
+        _assert_same(run(st, table, bits, cfg), want)
+    body = _body_program(rng, 3, (20, 40))
+    bsoa = _soa_np(body)
+    bid_at, bodies = _block_plan(bsoa)
+    btab = block_table(bsoa, bid_at, bodies, table.spc, table.interp, cfg)
+    st = _random_carry(rng, B, 3, body.n_instr, cfg, card)
+    st['pc'] = torch.zeros_like(st['pc'])
+    want = _apply_blocks(st, btab, cfg)
+    for run in (exec_blocks, _exec_blocks_per_lane):
+        _assert_same(run({k: v.clone() for k, v in st.items()}, btab, cfg),
+                     want)
+
+
+def test_k1_large_program_matches_plain_version(card):
+    """A program of 8 cores x 401 rows (231 KB, past the 200 KB the
+    one-thread-per-lane kernel stages in shared memory; the tile kernel
+    reads it through L1) on both kernels: every key identical."""
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_span_per_lane, exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, _init_state, _span_table)
+    rng = np.random.default_rng(77)
+    mp = sl_feedback_program(rng, isa, machine_program_from_cmds,
+                             n_cores=8, n_instr=400)
+    assert mp.n_cores * mp.n_instr * 18 * 4 > 200 * 1024
+    cfg = _span_cfg(mp, record_pulses=True, opcode_histogram=True)
+    table = _span_table(mp, cfg, card)
+    B = 1000
+    st = _init_state(B, 8, cfg, None, card)
+    bits = torch.as_tensor(rng.integers(0, 2, (B, 8, 2)), dtype=torch.int32,
+                           device=card)
+    want = _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                              bits, torch.ones_like(bits, dtype=torch.bool),
+                              cfg)
+    for run in (exec_span, _exec_span_per_lane):
+        _assert_same(run(st, table, bits, cfg), want)
+
+
+@pytest.mark.parametrize('C', [1, 3, 8])
+@pytest.mark.parametrize('B', [1, 31, 33, 4097])
+def test_k1_block_tile_edges_match_plain_version(card, B, C):
+    """One K1 block launch (the tile kernel and one thread per lane)
+    against the plain bodies on
+    a random carry: lanes of one warp at different block starts (one
+    body at a time), done lanes and pcs outside the program, DONE rows
+    inside bodies (cores of different lengths), register addresses
+    outside the file, counters past their bounds, records and histogram
+    on — every key identical."""
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_blocks_per_lane, block_table, exec_blocks)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _apply_blocks, _block_plan, _program_constants, _soa_np)
+    rng = np.random.default_rng(2000 * C + B)
+    mp = _reg_addrs_outside(_body_program(rng, C, (8, 40)), rng)
+    cfg = InterpreterConfig(max_meas=4, max_resets=3, max_pulses=24,
+                            record_pulses=True, opcode_histogram=True)
+    soa_np = _soa_np(mp)
+    bid_at, bodies = _block_plan(soa_np)
+    assert bodies
+    _soa, spc, interp, _sync = _program_constants(mp, card)
+    table = block_table(soa_np, bid_at, bodies, spc, interp, cfg)
+    st = _random_carry(rng, B, C, mp.n_instr, cfg, card)
+    # a third of the lanes at block starts
+    starts = torch.as_tensor(np.nonzero(bid_at >= 0)[0], device=card)
+    pick = torch.as_tensor(rng.random((B, C)) < 0.35, device=card)
+    st['pc'] = torch.where(pick, starts[torch.as_tensor(
+        rng.integers(0, len(starts), (B, C)), device=card)].int(), st['pc'])
+    want = _apply_blocks(st, table, cfg)
+    for run in (exec_blocks, _exec_blocks_per_lane):
+        got = run({k: v.clone() for k, v in st.items()}, table, cfg)
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+
+
+def test_k1_block_large_program_matches_plain_version(card):
+    """K1 block on a program of 8 cores x ~420 rows (past the 200 KB the
+    one-thread-per-lane kernel stages) on both kernels."""
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_blocks_per_lane, block_table, exec_blocks)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _apply_blocks, _block_plan, _program_constants, _soa_np)
+    rng = np.random.default_rng(78)
+    mp = _body_program(rng, 8, (380, 420))
+    assert mp.n_cores * mp.n_instr * 18 * 4 > 200 * 1024
+    cfg = InterpreterConfig(max_meas=4, max_resets=3, max_pulses=400,
+                            record_pulses=True, opcode_histogram=True)
+    soa_np = _soa_np(mp)
+    bid_at, bodies = _block_plan(soa_np)
+    _soa, spc, interp, _sync = _program_constants(mp, card)
+    table = block_table(soa_np, bid_at, bodies, spc, interp, cfg)
+    st = _random_carry(rng, 1000, 8, mp.n_instr, cfg, card)
+    st['pc'] = torch.where(torch.rand(st['pc'].shape, device=card) < 0.5,
+                           0, st['pc'])
+    want = _apply_blocks(st, table, cfg)
+    for run in (exec_blocks, _exec_blocks_per_lane):
+        _assert_same(run({k: v.clone() for k, v in st.items()}, table, cfg),
+                     want)
+
+
+def test_k1_launches_from_two_threads_match_plain_version(card):
+    """K1 span launched from two host threads at once on programs of
+    different core counts and sizes (each tile past 48 KB of shared
+    memory, each its own amount): every launch identical to the plain
+    version — the launches share the cache of what the card holds and
+    the kernel's shared-memory limit."""
+    import threading
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, _init_state, _span_table)
+    rng = np.random.default_rng(88)
+    cases = []
+    for n_cores, n_instr in ((8, 60), (3, 30)):
+        mp = sl_feedback_program(rng, isa, machine_program_from_cmds,
+                                 n_cores=n_cores, n_instr=n_instr)
+        cfg = _span_cfg(mp)
+        table = _span_table(mp, cfg, card)
+        st = _init_state(777, n_cores, cfg, None, card)
+        bits = torch.as_tensor(rng.integers(0, 2, (777, n_cores, 2)),
+                               dtype=torch.int32, device=card)
+        want = _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                                  bits, torch.ones_like(bits,
+                                                        dtype=torch.bool),
+                                  cfg)
+        cases.append((st, table, bits, cfg, want))
+    errors = []
+
+    def run(st, table, bits, cfg, want):
+        try:
+            for _ in range(20):
+                got = exec_span(st, table, bits, cfg)
+                torch.cuda.synchronize()
+                _assert_same(got, want)
+        except Exception as e:     # handed to the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=case) for case in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
 
 
 # ---------------------------------------------------------------------------

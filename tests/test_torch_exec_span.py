@@ -271,11 +271,10 @@ def test_wrappers_refuse_other_devices(headline):
     version on CPU tensors only; any other device raises."""
     _mp_j, mp_t, cfg = headline
     from distributed_processor_tpu_torch.sim.interpreter import (
-        _init_state, _program_constants, _soa_np)
+        _init_state, _span_table)
     c = TCfg(**cfg)
-    _soa, spc, interp, _sync = _program_constants(mp_t, 'meta')
     st = _init_state(2, mp_t.n_cores, c, None, 'meta')
     bits = torch.zeros((2, mp_t.n_cores, 2), dtype=torch.int32,
                        device='meta')
     with pytest.raises(ValueError, match='device'):
-        exec_span(st, _soa_np(mp_t), spc, interp, bits, c)
+        exec_span(st, _span_table(mp_t, c, 'meta'), bits, c)
