@@ -18,9 +18,10 @@ Phases, in order (any failure exits nonzero):
    time under the profiler; the span kernel K3
    (``engine='fused'``) against its plain version and against the
    generic engine at sigma = 0, with both times; the
-   waveform kernel K4 on every (core, element) of a headline run's
-   records and on a 1,048,576-sample capture (64 seeded pulses, one CW,
-   one overrunning its table, interp 1 and 16); the demod kernel K5 at
+   waveform kernel K4 rendering every (core, element) trace of a headline
+   shot in one launch, and a 1,048,576-sample capture (64 seeded pulses,
+   one CW, one overrunning its table, interp 1 and 16) as a one-trace
+   call; the demod kernel K5 at
    [262144, 1024] @ [1024, 8], at a ragged shot count and at 2M = 2, with
    ``torch.matmul`` timed beside it as the library's call; K1 block
    (``engine='pallas'`` on the looped headline, the headline inside the
@@ -39,7 +40,8 @@ Phases, in order (any failure exits nonzero):
    (``run_physics_batch`` with ``engine='fused'``, sigma = 0), and the
    render-and-readout path (``Simulator``: compile, run 4096 shots with
    pulse records, ``waveforms`` of a measured-1 and a measured-0 shot —
-   24 K4 launches each, held against the CPU's plain render — then
+   one K4 launch each for all 24 traces, held against the CPU's plain
+   render, and 20 more renders timed — then
    262144 noisy ADC traces of the rendered readout window through
    ``demod_readout`` — one K5 launch — and ``discriminate``), and the
    loop path (the looped headline through ``simulate_batch`` with
@@ -489,11 +491,10 @@ def _wrappers() -> dict:
         exec_blocks, exec_span, exec_span_fused)
     from distributed_processor_tpu_torch.ops.resolve import \
         resolve_windows_fused
-    from distributed_processor_tpu_torch.ops.waveform import \
-        synthesize_element
+    from distributed_processor_tpu_torch.ops.waveform import render_shot
     return {'resolve_windows': resolve_windows_fused,
             'exec_span': exec_span, 'exec_span_fused': exec_span_fused,
-            'synthesize_element': synthesize_element, 'demod_iq': demod_iq,
+            'render_shot': render_shot, 'demod_iq': demod_iq,
             'exec_blocks': exec_blocks}
 
 
@@ -553,13 +554,14 @@ def _span_inputs(mp, cfg, B: int, seed: int, physics: bool = False):
     return st, table, bits
 
 
-def _kernel_ms(fn, reps: int) -> float:
-    """Device ms per call of ``fn`` under the profiler: the megastep
-    kernels' own time, without the wrapper's host work (0.0 when the
-    profiler saw no CUDA kernel)."""
+def _kernel_ms(fn, reps: int, match: str = 'exec_') -> float:
+    """Device ms per call of ``fn`` under the profiler: the own time of
+    the kernels whose name holds ``match`` (the megastep kernels by
+    default), without the wrapper's host work (0.0 when the profiler saw
+    no such kernel)."""
     _wall, kernels = device_kernel_times(lambda: [fn() for _ in range(reps)])
     return sum(us for name, (us, _n) in kernels.items()
-               if 'exec_' in name) / 1e3 / reps
+               if match in name) / 1e3 / reps
 
 
 def _device_note(dev_ms: float) -> str:
@@ -949,38 +951,49 @@ def capture_records(seed: int, interp: int) -> tuple:
     return rec, env
 
 
-def _wave_bound_ms(desc, n_samples: int) -> tuple:
-    """K4's bound for one launch: every sample written once, one NCO
-    evaluation per in-window sample (pulses of one element do not
-    overlap)."""
+def _render_bound_ms(rec: dict, table, n_clks: int) -> tuple:
+    """K4's bound for one render, from its inputs: the valid record rows
+    read once (six int32 fields a row) with ``n_pulses`` and the render
+    table, every sample written once; one NCO evaluation per in-window
+    sample (pulses of one element do not overlap).  Returns (bytes ms,
+    operations ms, samples)."""
     import numpy as np
-    inside = int(np.clip(np.minimum(desc[1], n_samples)
-                         - np.maximum(desc[0], 0), 0, None).sum())
-    nbytes = n_samples * 8 + desc.nbytes
+    from distributed_processor_tpu_torch.ops.waveform import (
+        _REC_FIELDS, _TRACE_FIELDS, descriptors_from_records)
+    rows = rec['gtime'].shape[1]
+    n_valid = rec['n_pulses'].clamp(0, rows).sum().item()
+    inside, samples = 0, 0
+    for row in table.rows.tolist():
+        t = dict(zip(_TRACE_FIELDS, row))
+        r = {k: rec[k][t['core']] for k in _REC_FIELDS + ('n_pulses',)}
+        words = table.inc[t['inc_off']:t['inc_off'] + t['n_inc'] + 1]
+        d = descriptors_from_records(r, words, t['spc'], t['interp'], n_clks,
+                                     t['elem']).cpu().numpy()
+        n = n_clks * t['spc']
+        inside += int(np.clip(np.minimum(d[1].astype(np.int64), n)
+                              - np.maximum(d[0], 0), 0, None).sum())
+        samples += n
+    nbytes = n_valid * len(_REC_FIELDS) * 4 + samples * 8 + _nbytes(
+        rec['n_pulses'], table.traces, table.env, table.inc)
     return (nbytes / PEAK_HBM_BYTES * 1e3,
-            inside * WAVE_OPS / PEAK_F32_FLOPS * 1e3)
+            inside * WAVE_OPS / PEAK_F32_FLOPS * 1e3, samples)
 
 
 def phase_k4(sim, out, env) -> dict:
-    """K4 against its plain version on the card: every (core, element) of
-    two shots of a headline run's records, and the long capture at interp
-    1 and 16; its time per launch over one headline render beside the
-    plain version's and its bound."""
-    import numpy as np
+    """K4 against its plain version on the card: every (core, element)
+    trace of two shots of a headline run's records in one launch each,
+    and the long capture at interp 1 and 16 as one-trace calls; its time
+    per render and at the capture (CUDA events around the wrapper, device
+    time under the profiler) beside the plain version's and the bound."""
     import torch
     from distributed_processor_tpu_torch.ops.waveform import (
-        _env_table_iq, _synthesize_plain, element_descriptors,
-        synthesize_element, synthesize_prepared)
+        _render_plain, default_n_clks, element_inputs, render_shot,
+        render_table, shot_records, synthesize_element,
+        synthesize_element_reference)
     worst = 0.0
 
-    def agree(args, what):
+    def agree(got, want, what):
         nonlocal worst
-        got = synthesize_element(*args, device=DEV)
-        rec, env_table, spc, interp, n_clks, elem = args
-        want = _synthesize_plain(
-            element_descriptors(rec, spc, interp, n_clks, elem),
-            torch.as_tensor(_env_table_iq(env_table), device=DEV), interp,
-            n_clks * spc)
         sync()
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f'{what}: shape {tuple(got.shape)} or non-finite values')
@@ -989,71 +1002,62 @@ def phase_k4(sim, out, env) -> dict:
         worst = max(worst, err)
         return float(want.abs().max())
 
+    def timed_render(rec, table, n_clks):
+        """(events ms, device ms, plain ms, bytes bound ms, operations
+        bound ms, samples) of one render on these inputs."""
+        fn = lambda: render_shot(rec, table, n_clks)     # noqa: E731
+        return (cuda_time_ms(fn, reps=20),
+                _kernel_ms(fn, 20, 'render_kernel'),
+                cuda_time_ms(lambda: _render_plain(rec, table, n_clks),
+                             reps=3),
+                *_render_bound_ms(rec, table, n_clks))
+
+    mp = out['_mp']
+    table = render_table(mp, device=DEV)
     s1, s0 = measured_shots(out)
     for shot in (s1, s0):
-        peak = 0.0
-        renders = sim._element_renders(out, shot=shot)
-        for c, per_core in renders.items():
-            for args in per_core:
-                peak = max(peak, agree(args, f'K4 shot {shot} core {c} '
-                                             f'elem {args[5]}'))
-        n_elems = sum(len(v) for v in renders.values())
-        print(f'K4 vs plain (headline records, shot {shot}, {n_elems} '
-              f'elements, n_clks {renders[0][0][4]}): agree to atol '
-              f'{K4_ATOL}, max |err| so far {worst:.3e}, peak |trace| '
-              f'{peak:.3f}')
+        rec = shot_records(out, shot, table.traces.device)
+        n_clks = default_n_clks(out, shot)
+        peak = agree(render_shot(rec, table, n_clks),
+                     _render_plain(rec, table, n_clks),
+                     f'K4 render of shot {shot}')
+        print(f'K4 vs plain (headline records, shot {shot}, '
+              f'{len(table.rows)} traces in one launch, n_clks {n_clks}): '
+              f'agree to atol {K4_ATOL}, max |err| so far {worst:.3e}, '
+              f'peak |trace| {peak:.3f}')
+    n_samples = CAPTURE['n_clks'] * CAPTURE['spc']
     for interp in (1, 16):
-        rec, env_table = capture_records(seed=51 + interp, interp=interp)
-        args = (rec, env_table, CAPTURE['spc'], interp, CAPTURE['n_clks'], 0)
-        peak = agree(args, f'K4 long capture interp {interp}')
-        desc = element_descriptors(rec, CAPTURE['spc'], interp,
-                                   CAPTURE['n_clks'], 0)
-        n_samples = CAPTURE['n_clks'] * CAPTURE['spc']
-        d_dev = torch.as_tensor(np.ascontiguousarray(desc), device=DEV)
-        e_dev = torch.as_tensor(_env_table_iq(env_table), device=DEV)
-        ms = cuda_time_ms(lambda: synthesize_prepared(
-            d_dev, e_dev, interp, n_samples), reps=20)
-        plain_ms = cuda_time_ms(lambda: _synthesize_plain(
-            desc, e_dev, interp, n_samples), reps=3)
-        t_bytes, t_ops = _wave_bound_ms(desc, n_samples)
-        print(f'K4 long capture ({n_samples} samples, {desc.shape[1]} '
-              f'pulses, interp {interp}): agree, max |err| so far '
-              f'{worst:.3e}, peak |trace| {peak:.3f}; kernel {ms:.4f} ms, '
-              f'plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms '
-              f'(bytes {t_bytes:.5f}, operations {t_ops:.5f}) on '
-              f'{env["smi"]}')
-    # time per launch over one headline render (the measured-1 shot):
-    # inputs prepared once, the 24 launches timed together
-    prepared = []
-    for per_core in sim._element_renders(out, shot=s1).values():
-        for rec, env_table, spc, interp, n_clks, elem in per_core:
-            desc = element_descriptors(rec, spc, interp, n_clks, elem)
-            prepared.append((
-                desc, torch.as_tensor(np.ascontiguousarray(desc), device=DEV),
-                torch.as_tensor(_env_table_iq(env_table), device=DEV),
-                interp, n_clks * spc))
-    n = len(prepared)
-    render_ms = cuda_time_ms(lambda: [synthesize_prepared(d, e, it, ns)
-                                      for _, d, e, it, ns in prepared],
-                             reps=20)
-    plain_render_ms = cuda_time_ms(lambda: [_synthesize_plain(h, e, it, ns)
-                                            for h, _, e, it, ns in prepared],
-                                   reps=3)
-    bounds = [_wave_bound_ms(h, ns) for h, _, _, _, ns in prepared]
-    t_bytes = sum(b[0] for b in bounds)
-    t_ops = sum(b[1] for b in bounds)
-    samples = sum(ns for *_, ns in prepared)
-    print(f'K4 headline render ({n} launches, {samples} samples): kernels '
-          f'{render_ms:.4f} ms ({render_ms / n:.5f} per launch), plain '
-          f'{plain_render_ms:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms '
-          f'(bytes {t_bytes:.6f}, operations {t_ops:.6f}) — below what a '
-          f'launch itself costs; on {env["smi"]}')
-    return dict(name='synthesize_element', route='cuda',
+        rec_np, env_table = capture_records(seed=51 + interp, interp=interp)
+        args = (rec_np, env_table, CAPTURE['spc'], interp, CAPTURE['n_clks'])
+        peak = agree(synthesize_element(*args, device=DEV),
+                     synthesize_element_reference(*args, device=DEV),
+                     f'K4 long capture interp {interp}')
+        rec, tab = element_inputs(rec_np, env_table, CAPTURE['spc'], interp,
+                                  0, DEV)
+        ms, dev_ms, plain_ms, t_bytes, t_ops, _ = timed_render(
+            rec, tab, CAPTURE['n_clks'])
+        print(f'K4 long capture ({n_samples} samples, {CAPTURE["n_pulses"]} '
+              f'pulses, interp {interp}, one-trace call): agree, max |err| so '
+              f'far {worst:.3e}, peak |trace| {peak:.3f}; kernel {ms:.5f} ms '
+              f'events, {dev_ms:.5f} ms device; plain {plain_ms:.4f} ms; '
+              f'bound {max(t_bytes, t_ops):.5f} ms (bytes {t_bytes:.5f}, '
+              f'operations {t_ops:.5f}) on {env["smi"]}')
+    # one headline render (the measured-1 shot)
+    rec = shot_records(out, s1, table.traces.device)
+    n_clks = default_n_clks(out, s1)
+    ms, dev_ms, plain_ms, t_bytes, t_ops, samples = timed_render(
+        rec, table, n_clks)
+    bound_ms = max(t_bytes, t_ops)
+    print(f'K4 headline render ({len(table.rows)} traces, {samples} samples, '
+          f'n_clks {n_clks}, one launch): kernel {ms:.5f} ms events, '
+          f'{dev_ms:.5f} ms device; plain {plain_ms:.4f} ms; bound '
+          f'{bound_ms:.6f} ms (bytes {t_bytes:.6f}, operations {t_ops:.6f}) '
+          f'on {env["smi"]}')
+    return dict(name='render_shot', route='cuda',
                 source='distributed_processor_tpu_torch/csrc/waveform.cu',
                 replaces='distributed_processor_tpu/ops/waveform_pallas.py:84',
-                max_abs_err=worst, ms=render_ms / n,
-                plain_ms=plain_render_ms / n,
-                bound_ms=max(t_bytes, t_ops) / n,
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes',
                 library_ms=None)
 
@@ -1126,9 +1130,10 @@ def phase_k5(env) -> dict:
 def phase_render_path(env) -> dict:
     """The render-and-readout path through the facade on the card: compile
     the headline, run it with pulse records, render a measured-1 and a
-    measured-0 shot (24 K4 launches each), then demodulate 262144 noisy
-    ADC traces of the rendered readout window (one K5 launch) and
-    discriminate.  Returns the launches of K4 and K5 in this run."""
+    measured-0 shot (one K4 launch each for all 24 traces), then
+    demodulate 262144 noisy ADC traces of the rendered readout window (one
+    K5 launch) and discriminate.  Returns the launches of K4 and K5 in
+    this run."""
     import numpy as np
     import torch
     from distributed_processor_tpu_torch import Simulator
@@ -1148,14 +1153,15 @@ def phase_render_path(env) -> dict:
     n_elems = sum(len(t.elem_cfgs) for t in mp.tables)
     traces, t_render = {}, {}
     for shot in (s1, s0):
-        before = _launches()['synthesize_element']
+        before = _launches()['render_shot']
         t0 = time.perf_counter()
         traces[shot] = sim.waveforms(out, shot=shot)
         t_render[shot] = time.perf_counter() - t0
-        n_launch = _launches()['synthesize_element'] - before
-        check(n_launch == n_elems == 24,
+        n_launch = _launches()['render_shot'] - before
+        check(n_launch == 1 and n_elems == 24
+              and sum(map(len, traces[shot].values())) == n_elems,
               f'render of shot {shot} launched K4 {n_launch} times for '
-              f'{n_elems} elements')
+              f'{n_elems} traces')
         check(all(np.isfinite(t).all() for c in traces[shot].values()
                   for t in c), f'render of shot {shot} is not finite')
     e1, e0 = (float(np.abs(iq_to_complex(traces[s][0][0])).sum())
@@ -1177,9 +1183,10 @@ def phase_render_path(env) -> dict:
                             f'by {worst:.3e} > {K4_ATOL}')
     print(f'render path: compile + run {HEADLINE["render_shots"]} shots with '
           f'records {t_run:.3f} s; waveforms(shot={s1}) {t_render[s1]:.4f} s '
-          f'and (shot={s0}) {t_render[s0]:.4f} s, 24 K4 launches each; qdrv '
-          f'energy {e1:.2f} (measured 1) > {e0:.2f} (measured 0); card vs '
-          f'CPU plain render max |diff| {worst:.3e} on {env["smi"]}')
+          f'(the first call builds the render table) and (shot={s0}) '
+          f'{t_render[s0]:.4f} s, one K4 launch each for {n_elems} traces; '
+          f'qdrv energy {e1:.2f} (measured 1) > {e0:.2f} (measured 0); card '
+          f'vs CPU plain render max |diff| {worst:.3e} on {env["smi"]}')
 
     # readout at full shot width: the rendered rdlo window of core 0 as
     # the tone, a state-dependent phase of 0 or pi/2, Gaussian ADC noise
@@ -1241,7 +1248,7 @@ def phase_render_path(env) -> dict:
           f'{int((differ & ~near).sum())} bits differ from the plain path '
           f'away from the threshold')
     counts = _launches()
-    check(_only_launched(counts, 'synthesize_element', 'demod_iq'),
+    check(_only_launched(counts, 'render_shot', 'demod_iq'),
           f'render path launched other kernels: {counts}')
     print(f'readout path: {S} ADC traces x {N} samples, 4 windows: '
           f'demod_readout + discriminate {t_demod:.4f} s, K5 launches 1, '
@@ -1250,6 +1257,19 @@ def phase_render_path(env) -> dict:
           f'{float(iq_p.abs().max()):.1f}, bits differing from the '
           f'plain path {int(differ.sum())} (all within tolerance of the '
           f'threshold; {int(near.sum())} decisions are that close) on '
+          f'{env["smi"]}')
+    # the wall time of a render, 20 more calls in this run, after the
+    # path's launches are read: the median, with the spread
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sim.waveforms(out, shot=s1)
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    print(f'render wall: waveforms(shot={s1}) x 20: median '
+          f'{(walls[9] + walls[10]) / 2 * 1e3:.4f} ms, min '
+          f'{walls[0] * 1e3:.4f} ms, max {walls[-1] * 1e3:.4f} ms (one K4 '
+          f'launch, one scalar read, one copy to the host each) on '
           f'{env["smi"]}')
     return counts
 
@@ -1708,7 +1728,7 @@ def main() -> int:
     k1_block['launches'] = timed(phase_loop_path, loop_mp, env)
     torch.cuda.empty_cache()
     counts = timed(phase_render_path, env)
-    k4['launches'] = counts['synthesize_element']
+    k4['launches'] = counts['render_shot']
     k5['launches'] = counts['demod_iq']
     torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)

@@ -17,7 +17,8 @@ compile stack.  Layers, named as in the JAX package:
 * :mod:`.ops.resolve` — the readout resolver: a hand-written CUDA kernel
   (``csrc/resolve.cu``) and its plain torch version
 * :mod:`.ops.waveform` — element waveform synthesis: the kernel K4
-  (``csrc/waveform.cu``) and its plain torch version
+  (``csrc/waveform.cu``: one launch renders every trace of a shot from
+  the run's records) and its plain torch version
 * :mod:`.ops.demod` — readout demodulation, the kernel K5
   (``csrc/demod.cu``) and its plain version, and state discrimination
 * :mod:`.models.readout` — sampled measurement bits and IQ clouds

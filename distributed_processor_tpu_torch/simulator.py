@@ -15,9 +15,9 @@ Example::
     wf = sim.waveforms(out)          # per-core per-element I/Q traces
 
 The facade runs on CUDA unless given ``device=``.  There,
-:meth:`Simulator.waveforms` renders every element with the waveform
-kernel and :meth:`Simulator.demod_readout` demodulates with the demod
-kernel; on the CPU both take the kernels' plain versions.  OpenQASM
+:meth:`Simulator.waveforms` renders every element of a shot in one launch
+of the waveform kernel and :meth:`Simulator.demod_readout` demodulates
+with the demod kernel; on the CPU both take the kernels' plain versions.  OpenQASM
 source is not compiled by this package yet.
 """
 
@@ -37,8 +37,8 @@ from .models.readout import make_generator, sample_meas_bits
 from .sim.interpreter import (ERR_PULSE_OVERFLOW, InterpreterConfig,
                               not_ported, simulate, simulate_batch,
                               torch_device)
-from .elements import IQ_SCALE
-from .ops.waveform import _to_numpy, synthesize_element
+from .ops.waveform import (default_n_clks, render_shot, render_table,
+                           shot_records, split_traces)
 from .ops.demod import demod_iq
 
 
@@ -176,21 +176,11 @@ class Simulator:
         across; only ``'_mp'`` must be this package's ``MachineProgram``.
         Returns ``{core_ind: [trace_elem0, trace_elem1, ...]}`` where each
         trace is a numpy ``float32 [n_samples, 2]`` I/Q array, rendered on
-        the facade's device (one waveform-kernel launch per element on
-        CUDA).  For batched runs pass ``shot`` to select one shot.
+        the facade's device: on CUDA one waveform-kernel launch for every
+        trace of the shot, from the records where they lie, and one copy
+        of the traces to the host.  For batched runs pass ``shot`` to
+        select one shot.
         """
-        return {c: [synthesize_element(*args, device=self.device)
-                    .cpu().numpy() for args in renders]
-                for c, renders in
-                self._element_renders(out, shot, n_clks, cores).items()}
-
-    @staticmethod
-    def _element_renders(out: dict, shot=None, n_clks=None,
-                         cores=None) -> dict:
-        """``{core: [(rec, env_table, spc, interp, n_clks, elem), ...]}``:
-        the arguments of :func:`~.ops.waveform.synthesize_element` for
-        every element of every core, cut from a run's records (on the
-        host: the pulse descriptors are prepared there)."""
         mp: MachineProgram = out['_mp']
         if 'rec_gtime' not in out:
             raise ValueError(
@@ -200,34 +190,12 @@ class Simulator:
             raise ValueError(
                 'batched run: pass shot= to select which shot to render '
                 '(n_pulses has a leading shot axis)')
-        sel = (lambda a: _to_numpy(a)) if shot is None \
-            else (lambda a: _to_numpy(a[shot]))
-        rec_all = {k: sel(out['rec_' + k]) for k in
-                   ('gtime', 'dur', 'env', 'phase', 'amp', 'elem', 'freq')}
-        n_pulses = sel(out['n_pulses'])
         if n_clks is None:
-            n_clks = int((rec_all['gtime'] + rec_all['dur']).max()) + 8
-        result = {}
-        for c in (cores if cores is not None else range(mp.n_cores)):
-            tables = mp.tables[c]
-            renders = []
-            for e, ecfg in enumerate(tables.elem_cfgs):
-                freq_table = tables.freqs[e]['freq'] if e < len(tables.freqs) \
-                    else np.zeros(0)
-                freq_rel_table = np.concatenate(
-                    [np.asarray(freq_table) / ecfg.sample_freq, [0.0]])
-                rec = {k: rec_all[k][c] for k in
-                       ('gtime', 'env', 'phase', 'amp', 'elem')}
-                rec['freq_rel'] = freq_rel_table[
-                    np.clip(rec_all['freq'][c], 0, len(freq_rel_table) - 1)]
-                rec['n_pulses'] = n_pulses[c]
-                env_table = np.asarray(tables.envs[e]) / IQ_SCALE \
-                    if e < len(tables.envs) and len(tables.envs[e]) \
-                    else np.zeros(1, complex)
-                renders.append((rec, env_table, ecfg.samples_per_clk,
-                                ecfg.interp_ratio, n_clks, e))
-            result[c] = renders
-        return result
+            n_clks = default_n_clks(out, shot)
+        table = render_table(mp, cores, self.device)
+        flat = render_shot(shot_records(out, shot, table.traces.device),
+                           table, n_clks)
+        return split_traces(flat.cpu().numpy(), table, n_clks)
 
     def demod_readout(self, out: dict, adc_traces, windows) -> torch.Tensor:
         """Demodulate external ADC traces ``[S, N]`` against

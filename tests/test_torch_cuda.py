@@ -18,8 +18,9 @@ sigma = 0).  The megastep kernels of
 engine on the card, K3 against its plain version and against the
 generic engine, K1 block (``engine='pallas'`` on a looping program)
 against the block engine's plain bodies.  The waveform kernel
-``csrc/waveform.cu`` is held against its plain version to atol 1e-5
-(the same arithmetic; ``sincosf`` against ``sin`` and ``cos``), the
+``csrc/waveform.cu`` (one launch renders every trace of a shot) is held
+against its plain version to atol 1e-5 (the same arithmetic;
+``sincosf`` against ``sin`` and ``cos``), the
 demod kernel ``csrc/demod.cu`` to rtol 2e-5 / atol 2e-4 (float32 sums
 of 1024 products of magnitude ~1 taken in another order than
 ``torch.matmul``).  This file imports nothing of JAX; its
@@ -929,12 +930,15 @@ def _capture_records(seed, interp, n_clks=65536, spc=16, P=64, L=1024):
 @pytest.mark.parametrize('interp', [1, 16])
 @pytest.mark.parametrize('n_clks', [65536, 4099])
 def test_k4_long_capture_matches_plain_version(card, interp, n_clks):
+    """``synthesize_element`` on the card: a one-trace call of the render
+    kernel (one launch), from numpy records and from records on the
+    card."""
     from distributed_processor_tpu_torch.ops.waveform import (
-        synthesize_element, synthesize_element_reference)
+        render_shot, synthesize_element, synthesize_element_reference)
     rec, env = _capture_records(3 + interp, interp, n_clks=n_clks)
-    before = synthesize_element.launches
+    before = render_shot.launches
     got = synthesize_element(rec, env, 16, interp, n_clks, device=card)
-    assert synthesize_element.launches == before + 1
+    assert render_shot.launches == before + 1
     want = synthesize_element_reference(rec, env, 16, interp, n_clks,
                                         device=card)
     torch.cuda.synchronize()
@@ -944,49 +948,196 @@ def test_k4_long_capture_matches_plain_version(card, interp, n_clks):
     # tensors on the card as records take the kernel too, with no device=
     trec = {k: torch.as_tensor(v, device=card) for k, v in rec.items()}
     again = synthesize_element(trec, env, 16, interp, n_clks)
-    assert synthesize_element.launches == before + 2
+    assert render_shot.launches == before + 2
     assert torch.equal(again, got)
 
 
 def test_k4_headline_render_matches_cpu(card, program):
-    """``Simulator.waveforms`` on the card (one K4 launch per element)
-    against the CPU's plain render of the same records, atol 1e-5."""
+    """``Simulator.waveforms`` on the card (one K4 launch per call, every
+    trace of the shot) against the CPU's plain render of the same
+    records, atol 1e-5, for a batched and an unbatched run."""
     from distributed_processor_tpu_torch import Simulator
-    from distributed_processor_tpu_torch.ops.waveform import \
-        synthesize_element
+    from distributed_processor_tpu_torch.ops.waveform import render_shot
     sim = Simulator(n_qubits=3, device=card)
+    cpu = Simulator(n_qubits=3, device='cpu')
     rng = np.random.default_rng(8)
     bits = rng.integers(0, 2, (16, program.n_cores, 16))
-    out = sim.run(program, shots=16, meas_bits=bits)
-    cpu = Simulator(n_qubits=3, device='cpu')
-    n_elems = sum(len(t.elem_cfgs) for t in program.tables)
-    for shot in (0, 5):
-        before = synthesize_element.launches
+    batched = sim.run(program, shots=16, meas_bits=bits)
+    single = sim.run(program, meas_bits=bits[5])
+    assert single['n_pulses'].dim() == 1
+    for out, shot in ((batched, 0), (batched, 5), (single, None)):
+        before = render_shot.launches
         wf = sim.waveforms(out, shot=shot)
-        assert synthesize_element.launches == before + n_elems
+        assert render_shot.launches == before + 1
         ref = cpu.waveforms(out, shot=shot)
-        assert synthesize_element.launches == before + n_elems
+        assert render_shot.launches == before + 1
+        assert sorted(wf) == sorted(ref) == [0, 1, 2]
         for c in ref:
+            assert len(wf[c]) == len(ref[c]) == 3
             for got, want in zip(wf[c], ref[c]):
                 assert got.shape == want.shape and np.abs(want).max() > 0
                 np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    for c in range(3):
+        for a, b in zip(sim.waveforms(batched, shot=5)[c],
+                        sim.waveforms(single)[c]):
+            np.testing.assert_array_equal(a, b)
+
+
+def _synthetic_render(seed, n_clks, rows=48, dense=False):
+    """Seeded records of 3 cores x 3 elements and a render table of three
+    geometries (spc 16 / 4 / 3, interp 1 / 16 / 3): CW pulses (two that
+    tie in start), windows past their table, an element with no pulses
+    (core 2, element 1), ``n_pulses`` below the row count, frequency
+    addresses past the table; ``dense``: 700 short pulses of one element
+    in the first 1024 samples, overlapping, more than one block stages at
+    once.  Returns ``(out dict of numpy records, table on the card)``."""
+    from distributed_processor_tpu_torch.ops import waveform as wv
+    rng = np.random.default_rng(seed)
+    C, geometry = 3, ((16, 1), (4, 16), (3, 3))
+    if dense:
+        rows = 700
+    rec = {k: np.zeros((C, rows), np.int32) for k in
+           ('gtime', 'env', 'phase', 'amp', 'elem', 'freq', 'dur')}
+    for c in range(C):
+        if dense:
+            gtime = rng.integers(0, 1024 // 16, rows)
+            nw = rng.integers(1, 4, rows)
+            elem = np.zeros(rows, np.int64)
+        else:
+            gtime = np.sort(rng.integers(0, n_clks, rows))
+            nw = rng.integers(1, 40, rows)
+            elem = rng.integers(0, 3, rows)
+            if c == 2:
+                elem[elem == 1] = 0              # no pulse on element 1
+        nw[rng.random(rows) < 0.1] = 0xfff       # CW
+        if not dense:
+            gtime[7] = gtime[6]                  # a tie in start ...
+            nw[6] = 0xfff                        # ... after a CW pulse
+            elem[7] = elem[6]
+        addr = rng.integers(0, 60, rows)         # some run past the table
+        rec['gtime'][c], rec['elem'][c] = gtime, elem
+        rec['env'][c] = (nw << 12) | addr
+        rec['phase'][c] = rng.integers(0, 1 << 17, rows)
+        rec['amp'][c] = rng.integers(1 << 12, 1 << 16, rows)
+        rec['freq'][c] = rng.integers(0, 6, rows)  # 5: past a 4-word table
+    out = {'rec_' + k: v for k, v in rec.items()}
+    out['n_pulses'] = np.asarray([rows, rows - 5, rows // 2], np.int32)
+    envs, words, geo = [], [], []
+    for c in range(C):
+        for e, (spc, interp) in enumerate(geometry):
+            L = int(rng.integers(1, 200))
+            envs.append(rng.uniform(-0.9, 0.9, (L, 2)).astype(np.float32))
+            words.append(wv._nco_words(np.append(
+                rng.uniform(-0.45, 0.45, 4), 0.0)))
+            geo.append((c, e, spc, interp, L, len(words[-1])))
+    table = wv.make_table(wv._table_rows(geo), np.concatenate(envs),
+                          np.concatenate(words), 'cuda')
+    return out, table
+
+
+@pytest.mark.parametrize('n_clks,dense', [(777, False), (64, False),
+                                          (100, True)],
+                         ids=['ragged', 'short', 'dense'])
+def test_k4_render_matches_plain_version(card, n_clks, dense):
+    """The render kernel against its plain version on the card, atol
+    1e-5: three geometries, an n_clks no multiple of the tile, CW ties,
+    overrun windows, an empty element, records on the card and as numpy,
+    and more pulses in one tile than a block stages at once."""
+    from distributed_processor_tpu_torch.ops import waveform as wv
+    out, table = _synthetic_render(11 + n_clks, n_clks, dense=dense)
+    rec_np = wv.shot_records(out, None, card)          # numpy: one copy
+    on_card = {k: torch.as_tensor(v, device=card) for k, v in out.items()}
+    rec_dev = wv.shot_records(on_card, None, card)     # views, no copy
+    assert all(rec_dev[k].data_ptr() == on_card['rec_' + k].data_ptr()
+               for k in wv._REC_FIELDS)
+    before = wv.render_shot.launches
+    got = wv.render_shot(rec_np, table, n_clks)
+    again = wv.render_shot(rec_dev, table, n_clks)
+    assert wv.render_shot.launches == before + 2
+    want = wv._render_plain(rec_dev, table, n_clks)
+    torch.cuda.synchronize()
+    assert got.shape == (n_clks * table.spc_total, 2)
+    assert float(want.abs().max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(again, got)
+    traces = wv.split_traces(got, table, n_clks)
+    assert not traces[2][1].any()                      # no pulses there
+    assert all(traces[c][e].shape[0] == n_clks * spc for c in range(3)
+               for e, spc in enumerate((16, 4, 3)))
+
+
+def test_k4_renders_from_two_threads(card, program):
+    """Two host threads render at once, the table cache cleared first:
+    one table, and each thread's traces equal the CPU's."""
+    import threading
+    from distributed_processor_tpu_torch import Simulator
+    from distributed_processor_tpu_torch.ops import waveform as wv
+    sim = Simulator(n_qubits=3, device=card)
+    bits = np.random.default_rng(9).integers(0, 2, (8, program.n_cores, 16))
+    out = sim.run(program, shots=8, meas_bits=bits)
+    ref = {s: Simulator(n_qubits=3, device='cpu').waveforms(out, shot=s)
+           for s in (1, 6)}
+    with wv._TABLES_LOCK:
+        wv._TABLES.clear()
+    got, errors, barrier = {}, [], threading.Barrier(2)
+
+    def render(shot):
+        try:
+            barrier.wait()
+            for _ in range(5):
+                got[shot] = sim.waveforms(out, shot=shot)
+        except Exception as exc:                   # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=render, args=(s,)) for s in (1, 6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(wv._TABLES) == 1
+    for s in (1, 6):
+        for c in ref[s]:
+            for a, b in zip(got[s][c], ref[s][c]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
 def test_k4_rejects_bad_inputs(card):
-    from distributed_processor_tpu_torch.ops.waveform import \
-        synthesize_prepared
-    desc = torch.zeros((7, 4), dtype=torch.int32, device=card)
-    env = torch.zeros((8, 2), dtype=torch.float32, device=card)
-    with pytest.raises(ValueError, match='desc'):
-        synthesize_prepared(desc[:6], env, 1, 64)
-    with pytest.raises(ValueError, match='desc'):
-        synthesize_prepared(desc.cpu(), env, 1, 64)
-    with pytest.raises(ValueError, match='env'):
-        synthesize_prepared(desc, env.double(), 1, 64)
-    with pytest.raises(ValueError, match='interp'):
-        synthesize_prepared(desc, env, 0, 64)
-    with pytest.raises(ValueError, match='unsupported device'):
-        synthesize_prepared(desc.cpu(), env.cpu(), 1, 64)
+    from distributed_processor_tpu_torch.ops import waveform as wv
+    out, table = _synthetic_render(5, 64)
+    rec = wv.shot_records(out, None, card)
+    with pytest.raises(ValueError, match='amp must'):
+        wv.render_shot(dict(rec, amp=rec['amp'][:, :-1]), table, 64)
+    with pytest.raises(ValueError, match='env must'):
+        wv.render_shot(dict(rec, env=rec['env'].long()), table, 64)
+    with pytest.raises(ValueError, match='phase must'):
+        wv.render_shot(dict(rec, phase=rec['phase'].cpu()), table, 64)
+    with pytest.raises(ValueError, match='lies on cuda'):
+        wv.render_shot({k: v.cpu() for k, v in rec.items()}, table, 64)
+    with pytest.raises(ValueError, match='n_pulses'):
+        wv.render_shot(dict(rec, n_pulses=rec['n_pulses'][:2]), table, 64)
+    strided = rec['phase'].t().contiguous().t()
+    with pytest.raises(ValueError, match='phase must'):
+        wv.render_shot(dict(rec, phase=strided), table, 64)
+    cpu_table = table._replace(traces=table.traces.cpu())
+    with pytest.raises(ValueError, match='traces'):
+        wv.render_shot(rec, cpu_table, 64)
+    with pytest.raises(ValueError, match='n_clks'):
+        wv.render_shot(rec, table, -1)
+    with pytest.raises(ValueError, match='n_clks'):
+        wv.render_shot(rec, table, 1 << 28)
+    two = {k: v[:2] for k, v in rec.items()}
+    with pytest.raises(ValueError, match='renders 3 cores'):
+        wv.render_shot(two, table, 64)
+    with pytest.raises(ValueError, match='spc'):
+        wv._table_rows([(0, 0, 0, 1, 4, 2)])
+    with pytest.raises(ValueError, match='reach past'):
+        wv.make_table(table.rows, table.env[:5], table.inc, card)
+    with pytest.raises(ValueError, match='float32'):
+        wv.make_table(table.rows, table.env.double(), table.inc, card)
+    # a zero-length render makes no launch
+    before = wv.render_shot.launches
+    assert wv.render_shot(rec, table, 0).shape == (0, 2)
+    assert wv.render_shot.launches == before
 
 
 @pytest.mark.parametrize('S,N,J', [
