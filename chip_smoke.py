@@ -49,9 +49,24 @@ Phases, in order (any failure exits nonzero):
    block-engine iteration, outputs equal to the block and generic
    engines; the three engines' steady batches profiled; the physics batch
    at sigma = 0.05 on the block engine with K2 per epoch; and the loop at
-   sigma = 0 on the card against the CPU);
+   sigma = 0 on the card against the CPU); then the three paths of the
+   ``'lut'`` measurement fabric (the syndrome LUT), each at 262144 shots:
+   the span path (the 8-core repetition round and the 9-core surface
+   cycle on seeded injected bits through ``engine='pallas'`` and
+   ``'auto'``, one K1 launch each, every key equal to the straight-line
+   engine's and each core's corrections the table's; the tile kernel,
+   the one-thread-per-lane kernel and the plain version timed on one
+   carry beside the bound restated for the LUT reads), the block path
+   (8 unrolled QEC rounds on 8 cores through ``engine='pallas'``: one K1
+   block launch per block-engine iteration, equal to the plain block
+   engine) and the physics path (the compiled 8-qubit repetition round
+   over all 256 initial patterns on ``engine='fused'``, K3 with the LUT
+   read in one launch, every core corrected to its majority and equal to
+   the generic engine; then sigma = 0.05 on the straight-line engine with
+   K2 per epoch);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
-   explicit initial states: bits and statistics identical;
+   explicit initial states: bits and statistics identical, and the
+   three ``'lut'`` paths at a small batch;
 5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
@@ -135,6 +150,20 @@ SYNTH = dict(rows=(0, 8, 28, 40), n_freqs=2, env_len=64,
              interps=(4, 2, 1, 4, 2, 1, 4, 2))
 # K4's long capture: a trace the render never reaches
 CAPTURE = dict(n_clks=65536, spc=16, n_pulses=64, env_len=1024)
+# the 'lut' fabric's paths (the syndrome LUT, hdl/fproc_lut.sv +
+# meas_lut.sv): the repetition round on 8 cores (a 256-entry majority
+# LUT), the distance-5 surface cycle (9 cores, 4 ancillas masked, a
+# 16-entry chain-matching LUT), 8 unrolled QEC rounds on 8 cores (block
+# mode), all at 262144 shots; the CUDA-vs-CPU check at a small batch
+LUT = dict(batch=262144, n_data=8, distance=5, rounds=8, cpu_batch=256)
+# the integer operations of a LUT read beyond a row's SPAN_OPS_PER_INSTR
+# (csrc/exec_span.cu lut_read): per masked producer and slot, two
+# compares, an and and an add (the time-indexed count); per masked
+# producer its count read and test, the slot select, three loads, the
+# unwritten-availability test and select, a max, a shift and an add; per
+# read the table bounds test and load, a shift, an and and the max with
+# the request
+LUT_SLOT_OPS, LUT_PRODUCER_OPS, LUT_READ_OPS = 4, 12, 8
 # stated tolerances of the two new kernels against their plain versions
 K4_ATOL = 1e-5
 K5_RTOL, K5_ATOL = 2e-5, 2e-4
@@ -1578,6 +1607,481 @@ def phase_loop_path(mp, env) -> int:
     return launches['pallas']
 
 
+def lut_workloads() -> list:
+    """The 'lut' fabric's span workloads at full width: ``(label, mp,
+    cfg)`` of the repetition round (8 cores) and the surface cycle (9
+    cores)."""
+    from distributed_processor_tpu_torch.models import qec, repetition
+    n, d = LUT['n_data'], LUT['distance']
+    return [(f'repetition round ({n} cores)',
+             repetition.repetition_round_machine_program(n),
+             repetition.repetition_config(n)),
+            (f'surface cycle d={d} ({2 * d - 1} cores)',
+             qec.surface_cycle_machine_program(d),
+             qec.surface_cycle_config(d))]
+
+
+def lut_physics_program():
+    """The compiled repetition round (8 qubits) and its config."""
+    from distributed_processor_tpu_torch.models import repetition
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        InterpreterConfig
+    from distributed_processor_tpu_torch.simulator import Simulator
+    n = LUT['n_data']
+    mp = Simulator(n_qubits=n, device=DEV).compile(
+        repetition.repetition_round_program(n))
+    return mp, InterpreterConfig(max_steps=mp.n_instr * 6 + 64,
+                                 **repetition.repetition_physics_kwargs(n))
+
+
+def _lut_ops(cfg, reads: int) -> int:
+    """The integer operations of ``reads`` LUT reads beyond their rows."""
+    k = sum(bool(b) for b in cfg.lut_mask)
+    return reads * (k * (cfg.max_meas * LUT_SLOT_OPS + LUT_PRODUCER_OPS)
+                    + LUT_READ_OPS)
+
+
+def _lut_expected_pulses(bits, cfg):
+    """Each core's pulse count the LUT's corrections give on injected
+    ``bits [B, C, M]`` (slot 0 is each core's measurement): the readout,
+    plus an X (two pulses) on each core whose table bit is set."""
+    import numpy as np
+    b0 = bits[:, :, 0].cpu().numpy().astype(np.int64)
+    mask = np.asarray(cfg.lut_mask, bool)
+    shifts = np.cumsum(mask) - 1
+    addr = (b0[:, mask] << shifts[mask]).sum(1)
+    entry = np.asarray(cfg.lut_table, np.int64)[addr]
+    # (the surface cycle's ancillas halt after measuring: their table
+    # bits are 0)
+    corr = (entry[:, None] >> np.arange(b0.shape[1])) & 1
+    return 1 + 2 * corr
+
+
+def phase_lut_span(env) -> dict:
+    """The 'lut' fabric on K1 span at full width: the repetition round
+    (8 cores) and the surface cycle (9 cores) on seeded injected bits,
+    ``engine='pallas'`` (the tile kernel) and ``'auto'`` against the
+    straight-line engine on the card, every key (``meas_time`` included)
+    identical and each core's corrections the table's; then the tile
+    kernel, the one-thread-per-lane kernel and the plain version on the
+    same carry, timed, beside the bound restated for the LUT reads.
+    Returns ``{label: numbers}``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_span_per_lane, exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, resolve_engine, simulate_batch)
+    B, res = LUT['batch'], {}
+    for label, mp, cfg in lut_workloads():
+        C = mp.n_cores
+        eng = resolve_engine(mp, dataclasses.replace(cfg, engine='auto'), DEV)
+        check(eng == 'pallas', f"lut span {label}: 'auto' on the card "
+                               f"resolves to {eng!r}, not K1")
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(61 + C)
+        bits = torch.randint(0, 2, (B, C, cfg.max_meas), generator=gen,
+                             device=DEV, dtype=torch.int32)
+        outs = {}
+        for e in ('pallas', 'auto', 'straightline'):
+            _reset_launches()
+            outs[e] = simulate_batch(mp, bits, cfg=dataclasses.replace(
+                cfg, engine=e, opcode_histogram=True), device=DEV)
+            sync()
+            counts = _launches()
+            want = 0 if e == 'straightline' else 1
+            check(counts['exec_span'] == want
+                  and _only_launched(counts, 'exec_span'),
+                  f'lut span {label} ({e}) launches: {counts}')
+        for e in ('auto', 'straightline'):
+            _max_abs_diff(outs['pallas'], outs[e],
+                          f"lut span {label}: 'pallas' vs {e!r}")
+        out = outs.pop('pallas')
+        del outs
+        check(bool(out['done'].all()) and not bool(out['fault'].any())
+              and not bool(out['err'].any()),
+              f'lut span {label}: lanes undone, faulted or errored')
+        want_pulses = _lut_expected_pulses(bits, cfg)
+        check(np.array_equal(out['n_pulses'].cpu().numpy(), want_pulses),
+              f"lut span {label}: corrections differ from the table's")
+        hist = out['op_hist']
+        retired = int(hist.sum())
+        reads = int(hist[isa.K_ALU_FPROC] + hist[isa.K_JUMP_FPROC])
+        print(f"lut span {label}: simulate_batch(engine='pallas') and "
+              f"'auto' (one K1 launch each) equal to the straight-line "
+              f'engine on every key at B={B}; {reads} LUT reads, '
+              f'{int((want_pulses > 1).sum())} corrections as the table '
+              f'gives')
+        del out
+        # the kernels on one carry at the path's config
+        st, table, _ = _span_inputs(mp, cfg, B, seed=0)
+        valid = torch.ones(bits.shape, dtype=torch.bool, device=DEV)
+        kernels = {'lane': _exec_span_per_lane, 'tile': exec_span}
+        want = exec_span(st, table, bits, cfg)
+        _max_abs_diff(_exec_span_per_lane(st, table, bits, cfg), want,
+                      f'lut span {label}: one thread per lane vs tile')
+
+        def plain():
+            return _exec_straightline(st, table.soa_np, table.spc,
+                                      table.interp, bits, valid, cfg)
+        worst = _max_abs_diff(want, plain(),
+                              f'lut span {label}: kernel vs plain')
+        times = _time_kernels(lambda d, _calls: lambda: kernels[d](
+            st, table, bits, cfg), tuple(kernels), reps=20)
+        plain_ms = cuda_time_ms(plain, reps=2)
+        nbytes = _carry_bytes(st) + _carry_bytes(want) + sum(
+            t.numel() * t.element_size() for t in
+            (bits, table.spc, table.interp, table.lut)) + table.soa_np.nbytes
+        ops = retired * SPAN_OPS_PER_INSTR + _lut_ops(cfg, reads)
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = ops / PEAK_INT32_OPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f'lut span {label} K1 at B={B} C={C} N={mp.n_instr} '
+              f'(split at index {table.min_read}, LUT of '
+              f'{len(cfg.lut_table)} entries): '
+              + ', '.join(f'kernel {d} {e:.4f} ms events / '
+                          f'{_device_note(v)} ms device'
+                          for d, (e, v) in times.items())
+              + f'; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms '
+              f'(bytes {nbytes / 1e9:.3f} GB = {t_bytes:.4f} ms, operations '
+              f'{retired} rows x {SPAN_OPS_PER_INSTR} + {reads} LUT reads = '
+              f'{ops:.3e} = {t_ops:.4f} ms) on {env["smi"]}')
+        res[label] = dict(ms=times['tile'][0], dev_ms=times['tile'][1],
+                          lane_ms=times['lane'][0],
+                          lane_dev_ms=times['lane'][1], plain_ms=plain_ms,
+                          bound_ms=bound_ms, max_abs_err=worst, launches=1,
+                          bound_by='operations' if t_ops >= t_bytes
+                          else 'bytes')
+        del st, want
+        # the same pass without pulse records: what the records cost
+        ncfg = dataclasses.replace(cfg, record_pulses=False)
+        st, table, _ = _span_inputs(mp, ncfg, B, seed=0)
+        got = exec_span(st, table, bits, ncfg)
+        n_bytes = _carry_bytes(st) + _carry_bytes(got) + sum(
+            t.numel() * t.element_size() for t in
+            (bits, table.spc, table.interp, table.lut)) + table.soa_np.nbytes
+        del got
+        n_dev = _kernel_ms(lambda: exec_span(st, table, bits, ncfg), reps=20)
+        print(f'lut span {label} K1 tile without pulse records: '
+              f'{_device_note(n_dev)} ms device against '
+              f'{n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms of bytes')
+        del st
+    return res
+
+
+def _block_batch_bound(mp, bits, cfg) -> tuple:
+    """``(bytes, rows, launches)`` that the K1 block launches of one
+    ``engine='pallas'`` batch must move and retire, counted at each launch
+    (as :func:`_block_bound_bytes`, plus one ``meas_time`` slot per
+    measurement) without keeping its carry."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.sim import interpreter
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _block_ids, _soa_np, simulate_batch)
+    soa_np, C = _soa_np(mp), mp.n_cores
+    kind = soa_np[..., 0]
+    tot = dict(nbytes=0, rows=0, n=0)
+    kernel = interpreter.exec_blocks
+
+    def count(st, table, cfg):
+        eff = np.zeros((len(table.bodies), C), np.int64)
+        for k, (s0, L) in enumerate(table.bodies):
+            for c in range(C):
+                dn = np.nonzero(kind[c, s0:s0 + L] == isa.K_DONE)[0]
+                eff[k, c] = dn[0] + 1 if len(dn) else L
+        bid = _block_ids(st['pc'], table.bid)
+        act = (bid >= 0) & ~st['done']
+        rows = torch.as_tensor(eff, device=DEV)[
+            bid.clamp(min=0).long(), torch.arange(C, device=DEV)[None, :]]
+        before = {k: int(st[k].sum()) for k in
+                  ('n_meas', 'n_resets', 'n_pulses')}
+        per_lane = sum(st[k][0, 0].numel() * st[k].element_size()
+                       for k in BODY_LEAVES)
+        every = st['pc'].element_size() + st['done'].element_size()
+        n_act = int(act.sum())
+        out = kernel(st, table, cfg)
+        grew = {k: int(out[k].sum()) - v for k, v in before.items()}
+        slots = 4 * (grew['n_meas'] * (2 if 'meas_time' in out else 1)
+                     + grew['n_resets'])
+        rec = 9 * 4 * grew['n_pulses'] if 'rec' in out else 0
+        tot['nbytes'] += st['pc'].numel() * every \
+            + n_act * (2 * per_lane - every) + slots + rec + soa_np.nbytes \
+            + 4 * (table.bid.numel() + table.body_tab.numel()) \
+            + 8 * table.spc.numel()
+        tot['rows'] += int((rows * act).sum())
+        tot['n'] += 1
+        return out
+    interpreter.exec_blocks = count
+    try:
+        simulate_batch(mp, bits, cfg=cfg, device=DEV)
+    finally:
+        interpreter.exec_blocks = kernel
+    return tot['nbytes'], tot['rows'], tot['n']
+
+
+def phase_lut_block(env) -> dict:
+    """The 'lut' fabric on K1 block at full width: 8 unrolled QEC rounds
+    on 8 cores (every round's measurement after the previous round's
+    read: block mode), seeded injected bits, ``engine='pallas'`` against
+    the plain block engine on the card, every key identical and each
+    round's corrections the majority table's; the iterations, the
+    launches, and K1 block's time per launch beside its bound."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.models import qec
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        FAULT_CODES, fault_shot_counts, resolve_engine, simulate_batch)
+    B, n, R = LUT['batch'], LUT['n_data'], LUT['rounds']
+    mp, cfg = qec.qec_multiround_machine_program(n, R), qec.qec_config(n, R)
+    check(resolve_engine(mp, dataclasses.replace(cfg, engine='auto'), DEV)
+          == 'pallas', "lut block: 'auto' on the card does not take K1")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(71)
+    bits = torch.randint(0, 2, (B, n, R), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    pcfg = dataclasses.replace(cfg, engine='pallas')
+    simulate_batch(mp, bits[:64], cfg=pcfg, device=DEV)     # warm
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = simulate_batch(mp, bits, cfg=pcfg, device=DEV)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = _launches()
+    steps = int(out['steps'])
+    check(counts['exec_blocks'] == steps > 0
+          and _only_launched(counts, 'exec_blocks'),
+          f'lut block launches: {counts}, {steps} iterations')
+    sync()
+    t0 = time.perf_counter()
+    plain = simulate_batch(mp, bits, cfg=dataclasses.replace(
+        cfg, engine='block'), device=DEV)
+    sync()
+    plain_dt = time.perf_counter() - t0
+    worst = _max_abs_diff(out, plain, 'lut block: K1 block vs plain block')
+    del plain
+    faults = dict(zip([name for name, _ in FAULT_CODES],
+                      fault_shot_counts(out['fault']).tolist()))
+    check(not bool(out['incomplete']) and not any(faults.values())
+          and not bool(out['err'].any()),
+          f'lut block: faults {faults} or errors')
+    b = bits.cpu().numpy()
+    maj = (b.sum(1) * 2 > n)                                 # [B, R]
+    flips = (b != maj[:, None, :]).sum(2)                    # [B, C]
+    check(np.array_equal(out['n_pulses'].cpu().numpy(), R + 2 * flips),
+          "lut block: corrections differ from the majority table's")
+    check(bool((out['meas_time'] == torch.arange(
+        R, device=DEV, dtype=torch.int32) * 1000 + 10).all()),
+        'lut block: production clocks are not the rounds\' triggers')
+    del out
+    wall, kernels = device_kernel_times(lambda: simulate_batch(
+        mp, bits, cfg=pcfg, device=DEV))
+    dev_ms = sum(us for name, (us, _n) in kernels.items()
+                 if 'exec_tile_kernel' in name or 'exec_blocks' in name) / 1e3
+    nbytes, rows, n_launch = _block_batch_bound(mp, bits, pcfg)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = rows * SPAN_OPS_PER_INSTR / PEAK_INT32_OPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    # the same batch without pulse records: what the records cost
+    ncfg = dataclasses.replace(pcfg, record_pulses=False)
+    _wall, nk = device_kernel_times(lambda: simulate_batch(
+        mp, bits, cfg=ncfg, device=DEV))
+    n_dev = sum(us for name, (us, _n) in nk.items()
+                if 'exec_tile_kernel' in name or 'exec_blocks' in name) / 1e3
+    n_bytes, _rows, _n = _block_batch_bound(mp, bits, ncfg)
+    print(f'lut block without pulse records: K1 block device '
+          f'{n_dev / n_launch:.5f} ms per launch against '
+          f'{n_bytes / PEAK_HBM_BYTES * 1e3 / n_launch:.6f} ms of bytes')
+    print(f"lut block: simulate_batch(engine='pallas') {B} shots x {n} "
+          f'cores x {R} rounds in {dt:.4f} s, {steps} block iterations, '
+          f'{counts["exec_blocks"]} K1 block launches, no other kernel; '
+          f'plain block engine {plain_dt:.4f} s; every key identical; '
+          f'K1 block device {dev_ms / n_launch:.5f} ms per launch '
+          f'({dev_ms:.4f} ms per batch, profiled wall {wall:.4f} s); '
+          f'bound {bound_ms / n_launch:.6f} ms per launch (bytes '
+          f'{nbytes / 1e9:.4f} GB = {t_bytes:.5f} ms, {rows} rows = '
+          f'{t_ops:.5f} ms per batch) on {env["smi"]}')
+    return dict(launches=steps, batch_s=dt, plain_s=plain_dt,
+                dev_ms=dev_ms / n_launch, bound_ms=bound_ms / n_launch,
+                max_abs_err=worst)
+
+
+def phase_lut_physics(env) -> dict:
+    """The compiled repetition round (8 qubits) closed by the readout
+    chain at full width.  At sigma = 0, ``engine='fused'`` (K3 with the
+    LUT read, one launch, one epoch) with the initial states cycling all
+    256 patterns: every core ends at its pattern's majority, the
+    minority cores fired a correction, and every key equals the generic
+    engine's but epochs and steps; K3 against its plain version on one
+    carry, timed, beside the restated bound.  At sigma = 0.05 (the
+    headline's readout model) the straight-line engine with K2 per
+    epoch: no fault, every window resolved."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.ops.exec_span import \
+        exec_span_fused
+    from distributed_processor_tpu_torch.parallel import physics_batch_stats
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, _init_state, _span_table, resolve_engine)
+    from distributed_processor_tpu_torch.sim.physics import (
+        fused_readout, physics_config, prepare_physics_tables,
+        run_physics_batch)
+    B, n = LUT['batch'], LUT['n_data']
+    mp, cfg = lut_physics_program()
+    init = ((torch.arange(B, device=DEV)[:, None] % 256)
+            >> torch.arange(n, device=DEV)) & 1
+    init = init.to(torch.int32)
+    model0 = headline_model(sigma=0.0)
+    fcfg = dataclasses.replace(cfg, engine='fused')
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = run_physics_batch(mp, model0, 5, B, init_states=init, cfg=fcfg,
+                            device=DEV)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = _launches()
+    check(counts['exec_span_fused'] == 1
+          and _only_launched(counts, 'exec_span_fused'),
+          f'lut physics (fused) launches: {counts}')
+    check(int(out['epochs']) == 1, f"lut physics: K3 took "
+                                   f"{int(out['epochs'])} epochs")
+    maj = (init.sum(1) * 2 > n).to(torch.int32)
+    check(bool(((out['qturns'] % 4) // 2 == maj[:, None]).all()),
+          'lut physics: a core did not end at its pattern\'s majority')
+    check(bool((out['n_pulses'] == 2 + 2 * (init != maj[:, None]).to(
+        torch.int32)).all()), 'lut physics: corrections fired on the '
+                              'wrong cores')
+    check(not bool(out['err'].any()) and not bool(out['fault'].any())
+          and bool(out['meas_bits_valid'][:, :, 0].all()),
+          'lut physics: errors, faults or unresolved windows')
+    generic = run_physics_batch(mp, model0, 5, B, init_states=init,
+                                cfg=dataclasses.replace(cfg,
+                                                        engine='generic'),
+                                device=DEV)
+    for key in generic:
+        if key not in ('epochs', 'steps'):
+            check(torch.equal(out[key], generic[key]),
+                  f'lut physics: K3 and the generic engine differ in {key}')
+    print(f"lut physics: run_physics_batch(engine='fused', sigma=0) {B} "
+          f'shots (all 256 patterns) in {dt:.4f} s, one K3 launch, one '
+          f'epoch (generic: {int(generic["epochs"])}); every core at its '
+          f"pattern's majority, corrections on the minority cores; every "
+          f'key but epochs and steps equal to the generic engine\'s')
+    del out, generic
+    # K3 against its plain version on one carry
+    pcfg = physics_config(fcfg, model0)
+    fused = fused_readout(mp, model0, prepare_physics_tables(mp, model0,
+                                                             DEV))
+    table = _span_table(mp, pcfg, DEV, fused=True)
+    st = _init_state(B, n, pcfg, None, DEV)
+    st['qturns'] = 2 * init
+    bits0 = torch.zeros((B, n, pcfg.max_meas), dtype=torch.int32, device=DEV)
+    valid0 = torch.zeros(bits0.shape, dtype=torch.bool, device=DEV)
+
+    def kernel():
+        return exec_span_fused(st, table, bits0, valid0, pcfg, fused)
+
+    def plain():
+        o = _exec_straightline(dict(st, meas_bits=bits0, meas_valid=valid0),
+                               table.soa_np, table.spc, table.interp, None,
+                               None, pcfg, fused=fused)
+        return o, o.pop('meas_bits'), o.pop('meas_valid')
+    got, want = kernel(), plain()
+    sync()
+    worst = _max_abs_diff(dict(got[0], meas_bits=got[1], meas_valid=got[2]),
+                          dict(want[0], meas_bits=want[1],
+                               meas_valid=want[2]), 'lut physics: K3 vs plain')
+    del want
+    hcfg = dataclasses.replace(pcfg, opcode_histogram=True)
+    hst = _init_state(B, n, hcfg, None, DEV)
+    hst['qturns'] = 2 * init
+    hist = exec_span_fused(hst, _span_table(mp, hcfg, DEV, fused=True),
+                           bits0, valid0, hcfg, fused)[0]['op_hist'].sum(
+        (0, 1))
+    retired = int(hist.sum())
+    reads = int(hist[isa.K_ALU_FPROC] + hist[isa.K_JUMP_FPROC])
+    del hst
+    ms = cuda_time_ms(kernel, reps=20)
+    dev_ms = _kernel_ms(kernel, reps=20)
+    plain_ms = cuda_time_ms(plain, reps=1)
+    n_meas = int(got[2].sum())
+    int_ops = retired * SPAN_OPS_PER_INSTR + _lut_ops(pcfg, reads)
+    ops = int_ops + n_meas * (1 + DISCRIMINATE_OPS)
+    nbytes = _carry_bytes(st) + _carry_bytes(got[0]) + 2 * sum(
+        t.numel() * t.element_size() for t in (bits0, valid0)) + sum(
+        t.numel() * t.element_size() for t in
+        (table.spc, table.interp, table.lut, fused['e2p'], fused['g0'],
+         fused['g1'])) + table.soa_np.nbytes
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = max(int_ops / PEAK_INT32_OPS, ops / PEAK_ISSUE) * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f'lut physics K3 at B={B} C={n} N={mp.n_instr} (split at index '
+          f'{table.min_read}): kernel {ms:.4f} ms events / '
+          f'{_device_note(dev_ms)} ms device, plain {plain_ms:.3f} ms, '
+          f'bound {bound_ms:.4f} ms (bytes {nbytes / 1e9:.3f} GB = '
+          f'{t_bytes:.4f} ms, operations {ops:.3e} = {t_ops:.4f} ms; '
+          f'{retired} rows, {reads} LUT reads, {n_meas} windows) on '
+          f'{env["smi"]}')
+    del got
+    # the same pass without pulse records: what the records cost
+    ncfg = dataclasses.replace(pcfg, record_pulses=False)
+    nst = {k: v for k, v in st.items() if k != 'rec'}
+    ntable = _span_table(mp, ncfg, DEV, fused=True)
+    # (the record leaf read once and written once fewer)
+    n_bytes = nbytes - 2 * _carry_bytes({'rec': st['rec']})
+    n_dev = _kernel_ms(lambda: exec_span_fused(nst, ntable, bits0, valid0,
+                                               ncfg, fused), reps=20)
+    print(f'lut physics K3 without pulse records: {_device_note(n_dev)} ms '
+          f'device against {n_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms of bytes')
+    del nst
+    # sigma = 0.05: 'auto' takes the straight-line engine (K1 has no
+    # physics mode), K2 per epoch
+    model = headline_model()
+    cfg = dataclasses.replace(cfg, engine='auto')
+    eng = resolve_engine(mp, physics_config(cfg, model), DEV)
+    check(eng == 'straightline', f'lut physics at sigma={model.sigma} '
+                                 f'resolves to {eng!r}')
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = run_physics_batch(mp, model, 6, B, init_states=init, cfg=cfg,
+                            device=DEV)
+    stats = {k: v.cpu().numpy().tolist()
+             for k, v in physics_batch_stats(out).items()}
+    sync()
+    noisy_dt = time.perf_counter() - t0
+    counts = _launches()
+    epochs = int(out['epochs'])
+    check(counts['resolve_windows'] == epochs > 0
+          and _only_launched(counts, 'resolve_windows'),
+          f'lut physics (sigma={model.sigma}) launches {counts} in {epochs} '
+          f'epochs')
+    check(not bool(out['incomplete']) and sum(stats['fault_shots']) == 0,
+          f'lut physics (sigma={model.sigma}) faults: '
+          f'{stats["fault_shots"]}')
+    fired = torch.arange(cfg.max_meas, device=DEV)[None, None, :] \
+        < out['n_meas'][..., None]
+    check(bool((out['meas_bits_valid'] | ~fired).all()),
+          f'lut physics (sigma={model.sigma}) left windows unresolved')
+    agree = float((out['meas_bits'][:, :, 0] == init).float().mean())
+    print(f"lut physics (sigma={model.sigma}, engine='auto' -> '{eng}'): {B} "
+          f'shots in {noisy_dt:.3f} s, epochs {epochs}, K2 launches '
+          f"{counts['resolve_windows']}, no fault, every window resolved; "
+          f'first readout equal to the initial state on {agree:.5f} of the '
+          f'bits; stats {json.dumps(stats)} on {env["smi"]}')
+    return dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=worst, launches=1, batch_s=dt,
+                noisy_s=noisy_dt, noisy_epochs=epochs)
+
+
 def device_kernel_times(fn) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only);
     returns its wall time in s and ``{kernel name: [device us, count]}``,
@@ -1671,6 +2175,34 @@ def phase_cuda_vs_cpu(mp):
                   "CUDA vs CPU, engine='pallas'")
     print(f"CUDA vs CPU, simulate_batch(engine='pallas'), B={B}: every key "
           f'identical')
+    # the 'lut' fabric's three paths at a small batch
+    import dataclasses
+    from distributed_processor_tpu_torch.models import qec
+    Bl = LUT['cpu_batch']
+    rng = np.random.default_rng(8)
+    n, R = LUT['n_data'], LUT['rounds']
+    for label, mp_l, cfg_l in lut_workloads() + [
+            (f'QEC {R} rounds ({n} cores)',
+             qec.qec_multiround_machine_program(n, R), qec.qec_config(n, R))]:
+        bits = rng.integers(0, 2, (Bl, mp_l.n_cores, cfg_l.max_meas))
+        cfg = dataclasses.replace(cfg_l, engine='pallas',
+                                  opcode_histogram=True)
+        outs = {d: simulate_batch(mp_l, bits, cfg=cfg, device=d)
+                for d in (DEV, 'cpu')}
+        _max_abs_diff({k: v.cpu() for k, v in outs[DEV].items()},
+                      outs['cpu'], f"CUDA vs CPU, lut {label}")
+        print(f"CUDA vs CPU, lut {label}, simulate_batch(engine='pallas'), "
+              f'B={Bl}: every key identical')
+    mp_p, cfg_p = lut_physics_program()
+    init = (np.arange(Bl)[:, None] >> np.arange(n)) & 1
+    outs = {d: run_physics_batch(mp_p, model, 3, Bl, init_states=init,
+                                 cfg=dataclasses.replace(cfg_p,
+                                                         engine='fused'),
+                                 device=d) for d in (DEV, 'cpu')}
+    _max_abs_diff({k: v.cpu() for k, v in outs[DEV].items()}, outs['cpu'],
+                  "CUDA vs CPU, lut physics engine='fused'")
+    print(f"CUDA vs CPU, lut physics (repetition round, engine='fused', "
+          f'sigma=0), B={Bl}: every key identical')
 
 
 def phase_sweep(mp, env):
@@ -1727,6 +2259,10 @@ def main() -> int:
     k3['launches'] = timed(phase_k3_path, mp, env)
     k1_block['launches'] = timed(phase_loop_path, loop_mp, env)
     torch.cuda.empty_cache()
+    lut_span = timed(phase_lut_span, env)
+    lut_block = timed(phase_lut_block, env)
+    lut_phys = timed(phase_lut_physics, env)
+    torch.cuda.empty_cache()
     counts = timed(phase_render_path, env)
     k4['launches'] = counts['render_shot']
     k5['launches'] = counts['demod_iq']
@@ -1734,6 +2270,19 @@ def main() -> int:
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)
     print(f'[all phases: {time.perf_counter() - t_start:.1f} s]')
+    print('lut paths (ms; events / device; launches on the path): '
+          + '; '.join(f'K1 span, {label}: {r["ms"]:.4f} / '
+                      f'{_device_note(r["dev_ms"])}, one thread per lane '
+                      f'{r["lane_ms"]:.4f} / {_device_note(r["lane_dev_ms"])}'
+                      f', plain {r["plain_ms"]:.3f}, bound '
+                      f'{r["bound_ms"]:.4f} ({r["bound_by"]}), launches '
+                      f'{r["launches"]}' for label, r in lut_span.items())
+          + f'; K1 block: device {lut_block["dev_ms"]:.5f} per launch, '
+          f'bound {lut_block["bound_ms"]:.6f}, launches '
+          f'{lut_block["launches"]}; K3: {lut_phys["ms"]:.4f} / '
+          f'{_device_note(lut_phys["dev_ms"])}, plain '
+          f'{lut_phys["plain_ms"]:.3f}, bound {lut_phys["bound_ms"]:.4f}, '
+          f'launches {lut_phys["launches"]} on {env["smi"]}')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'library_ms')

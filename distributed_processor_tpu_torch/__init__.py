@@ -21,7 +21,11 @@ compile stack.  Layers, named as in the JAX package:
   the run's records) and its plain torch version
 * :mod:`.ops.demod` — readout demodulation, the kernel K5
   (``csrc/demod.cu``) and its plain version, and state discrimination
-* :mod:`.models.readout` — sampled measurement bits and IQ clouds
+* :mod:`.ops.fabric` — the syndrome LUT of the ``'lut'`` measurement
+  fabric (``MeasLUT``), which every engine serves time-indexed
+* :mod:`.models.readout` — sampled measurement bits and IQ clouds;
+  :mod:`.models.repetition`, :mod:`.models.qec` — the QEC workloads on
+  the ``'lut'`` fabric
 * :mod:`.simulator` — the ``Simulator`` facade: compile, run, render
   waveforms, demodulate
 * :mod:`.parallel` — per-batch statistics and the single-device sweep

@@ -55,10 +55,12 @@
 // pitch, 32 + 32 / C, keeps the staging threads on 32 banks as well; the
 // register file never lives in thread-local memory.  After the rows, the
 // tile goes back the same way.  The leaves that rows write by slot stay in
-// global memory and are written in place: rst_time, meas_avail (read by
-// fproc), the pulse records rec [B, C, 9, P] and the opcode histogram; in
-// span mode (out of place) the tile's segment of each is first copied
-// in -> out with 16-byte loads.  In block mode a tile first reads pc and
+// global memory and are written in place: rst_time, meas_avail and
+// meas_time (read by fproc), the pulse records rec [B, C, 9, P] and the
+// opcode histogram; in span mode (out of place) the tile's segment of each
+// is first copied in -> out with 16-byte loads, before any row runs (so
+// meas_time's INT32_MAX fill reaches the output of a lane that measures
+// fewer than M times).  In block mode a tile first reads pc and
 // done; only the lanes that run a body are staged and written back, and
 // a tile with none is left untouched.  The program table is staged in
 // shared memory beside the tile where it fits (21 KB at the headline),
@@ -66,10 +68,35 @@
 // pitch) is the wrapper's tile_geometry; a tile that would not fit in
 // shared memory falls back to one thread per lane.
 //
+// The 'lut' fabric (hdl/fproc_lut.sv + meas_lut.sv).  A LUT read gathers
+// the bits of the masked cores of its shot, so it needs other lanes' state
+// (lut_read): each masked core's measurement count, and its rows of
+// production clocks (meas_time, the trigger time of each slot), of
+// availability and of bits.  The TPU kernel applies index i to every core
+// before i + 1, and the eligibility rule (interpreter._lut_span_reject)
+// puts every masked core's possible measurement below the first read index
+// min_read, so at a read those rows are final.  The kernels here do not
+// keep that order: a warp walks one core's lanes at its own pace.  So a
+// span pass under the fabric splits at min_read (P_MIN_READ): first every
+// lane retires the indices below it, then, after a barrier, the rest.  The
+// tile kernel holds every core of its shots, so the barrier is a
+// __syncthreads() between the two phases of the item loop, the counts read
+// from the staged column.  In the one-thread-per-lane span kernels the
+// first THREADS - THREADS % C threads of a block hold whole shots; each
+// lane publishes its count to the output leaf before the barrier, and
+// reads the others' from there.  A lane that jumps from below min_read past it waits at its
+// target for the second phase.  Block bodies hold no fproc read (it ends a
+// block), so block mode only writes meas_time at a measurement.
+//
 // One thread per lane (exec_span_kernel, exec_blocks_kernel): the first
 // design, which K3 runs and K1 falls back to — regs[16] in a
 // thread-local array, each lane reading its own rows with warp-strided
 // loads, the program in shared memory, a pulse's duration by division.
+// In span mode each warp first copies its 32 lanes' slot rows in -> out
+// together (copy_slot_rows), so that no thread strides alone through a
+// row of pulse records, 36 P bytes.  Every kernel
+// is specialised on the fabric: a sticky carry runs code with neither
+// the meas_time write nor the LUT read.
 //
 // Block mode.  The TPU code launches one masked pallas_call per
 // deduplicated body per iteration of the block engine; here one launch per
@@ -140,7 +167,8 @@ enum Field {
 // L_DONE, L_MEAS_VALID and L_PHYS_WAIT (one byte each)
 enum Leaf {
   L_PC, L_REGS, L_TIME, L_OFFSET, L_DONE, L_ERR, L_FAULT, L_PP, L_N_PULSES,
-  L_N_RESETS, L_RST_TIME, L_N_MEAS, L_MEAS_AVAIL, L_REC, L_OP_HIST,
+  L_N_RESETS, L_RST_TIME, L_N_MEAS, L_MEAS_AVAIL, L_MEAS_TIME, L_REC,
+  L_OP_HIST,
   L_MEAS_STATE, L_MEAS_AMP, L_MEAS_PHASE, L_MEAS_FREQ, L_MEAS_ENV,
   L_MEAS_GTIME, L_QTURNS, L_MEAS_BITS, L_MEAS_VALID, L_PHYS_WAIT, N_LEAVES
 };
@@ -149,16 +177,18 @@ enum Leaf {
 enum Param {
   P_B, P_C, P_N, P_M, P_R, P_P, P_E, P_MEAS_ELEM, P_MEAS_LATENCY,
   P_ALU_CLKS, P_JCOND_CLKS, P_JFPROC_CLKS, P_REGWRITE_CLKS, P_LOAD_CLKS,
-  P_X90_AMP, P_DRIVE_ELEM, P_N_ADDRS, P_W, P_WP, N_PARAMS
+  P_X90_AMP, P_DRIVE_ELEM, P_N_ADDRS, P_W, P_WP, P_MIN_READ, P_LUT_N,
+  N_PARAMS
 };
 
 constexpr int N_REGS = 16, N_PP = 5, N_REC = 9;
 constexpr int STICKY_RACE_MARGIN = 2;
 constexpr int ERR_MISSED_TRIG = 1, ERR_PULSE_OVERFLOW = 2,
-              ERR_MEAS_OVERFLOW = 4, ERR_STICKY_RACE = 64, ERR_CW_MEAS = 128;
-constexpr int FAULT_PULSE_OVERFLOW = 8, FAULT_MEAS_OVERFLOW = 16,
-              FAULT_RESET_OVERFLOW = 32, FAULT_ILLEGAL_OP = 64,
-              FAULT_JUMP_OOB = 128;
+              ERR_MEAS_OVERFLOW = 4, ERR_FPROC_DEADLOCK = 8,
+              ERR_STICKY_RACE = 64, ERR_CW_MEAS = 128;
+constexpr int FAULT_FPROC_STARVED = 4, FAULT_PULSE_OVERFLOW = 8,
+              FAULT_MEAS_OVERFLOW = 16, FAULT_RESET_OVERFLOW = 32,
+              FAULT_ILLEGAL_OP = 64, FAULT_JUMP_OOB = 128;
 constexpr size_t MAX_SMEM_PROG = 200 * 1024;
 constexpr int THREADS = 256;
 // the tile kernel: 32 shots per warp, at most 16 warps per block
@@ -238,16 +268,61 @@ __device__ __forceinline__ int* out_i(const Leaves& lv, int leaf) {
   return static_cast<int*>(lv.out[leaf]);
 }
 
-// copy one lane's row of `width` elements of an updated-by-slot leaf
+// one lane's row of `width` elements of an updated-by-slot leaf in the
+// output, copied there from the input when `copy` and the two differ
 template <typename T>
 __device__ __forceinline__ T* lane_row(const Leaves& lv, int leaf,
-                                       long long lane, int width) {
+                                       long long lane, int width,
+                                       bool copy) {
   if (lv.out[leaf] == nullptr) return nullptr;
   const T* src = static_cast<const T*>(lv.in[leaf]) + lane * width;
   T* dst = static_cast<T*>(lv.out[leaf]) + lane * width;
-  if (src != dst)
+  if (copy && src != dst)
     for (int k = 0; k < width; ++k) dst[k] = src[k];
   return dst;
+}
+
+// the tile's segment of a slot leaf of `w` words per lane, in -> out (span
+// mode); 16-byte loads where both sides are aligned
+__device__ __forceinline__ void tile_copy(const Leaves& lv, int leaf, int w,
+                                          long long l0, int n) {
+  if (lv.out[leaf] == nullptr || lv.in[leaf] == lv.out[leaf]) return;
+  const int* src = in_i(lv, leaf) + l0 * w;
+  int* dst = out_i(lv, leaf) + l0 * w;
+  const int cnt = n * w;
+  int head = 0;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+    const int n4 = cnt >> 2;
+    for (int e = threadIdx.x; e < n4; e += blockDim.x)
+      reinterpret_cast<int4*>(dst)[e] = reinterpret_cast<const int4*>(src)[e];
+    head = n4 << 2;
+  }
+  for (int e = head + threadIdx.x; e < cnt; e += blockDim.x) dst[e] = src[e];
+}
+
+// threads `tid` of `nt` copy `bytes` bytes at byte `off` of a leaf in ->
+// out: 16 bytes a thread where both sides are aligned, else 4 or 1 (one
+// loop: kept short, the copy costs the one-thread-per-lane kernels no
+// registers the row interpreter needs)
+__device__ __forceinline__ void seg_copy(const Leaves& lv, int leaf,
+                                         size_t off, size_t bytes, int tid,
+                                         int nt) {
+  if (lv.out[leaf] == nullptr || lv.in[leaf] == lv.out[leaf]) return;
+  const char* src = static_cast<const char*>(lv.in[leaf]) + off;
+  char* dst = static_cast<char*>(lv.out[leaf]) + off;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(dst);
+  const size_t unit = (a & 15) == 0 ? 16 : (a & 3) == 0 ? 4 : 1;
+  const size_t n = bytes / unit;
+  for (size_t e = tid; e < n; e += nt) {
+    if (unit == 16)
+      reinterpret_cast<int4*>(dst)[e] = reinterpret_cast<const int4*>(src)[e];
+    else if (unit == 4)
+      reinterpret_cast<int*>(dst)[e] = reinterpret_cast<const int*>(src)[e];
+    else
+      dst[e] = src[e];
+  }
+  for (size_t e = n * unit + tid; e < bytes; e += nt) dst[e] = src[e];
 }
 
 // 2-class threshold of the sigma = 0 sums g_s * e (physics
@@ -278,10 +353,25 @@ struct Lane {
   int pp[N_PP];
   int pc, time, offset, err, fault, n_pulses, n_resets, n_meas, qturns;
   bool done;
-  int *rst_time, *meas_avail, *rec, *op_hist;
+  int *rst_time, *meas_avail, *meas_time, *rec, *op_hist;
   int *m_state, *m_amp, *m_phase, *m_freq, *m_env, *m_gtime, *bits;
   uint8_t* valid;
   const int* bits_rd;
+};
+
+// what a LUT read sees of the other cores of its shot (the 'lut' fabric):
+// producer k's measurement count at n_meas[k * n_stride], and its [M]
+// rows of production clocks, availability, bits and validity at k * M of
+// the shot's planes.  `lut`: the address shift of each of the C cores (-1:
+// not in the mask), then the table; null under the sticky fabric.
+struct Peers {
+  const int* lut;
+  const int* n_meas;
+  int n_stride;
+  const int* mtime;
+  const int* mavail;
+  const int* bits;
+  const uint8_t* valid;   // null: every bit valid (injected bits)
 };
 
 // K3's sigma = 0 readout: energy prefix rows, responses and envelope
@@ -294,29 +384,56 @@ struct Readout {
   float amp_scale;
 };
 
-// read one lane in (copying its slot rows in -> out when they differ)
+// the slot leaves' rows of lanes [l0, l0 + n), in -> out, copied by
+// threads `tid` of `nt` (in the one-thread-per-lane span kernels the warp
+// of 32 consecutive lanes, so that no thread strides alone through a row
+// of pulse records, 36 P bytes)
+template <bool FUSED>
+__device__ __forceinline__ void copy_slot_rows(const Leaves& lv,
+                                               const Params& prm,
+                                               long long l0, int n, int tid,
+                                               int nt) {
+  const int M = prm.v[P_M], R = prm.v[P_R], P = prm.v[P_P];
+  const int widths[][2] = {{L_RST_TIME, R}, {L_MEAS_AVAIL, M},
+                           {L_MEAS_TIME, M}, {L_REC, N_REC * P},
+                           {L_OP_HIST, N_KINDS}, {L_MEAS_STATE, M},
+                           {L_MEAS_AMP, M}, {L_MEAS_PHASE, M},
+                           {L_MEAS_FREQ, M}, {L_MEAS_ENV, M},
+                           {L_MEAS_GTIME, M}, {L_MEAS_BITS, M}};
+  for (int k = 0; k < (FUSED ? 12 : 5); ++k)
+    seg_copy(lv, widths[k][0], (size_t)l0 * widths[k][1] * 4,
+             (size_t)n * widths[k][1] * 4, tid, nt);
+  if (FUSED)
+    seg_copy(lv, L_MEAS_VALID, (size_t)l0 * M, (size_t)n * M, tid, nt);
+}
+
+// read one lane in (copying its slot rows in -> out when they differ,
+// unless `copied`: copy_slot_rows moved them)
 template <bool FUSED>
 __device__ __forceinline__ void load_lane(Lane& s, int* regs, long long lane,
                                           const Leaves& lv, const Params& prm,
-                                          const int* __restrict__ bits_in) {
+                                          const int* __restrict__ bits_in,
+                                          bool copied) {
   const int* pv = prm.v;
   const int M = pv[P_M], R = pv[P_R], P = pv[P_P];
-  s.rst_time = lane_row<int>(lv, L_RST_TIME, lane, R);
-  s.meas_avail = lane_row<int>(lv, L_MEAS_AVAIL, lane, M);
-  s.rec = lane_row<int>(lv, L_REC, lane, N_REC * P);
-  s.op_hist = lane_row<int>(lv, L_OP_HIST, lane, N_KINDS);
+  const bool copy = !copied;
+  s.rst_time = lane_row<int>(lv, L_RST_TIME, lane, R, copy);
+  s.meas_avail = lane_row<int>(lv, L_MEAS_AVAIL, lane, M, copy);
+  s.meas_time = lane_row<int>(lv, L_MEAS_TIME, lane, M, copy);
+  s.rec = lane_row<int>(lv, L_REC, lane, N_REC * P, copy);
+  s.op_hist = lane_row<int>(lv, L_OP_HIST, lane, N_KINDS, copy);
   s.m_state = s.m_amp = s.m_phase = s.m_freq = s.m_env = s.m_gtime = nullptr;
   s.bits = nullptr;
   s.valid = nullptr;
   if (FUSED) {
-    s.m_state = lane_row<int>(lv, L_MEAS_STATE, lane, M);
-    s.m_amp = lane_row<int>(lv, L_MEAS_AMP, lane, M);
-    s.m_phase = lane_row<int>(lv, L_MEAS_PHASE, lane, M);
-    s.m_freq = lane_row<int>(lv, L_MEAS_FREQ, lane, M);
-    s.m_env = lane_row<int>(lv, L_MEAS_ENV, lane, M);
-    s.m_gtime = lane_row<int>(lv, L_MEAS_GTIME, lane, M);
-    s.bits = lane_row<int>(lv, L_MEAS_BITS, lane, M);
-    s.valid = lane_row<uint8_t>(lv, L_MEAS_VALID, lane, M);
+    s.m_state = lane_row<int>(lv, L_MEAS_STATE, lane, M, copy);
+    s.m_amp = lane_row<int>(lv, L_MEAS_AMP, lane, M, copy);
+    s.m_phase = lane_row<int>(lv, L_MEAS_PHASE, lane, M, copy);
+    s.m_freq = lane_row<int>(lv, L_MEAS_FREQ, lane, M, copy);
+    s.m_env = lane_row<int>(lv, L_MEAS_ENV, lane, M, copy);
+    s.m_gtime = lane_row<int>(lv, L_MEAS_GTIME, lane, M, copy);
+    s.bits = lane_row<int>(lv, L_MEAS_BITS, lane, M, copy);
+    s.valid = lane_row<uint8_t>(lv, L_MEAS_VALID, lane, M, copy);
   }
   s.bits_rd = FUSED ? s.bits : (bits_in ? bits_in + lane * M : nullptr);
 #pragma unroll
@@ -456,6 +573,46 @@ __device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
   s.valid[slot] = 1;
 }
 
+// the 'lut' fabric's read at request time `req` for core `c` of a shot
+// (interpreter._sl_apply_instr's span serve, hdl/fproc_lut.sv +
+// meas_lut.sv): per masked producer the newest bit produced strictly
+// before the request, slot max(#{m < n_meas : meas_time[m] < req}, 1) - 1;
+// the masked bits form the table address (LSB = the lowest masked core)
+// and bit c of the entry is the reader's data.  The planes are final here
+// (the span's split at the first read index).  Returns 1 when a masked
+// producer recorded no measurement (starved), 2 when a selected bit is not
+// valid yet (K3: phys_wait), else 0 with the data and the distribution
+// time: the latest selected availability over the mask (unwritten read as
+// 0), and 0 from any unmasked core.
+__device__ __forceinline__ int lut_read(const Peers& pr, int c, int req,
+                                        const Params& prm, int* data,
+                                        int* t_lut) {
+  const int C = prm.v[P_C], M = prm.v[P_M];
+  int addr = 0, t = INT32_MIN, masked = 0, status = 0;
+  for (int k = 0; k < C; ++k) {
+    const int sh = pr.lut[k];
+    if (sh < 0) continue;
+    ++masked;
+    const int n = pr.n_meas[k * pr.n_stride];
+    if (n == 0) status = 1;
+    const int* mt = pr.mtime + k * M;
+    int cnt = 0;
+    for (int m = 0; m < M; ++m) cnt += (m < n) & (mt[m] < req);
+    const int sel = k * M + (cnt > 0 ? cnt - 1 : 0);
+    if (pr.valid != nullptr && pr.valid[sel] == 0 && status == 0)
+      status = 2;
+    const int a = pr.mavail[sel];
+    t = max(t, a == INT32_MAX ? 0 : a);
+    addr = wadd(addr, (int)((uint32_t)pr.bits[sel] << sh));
+  }
+  if (masked < C) t = max(t, 0);
+  const int T = prm.v[P_LUT_N];
+  const int entry = addr >= 0 && addr < T ? pr.lut[C + addr] : 0;
+  *data = (entry >> min(c, 31)) & 1;
+  *t_lut = t;
+  return status;
+}
+
 // retire the instruction row `f` on core `c`'s lane `s` (register file
 // `regs`, pulse durations from `du`), the one interpreter of every
 // kernel here: one case per kind, the pulse rows tested first (most rows
@@ -463,15 +620,21 @@ __device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
 // share the row, runs that case alone.  The next pc is pc + 1 or a taken
 // jump's target, and DONE halts without advancing pc.  Returns false,
 // with the lane unchanged, when an fproc read's bit is not resolved yet
-// (K3: phys_wait).  FUSED: K3's physics mode (injected bits otherwise).
+// (K3: phys_wait).  An fproc read is the own core's sticky read, or under
+// the 'lut' fabric (`pr.lut` set) the LUT read of lut_read; a starved LUT
+// read halts the lane at the read with the deadlock and starved bits.
+// FUSED: K3's physics mode (injected bits otherwise).  LUT: the 'lut'
+// fabric's carry, whose meas_time plane a measurement writes and whose
+// reads `pr` may serve (a sticky-fabric kernel carries no code for
+// either).
 // HIST: the carry may hold pulse records or the opcode histogram (the
 // tile kernel is specialised on it; without either it carries no code
 // for them).
-template <bool FUSED, bool HIST, class Regs, class DurOf>
+template <bool FUSED, bool HIST, bool LUT, class Regs, class DurOf>
 __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
                                          const int* f, int c,
                                          const Params& prm, const DurOf& du,
-                                         const Readout& ro) {
+                                         const Readout& ro, const Peers& pr) {
   const int* pv = prm.v;
   const int kind = f[F_KIND];
   int pc_next = s.pc + 1;
@@ -522,6 +685,8 @@ __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
           s.fault |= FAULT_MEAS_OVERFLOW;
         }
         s.meas_avail[slot] = wadd(wadd(trig, dur), pv[P_MEAS_LATENCY]);
+        // the lut fabric's production clock: the trigger time
+        if (LUT && s.meas_time != nullptr) s.meas_time[slot] = trig;
         if (FUSED)
           fused_readout(s, slot, trig, env_len, du.nsamp(e, env_len), c, prm,
                         ro);
@@ -557,24 +722,40 @@ __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
       }
       case K_ALU_FPROC:
       case K_JUMP_FPROC: {
-        // own-core sticky read: the bit of the latest measurement
-        // available at the request
-        const int M = pv[P_M], req = s.time;
-        const int lo = wsub(req, STICKY_RACE_MARGIN);
-        const int hi = wadd(req, STICKY_RACE_MARGIN);
-        int m_cnt = 0;
-        bool race = false;
-        for (int m = 0; m < M; ++m) {
-          const int a = s.meas_avail[m];
-          m_cnt += a <= req;
-          race |= a > lo && a <= hi;
+        const int req = s.time;
+        int f_data = 0, t_ready = req;
+        if (LUT && pr.lut != nullptr) {
+          int t_lut = 0;
+          const int st = lut_read(pr, c, req, prm, &f_data, &t_lut);
+          if (st == 1) {
+            // starved: halted at the read, pc and time frozen
+            s.err |= ERR_FPROC_DEADLOCK;
+            s.fault |= FAULT_FPROC_STARVED;
+            s.done = true;
+            return true;
+          }
+          if (st == 2) return false;
+          t_ready = max(req, t_lut);
+        } else {
+          // own-core sticky read: the bit of the latest measurement
+          // available at the request
+          const int M = pv[P_M];
+          const int lo = wsub(req, STICKY_RACE_MARGIN);
+          const int hi = wadd(req, STICKY_RACE_MARGIN);
+          int m_cnt = 0;
+          bool race = false;
+          for (int m = 0; m < M; ++m) {
+            const int a = s.meas_avail[m];
+            m_cnt += a <= req;
+            race |= a > lo && a <= hi;
+          }
+          const int latest = m_cnt > 0 ? m_cnt - 1 : 0;
+          if (FUSED && m_cnt > 0 && s.valid[latest] == 0) return false;
+          f_data = m_cnt > 0 ? s.bits_rd[latest] : 0;
+          if (race) s.err |= ERR_STICKY_RACE;
         }
-        const int latest = m_cnt > 0 ? m_cnt - 1 : 0;
-        if (FUSED && m_cnt > 0 && s.valid[latest] == 0) return false;
-        const int f_data = m_cnt > 0 ? s.bits_rd[latest] : 0;
         const int res = alu(f[F_ALU_OP], alu_in0(regs, f), f_data);
-        if (race) s.err |= ERR_STICKY_RACE;
-        s.time = wadd(s.time, pv[P_JFPROC_CLKS]);
+        s.time = wadd(t_ready, pv[P_JFPROC_CLKS]);
         if (kind == K_ALU_FPROC) {
           const int out_reg = f[F_OUT_REG];
           if (out_reg >= 0 && out_reg < N_REGS) regs[out_reg] = res;
@@ -615,35 +796,41 @@ __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
   return true;
 }
 
-// span mode, one thread per lane (K3, and K1 where the tile would not
-// fit): run one (shot, core) lane through the program, index by index
-// along its pc
-template <bool FUSED>
-__device__ __forceinline__ void run_lane(long long lane, const Leaves& lv,
-                                         const Params& prm, const int* prog,
-                                         const int* __restrict__ spc,
-                                         const int* __restrict__ interp,
-                                         const int* __restrict__ bits_in,
-                                         const Readout& ro) {
-  const int C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
-  const int c = (int)(lane % C);
-  const DivDur du{spc + (size_t)c * E, interp + (size_t)c * E};
-  Lane s;
-  int regs[N_REGS];
-  load_lane<FUSED>(s, regs, lane, lv, prm, bits_in);
-  bool stalled = false;
-  for (int last = -1; !s.done && s.pc > last && s.pc < N;) {
+// retire lane `s` of core `c` along its pc, index by index, while the pc
+// moves forward past `last` and lies below `lim`; returns false when an
+// fproc read's bit is not resolved yet (K3: phys_wait)
+template <bool FUSED, bool LUT, class DurOf>
+__device__ __forceinline__ bool run_rows(Lane& s, int* regs, int& last,
+                                         int lim, int c, const int* prog,
+                                         const Params& prm, const DurOf& du,
+                                         const Readout& ro, const Peers& pr) {
+  const int N = prm.v[P_N];
+  while (!s.done && s.pc > last && s.pc < lim) {
     last = s.pc;
-    if (!exec_row<FUSED, true>(s, LocalRegs{regs},
+    if (!exec_row<FUSED, true, LUT>(s, LocalRegs{regs},
                                prog + ((size_t)c * N + s.pc) * N_FIELDS, c,
-                               prm, du, ro)) {
-      stalled = true;   // the bit is not resolved yet: phys_wait
-      break;
-    }
+                               prm, du, ro, pr))
+      return false;
   }
-  store_lane<FUSED>(s, regs, lane, lv);
-  if (FUSED)
-    static_cast<uint8_t*>(lv.out[L_PHYS_WAIT])[lane] = stalled ? 1 : 0;
+  return true;
+}
+
+// what a LUT read of lane `lane` (core `c`) sees of its shot's other
+// lanes in the one-thread-per-lane kernels: their counts and planes in
+// the output leaves
+template <bool FUSED>
+__device__ __forceinline__ Peers lane_peers(const Leaves& lv, long long lane,
+                                            int c, const Params& prm,
+                                            const int* bits_in,
+                                            const int* lut) {
+  if (lut == nullptr) return Peers{};
+  const long long first = lane - c;   // the shot's core 0
+  const long long row = first * prm.v[P_M];
+  return Peers{lut, out_i(lv, L_N_MEAS) + first, 1,
+               out_i(lv, L_MEAS_TIME) + row, out_i(lv, L_MEAS_AVAIL) + row,
+               FUSED ? out_i(lv, L_MEAS_BITS) + row : bits_in + row,
+               FUSED ? static_cast<const uint8_t*>(lv.out[L_MEAS_VALID]) + row
+                     : nullptr};
 }
 
 // stage the [C, N, N_FIELDS] program table in shared memory when it fits
@@ -658,18 +845,71 @@ __device__ __forceinline__ const int* stage_program(const int* gprog,
   return sprog;
 }
 
-template <bool FUSED>
+// span mode, one thread per lane (K3, and K1 where the tile would not
+// fit): each lane walks the program index by index along its pc.  A block
+// holds whole shots (blockDim.x / C of them on its first threads; the rest
+// only help copy the slot rows) and strides over groups of them.  Under the 'lut' fabric
+// (`lut` set) the pass splits at the first read index P_MIN_READ: every
+// lane of the block retires the indices below it and publishes its
+// measurement count, the block synchronises, and the rest of the program
+// runs, its LUT reads over final planes of the shot's masked cores (the
+// eligibility rule puts every masked core's measurements below the split).
+template <bool FUSED, bool LUT>
 __global__ void __launch_bounds__(THREADS) exec_span_kernel(
     Leaves lv, Params prm, const int* __restrict__ gprog,
     const int* __restrict__ spc, const int* __restrict__ interp,
-    const int* __restrict__ bits_in, Readout ro, int prog_in_smem) {
+    const int* __restrict__ bits_in, Readout ro, const int* __restrict__ lut,
+    int prog_in_smem) {
   extern __shared__ int sprog[];
   const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
-  const long long lanes = (long long)prm.v[P_B] * prm.v[P_C];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       lane < lanes; lane += stride)
-    run_lane<FUSED>(lane, lv, prm, prog, spc, interp, bits_in, ro);
+  const int C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
+  const int split = prm.v[P_MIN_READ];
+  const bool two = LUT && lut != nullptr && split < N;
+  const long long lanes = (long long)prm.v[P_B] * C;
+  // whole shots per block (the launch takes one thread per lane, in no
+  // shot order, only for C > THREADS, which the split refuses)
+  const int per_block =
+      C <= (int)blockDim.x ? blockDim.x - blockDim.x % C : blockDim.x;
+  for (long long base = (long long)blockIdx.x * per_block; base < lanes;
+       base += (long long)gridDim.x * per_block) {
+    const long long lane = base + threadIdx.x;
+    const bool act = threadIdx.x < per_block && lane < lanes;
+    const int c = (int)(lane % C);
+    const DivDur du{spc + (size_t)c * E, interp + (size_t)c * E};
+    {
+      // the warp's 32 consecutive lanes' slot rows, in -> out
+      const long long w0 = base + (threadIdx.x & ~31u);
+      const int nw = (int)max(0LL, min(min(w0 + 32, base + per_block),
+                                       lanes) - w0);
+      copy_slot_rows<FUSED>(lv, prm, w0, nw, threadIdx.x & 31, 32);
+      __syncwarp();
+    }
+    Lane s;
+    int regs[N_REGS];
+    int last = -1;
+    bool ok = true;
+    if (act) {
+      load_lane<FUSED>(s, regs, lane, lv, prm, bits_in, true);
+      ok = run_rows<FUSED, LUT>(s, regs, last, two ? split : N, c, prog,
+                                prm, du, ro, Peers{});
+    }
+    if (two) {
+      // the LUT reads below read the shot's counts and planes
+      if (act) out_i(lv, L_N_MEAS)[lane] = s.n_meas;
+      __syncthreads();
+      if (act && ok) {
+        last = max(last, split - 1);
+        ok = run_rows<FUSED, LUT>(s, regs, last, N, c, prog, prm, du, ro,
+                                  lane_peers<FUSED>(lv, lane, c, prm,
+                                                    bits_in, lut));
+      }
+    }
+    if (act) {
+      store_lane<FUSED>(s, regs, lane, lv);
+      // the bit is not resolved yet: phys_wait
+      if (FUSED) static_cast<uint8_t*>(lv.out[L_PHYS_WAIT])[lane] = !ok;
+    }
+  }
 }
 
 // block mode, one thread per lane (where the tile would not fit): every
@@ -678,6 +918,7 @@ __global__ void __launch_bounds__(THREADS) exec_span_kernel(
 // rows [start, start + length) of its core's table, with pc advancing by
 // one per retired row; every other lane is left untouched.  The carry is
 // updated in place.
+template <bool LUT>
 __global__ void __launch_bounds__(THREADS) exec_blocks_kernel(
     Leaves lv, Params prm, const int* __restrict__ gprog,
     const int* __restrict__ spc, const int* __restrict__ interp,
@@ -702,11 +943,11 @@ __global__ void __launch_bounds__(THREADS) exec_blocks_kernel(
     const DivDur du{spc + (size_t)c * E, interp + (size_t)c * E};
     Lane s;
     int regs[N_REGS];
-    load_lane<false>(s, regs, lane, lv, prm, nullptr);
+    load_lane<false>(s, regs, lane, lv, prm, nullptr, false);
     for (int r = 0; r < length && !s.done; ++r)
-      exec_row<false, true>(s, LocalRegs{regs},
+      exec_row<false, true, LUT>(s, LocalRegs{regs},
                             prog + ((size_t)c * N + start + r) * N_FIELDS, c,
-                            prm, du, none);
+                            prm, du, none, Peers{});
     store_lane<false>(s, regs, lane, lv);
   }
 }
@@ -727,24 +968,6 @@ __host__ __device__ constexpr int scalar_leaf(int q) {
 struct Tile {
   int sub, warps, kst, pitch;
 };
-
-// the tile's segment of a slot leaf of `w` words per lane, in -> out
-// (span mode); 16-byte loads where both sides are aligned
-__device__ __forceinline__ void tile_copy(const Leaves& lv, int leaf, int w,
-                                          long long l0, int n) {
-  if (lv.out[leaf] == nullptr || lv.in[leaf] == lv.out[leaf]) return;
-  const int* src = in_i(lv, leaf) + l0 * w;
-  int* dst = out_i(lv, leaf) + l0 * w;
-  const int cnt = n * w;
-  int head = 0;
-  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
-    const int n4 = cnt >> 2;
-    for (int e = threadIdx.x; e < n4; e += blockDim.x)
-      reinterpret_cast<int4*>(dst)[e] = reinterpret_cast<const int4*>(src)[e];
-    head = n4 << 2;
-  }
-  for (int e = head + threadIdx.x; e < cnt; e += blockDim.x) dst[e] = src[e];
-}
 
 // stage the tile's lanes in (IN) or out: consecutive threads on
 // consecutive lanes of the leaves' own order, each thread moving every
@@ -889,6 +1112,8 @@ __device__ __forceinline__ void tile_load_lane(Lane& s, long long lane,
                                   : nullptr;
   s.meas_avail = lv.out[L_MEAS_AVAIL] ? out_i(lv, L_MEAS_AVAIL) + lane * M
                                       : nullptr;
+  s.meas_time = lv.out[L_MEAS_TIME] ? out_i(lv, L_MEAS_TIME) + lane * M
+                                    : nullptr;
   s.rec = lv.out[L_REC] ? out_i(lv, L_REC) + lane * N_REC * P : nullptr;
   s.op_hist = lv.out[L_OP_HIST] ? out_i(lv, L_OP_HIST) + lane * N_KINDS
                                 : nullptr;
@@ -941,12 +1166,13 @@ __host__ __device__ __forceinline__ size_t tile_words(const Tile& tg, int C,
 // the program table staged in shared memory beside the tile (else read
 // through L1).  HIST: the carry holds pulse records or the opcode
 // histogram.
-template <bool BLOCKS, bool PROG_SMEM, bool HIST>
+template <bool BLOCKS, bool PROG_SMEM, bool HIST, bool LUT>
 __global__ void __launch_bounds__(TILE_MAX_THREADS, 2) exec_tile_kernel(
     Leaves lv, Params prm, Tile tg, const int* __restrict__ gprog,
     const int* __restrict__ spc,
     const int* __restrict__ interp, const int* __restrict__ bits_in,
-    const int* __restrict__ bid_at, const int* __restrict__ bodies) {
+    const int* __restrict__ bid_at, const int* __restrict__ bodies,
+    const int* __restrict__ lut) {
   extern __shared__ int4 smem4[];   // 16-byte aligned
   int* smem = reinterpret_cast<int*>(smem4);
   const int B = prm.v[P_B], C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
@@ -993,6 +1219,10 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 2) exec_tile_kernel(
   const long long n_tiles =
       ((long long)B + tg.sub * TILE_SHOTS - 1) / (tg.sub * TILE_SHOTS);
   const int warp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  // span mode under the 'lut' fabric: two phases split at the first read
+  // index, every lane of the tile retiring the indices below it first
+  const int split = prm.v[P_MIN_READ], M = prm.v[P_M];
+  const int phases = !BLOCKS && LUT && lut != nullptr && split < N ? 2 : 1;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long l0 = tile * L;
     const int n = (int)min((long long)L, lanes - l0);
@@ -1003,53 +1233,69 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 2) exec_tile_kernel(
         continue;
     } else {
       tile_copy(lv, L_RST_TIME, prm.v[P_R], l0, n);
-      tile_copy(lv, L_MEAS_AVAIL, prm.v[P_M], l0, n);
+      tile_copy(lv, L_MEAS_AVAIL, M, l0, n);
+      tile_copy(lv, L_MEAS_TIME, M, l0, n);
       tile_copy(lv, L_REC, N_REC * prm.v[P_P], l0, n);
       tile_copy(lv, L_OP_HIST, N_KINDS, l0, n);
       tile_stage<true>(lv, regs_s, pp_s, sc_s, kst, slot, nullptr, l0, n);
     }
-    __syncthreads();
-    for (int item = warp; item < items; item += tg.warps) {
-      const int j = item / C, c = item - j * C;
-      const int l = (j * TILE_SHOTS + ln) * C + c;
-      const long long lane = l0 + l;
-      const int sl = item * tg.pitch + ln;
-      const TileRegs regs{regs_s + sl, kst};
-      const int* row0 = prog + (size_t)c * N * N_FIELDS;
-      const TabDur du{dur + c * DUR_ELEMS};
-      const int bid = BLOCKS && l < n ? bid_l[l] : -1;
-      const bool run = l < n && (!BLOCKS || bid >= 0);
-      Lane s;
-      if (run)
-        tile_load_lane(s, lane, sl, kst, pp_s, sc_s, lv, prm,
-                       BLOCKS ? nullptr : bits_in);
-      if (BLOCKS) {
-        // one body at a time, for the lanes whose block id selects it
-        bool pend = run;
-        for (unsigned m; (m = __ballot_sync(FULL, pend)) != 0;) {
-          const int b = __shfl_sync(FULL, bid, __ffs(m) - 1);
-          if (pend && bid == b) {
-            const int start = bodies[2 * b], length = bodies[2 * b + 1];
-            for (int r = 0; r < length && !s.done; ++r)
-              exec_row<false, HIST>(s, regs,
-                                    row0 + (size_t)(start + r) * N_FIELDS, c,
-                                    prm, du, none);
-            pend = false;
+    for (int ph = 0; ph < phases; ++ph) {
+      // the tile is staged (phase 0), or phase 0 has stored every lane
+      __syncthreads();
+      const int lim = ph + 1 < phases ? split : N;
+      for (int item = warp; item < items; item += tg.warps) {
+        const int j = item / C, c = item - j * C;
+        const int l = (j * TILE_SHOTS + ln) * C + c;
+        const long long lane = l0 + l;
+        const int sl = item * tg.pitch + ln;
+        const TileRegs regs{regs_s + sl, kst};
+        const int* row0 = prog + (size_t)c * N * N_FIELDS;
+        const TabDur du{dur + c * DUR_ELEMS};
+        const int bid = BLOCKS && l < n ? bid_l[l] : -1;
+        const bool run = l < n && (!BLOCKS || bid >= 0);
+        Lane s;
+        Peers pr{};
+        if (run) {
+          tile_load_lane(s, lane, sl, kst, pp_s, sc_s, lv, prm,
+                         BLOCKS ? nullptr : bits_in);
+          if (LUT && ph == 1) {
+            // the shot's other cores: counts in the staged column (items
+            // C apart hold one shot's cores), planes in the output leaves
+            const long long row = (lane - c) * M;
+            pr = Peers{lut, sc_s + S_N_MEAS * kst + sl - c * tg.pitch,
+                       tg.pitch, out_i(lv, L_MEAS_TIME) + row,
+                       out_i(lv, L_MEAS_AVAIL) + row, bits_in + row, nullptr};
           }
         }
-      } else {
-        // ascending over the indices the live lanes stand at
-        for (int cur = -1;;) {
-          const bool live = run && !s.done && s.pc > cur && s.pc < N;
-          const int i = __reduce_min_sync(FULL, live ? s.pc : INT32_MAX);
-          if (i == INT32_MAX) break;
-          if (live && s.pc == i)
-            exec_row<false, HIST>(s, regs, row0 + (size_t)i * N_FIELDS, c,
-                                  prm, du, none);
-          cur = i;
+        if (BLOCKS) {
+          // one body at a time, for the lanes whose block id selects it
+          bool pend = run;
+          for (unsigned m; (m = __ballot_sync(FULL, pend)) != 0;) {
+            const int b = __shfl_sync(FULL, bid, __ffs(m) - 1);
+            if (pend && bid == b) {
+              const int start = bodies[2 * b], length = bodies[2 * b + 1];
+              for (int r = 0; r < length && !s.done; ++r)
+                exec_row<false, HIST, LUT>(s, regs,
+                                      row0 + (size_t)(start + r) * N_FIELDS, c,
+                                      prm, du, none, pr);
+              pend = false;
+            }
+          }
+        } else {
+          // ascending over the indices the live lanes stand at
+          for (int cur = ph ? split - 1 : -1;;) {
+            const bool live = run && !s.done && s.pc > cur && s.pc < lim;
+            const int i = __reduce_min_sync(FULL, live ? s.pc : INT32_MAX);
+            if (i == INT32_MAX) break;
+            if (live && s.pc == i)
+              exec_row<false, HIST, LUT>(s, regs,
+                                         row0 + (size_t)i * N_FIELDS, c, prm,
+                                         du, none, pr);
+            cur = i;
+          }
         }
+        if (run) tile_store_lane(s, sl, kst, pp_s, sc_s);
       }
-      if (run) tile_store_lane(s, sl, kst, pp_s, sc_s);
     }
     __syncthreads();
     tile_stage<false>(lv, regs_s, pp_s, sc_s, kst, slot,
@@ -1128,10 +1374,11 @@ Params params_of(const int* params) {
 
 // the one-thread-per-lane kernels' launch (K3, and K1 where the tile
 // would not fit): a grid-stride loop over the B * C lanes, each block
-// staging the program in shared memory where it fits
+// staging the program in shared memory where it fits.  `threads`: the
+// block size
 template <typename Kernel, typename... Args>
-int launch_lanes(Kernel kernel, const Params& prm, cudaStream_t stream,
-                 Args... args) {
+int launch_lanes(Kernel kernel, const Params& prm, int threads,
+                 cudaStream_t stream, Args... args) {
   const long long lanes = (long long)prm.v[P_B] * prm.v[P_C];
   const size_t prog_bytes =
       (size_t)prm.v[P_C] * prm.v[P_N] * N_FIELDS * sizeof(int);
@@ -1139,23 +1386,34 @@ int launch_lanes(Kernel kernel, const Params& prm, cudaStream_t stream,
   const size_t smem = in_smem ? prog_bytes : 0;
   int sms = 0, per_sm = 0;
   const cudaError_t rc = occupancy(reinterpret_cast<const void*>(kernel),
-                                   THREADS, smem, &sms, &per_sm);
+                                   threads, smem, &sms, &per_sm);
   if (rc != cudaSuccess) return (int)rc;
-  const long long blocks = (lanes + THREADS - 1) / THREADS;
+  const long long blocks = (lanes + threads - 1) / threads;
   const int grid =
       (int)(blocks < (long long)sms * 8 ? blocks : (long long)sms * 8);
-  kernel<<<grid, THREADS, smem, stream>>>(args..., in_smem);
+  kernel<<<grid, threads, smem, stream>>>(args..., in_smem);
   return (int)cudaGetLastError();
+}
+
+// the span kernels' block size: THREADS, of which the kernel gives whole
+// shots of C lanes to the first THREADS - THREADS % C; past THREADS cores
+// one thread per lane in no shot order, which a split pass (the 'lut'
+// fabric with a read) cannot take (-1)
+int span_threads(const Params& prm, const int* lut) {
+  return prm.v[P_C] > THREADS && lut != nullptr &&
+                 prm.v[P_MIN_READ] < prm.v[P_N]
+             ? -1
+             : THREADS;
 }
 
 // the tile kernel's launch: a persistent grid of as many blocks as the
 // card holds at once, each striding over the tiles
-template <bool BLOCKS, bool PROG_SMEM, bool HIST>
+template <bool BLOCKS, bool PROG_SMEM, bool HIST, bool LUT>
 int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
                 const int* prog, const int* spc, const int* interp,
                 const int* bits_in, const int* bid_at, const int* bodies,
-                size_t smem, cudaStream_t stream) {
-  const auto kernel = exec_tile_kernel<BLOCKS, PROG_SMEM, HIST>;
+                const int* lut, size_t smem, cudaStream_t stream) {
+  const auto kernel = exec_tile_kernel<BLOCKS, PROG_SMEM, HIST, LUT>;
   const int threads = tg.warps * 32;
   int sms = 0, per_sm = 0;
   const cudaError_t rc = occupancy(reinterpret_cast<const void*>(kernel),
@@ -1167,45 +1425,50 @@ int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
   const long long most = (long long)sms * per_sm;
   const int grid = (int)(n_tiles < most ? n_tiles : most);
   kernel<<<grid, threads, smem, stream>>>(lv, prm, tg, prog, spc, interp,
-                                          bits_in, bid_at, bodies);
+                                          bits_in, bid_at, bodies, lut);
   return (int)cudaGetLastError();
 }
 
 // the tile kernel with the program in shared memory where it fits beside
 // the tile and the Dur table
-template <bool BLOCKS, bool HIST>
+template <bool BLOCKS, bool HIST, bool LUT>
 int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
                 const int* prog, const int* spc, const int* interp,
                 const int* bits_in, const int* bid_at, const int* bodies,
-                cudaStream_t stream) {
+                const int* lut, cudaStream_t stream) {
   const size_t tile = tile_words(tg, prm.v[P_C], BLOCKS) * 4 +
                       (size_t)prm.v[P_C] * DUR_ELEMS * sizeof(Dur);
   const size_t prog_bytes =
       (size_t)prm.v[P_C] * prm.v[P_N] * N_FIELDS * sizeof(int) + 16;
   if (tile + prog_bytes <= MAX_SMEM_BLOCK)
-    return launch_tile<BLOCKS, true, HIST>(lv, prm, tg, prog, spc, interp,
-                                           bits_in, bid_at, bodies,
+    return launch_tile<BLOCKS, true, HIST, LUT>(lv, prm, tg, prog, spc,
+                                                interp,
+                                           bits_in, bid_at, bodies, lut,
                                            tile + prog_bytes, stream);
-  return launch_tile<BLOCKS, false, HIST>(lv, prm, tg, prog, spc, interp,
-                                          bits_in, bid_at, bodies, tile,
+  return launch_tile<BLOCKS, false, HIST, LUT>(lv, prm, tg, prog, spc,
+                                               interp,
+                                          bits_in, bid_at, bodies, lut, tile,
                                           stream);
 }
 
 // the tile kernel, specialised on whether the carry holds pulse records
-// or the opcode histogram
-template <bool BLOCKS>
+// or the opcode histogram, and on the 'lut' fabric (its meas_time plane;
+// in span mode its reads)
+template <bool BLOCKS, bool LUT>
 int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
                 const int* prog, const int* spc, const int* interp,
                 const int* bits_in, const int* bid_at, const int* bodies,
-                cudaStream_t stream) {
+                const int* lut, cudaStream_t stream) {
   if (tg.warps < 1 || tg.warps * 32 > TILE_MAX_THREADS ||
       tg.pitch < TILE_SHOTS || tg.kst < tg.sub * prm.v[P_C] * tg.pitch)
     return (int)cudaErrorInvalidValue;
   if (lv.out[L_REC] != nullptr || lv.out[L_OP_HIST] != nullptr)
-    return launch_tile<BLOCKS, true>(lv, prm, tg, prog, spc, interp, bits_in,
-                                     bid_at, bodies, stream);
-  return launch_tile<BLOCKS, false>(lv, prm, tg, prog, spc, interp, bits_in,
-                                    bid_at, bodies, stream);
+    return launch_tile<BLOCKS, true, LUT>(lv, prm, tg, prog, spc, interp,
+                                          bits_in,
+                                     bid_at, bodies, lut, stream);
+  return launch_tile<BLOCKS, false, LUT>(lv, prm, tg, prog, spc, interp,
+                                         bits_in,
+                                    bid_at, bodies, lut, stream);
 }
 
 }  // namespace
@@ -1216,34 +1479,48 @@ int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
 // reads the injected bits_in [B, C, M] int32; K3 (fused = 1) carries the
 // bits in the L_MEAS_BITS/L_MEAS_VALID leaves and reads the energy prefix
 // e2p [C, n_addrs, Wp] float32 (Wp = params[P_WP] > W), g0/g1 [C, 2]
-// float32 and addrs [n_addrs] int32.  tile: the tile's sub, warps, column
-// stride and slot pitch (ops/exec_span.py tile_geometry) for K1's tile
-// kernel, or sub = 0 for one thread per lane (K3 runs only that).
-// Returns the launch's cudaError as an int (0 = launched).
+// float32 and addrs [n_addrs] int32.  lut: under the 'lut' fabric, int32
+// [C + params[P_LUT_N]]: each core's address shift (-1: not masked), then
+// the table; the carry then holds L_MEAS_TIME and the pass splits at
+// params[P_MIN_READ]; null under the sticky fabric.  tile: the tile's sub,
+// warps, column stride and slot pitch (ops/exec_span.py tile_geometry)
+// for K1's tile kernel, or sub = 0 for one thread per lane (K3 runs only
+// that).  Returns the launch's cudaError as an int (0 = launched).
 extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
                             const unsigned long long* out_ptrs, int n_leaves,
                             const int* params, int n_params, const int* prog,
                             const int* spc, const int* interp,
                             const int* bits_in, const float* e2p,
                             const float* g0, const float* g1,
-                            const int* addrs, float amp_scale, int fused,
-                            const int* tile, void* stream) {
+                            const int* addrs, const int* lut,
+                            float amp_scale, int fused, const int* tile,
+                            void* stream) {
   const Tile tg = {tile[0], tile[1], tile[2], tile[3]};
   if (n_leaves != N_LEAVES || n_params != N_PARAMS || (fused && tg.sub != 0))
     return (int)cudaErrorInvalidValue;
   const Leaves lv = leaves(in_ptrs, out_ptrs);
   const Params prm = params_of(params);
   if ((long long)prm.v[P_B] * prm.v[P_C] == 0) return 0;
+  if (lut != nullptr && lv.out[L_MEAS_TIME] == nullptr)
+    return (int)cudaErrorInvalidValue;
   const Readout ro = {e2p, g0, g1, addrs, amp_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fused)
-    return launch_lanes(exec_span_kernel<true>, prm, s, lv, prm, prog, spc,
-                        interp, bits_in, ro);
-  if (tg.sub == 0)
-    return launch_lanes(exec_span_kernel<false>, prm, s, lv, prm, prog, spc,
-                        interp, bits_in, ro);
-  return launch_tile<false>(lv, prm, tg, prog, spc, interp, bits_in, nullptr,
-                            nullptr, s);
+  if (fused || tg.sub == 0) {
+    const int threads = span_threads(prm, lut);
+    if (threads < 0) return (int)cudaErrorInvalidConfiguration;
+    const auto kernel =
+        fused ? (lut ? exec_span_kernel<true, true>
+                     : exec_span_kernel<true, false>)
+              : (lut ? exec_span_kernel<false, true>
+                     : exec_span_kernel<false, false>);
+    return launch_lanes(kernel, prm, threads, s, lv, prm, prog, spc, interp,
+                        bits_in, ro, lut);
+  }
+  if (lut != nullptr)
+    return launch_tile<false, true>(lv, prm, tg, prog, spc, interp, bits_in,
+                                    nullptr, nullptr, lut, s);
+  return launch_tile<false, false>(lv, prm, tg, prog, spc, interp, bits_in,
+                                   nullptr, nullptr, nullptr, s);
 }
 
 // Launch one block-mode pass on `stream`, updating the carry in place:
@@ -1265,10 +1542,17 @@ extern "C" int dp_exec_blocks(const unsigned long long* ptrs, int n_leaves,
   if ((long long)prm.v[P_B] * prm.v[P_C] == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tile tg = {tile[0], tile[1], tile[2], tile[3]};
+  // a 'lut'-fabric carry: measurements write its meas_time plane
+  const bool lut = lv.out[L_MEAS_TIME] != nullptr;
   if (tg.sub == 0)
-    return launch_lanes(exec_blocks_kernel, prm, s, lv, prm, prog, spc,
-                        interp, bid_at, bodies);
-  return launch_tile<true>(lv, prm, tg, prog, spc, interp, nullptr, bid_at,
-                           bodies, s);
+    return launch_lanes(lut ? exec_blocks_kernel<true>
+                            : exec_blocks_kernel<false>,
+                        prm, THREADS, s, lv, prm, prog, spc, interp, bid_at,
+                        bodies);
+  if (lut)
+    return launch_tile<true, true>(lv, prm, tg, prog, spc, interp, nullptr,
+                                   bid_at, bodies, nullptr, s);
+  return launch_tile<true, false>(lv, prm, tg, prog, spc, interp, nullptr,
+                                  bid_at,
+                           bodies, nullptr, s);
 }
-

@@ -8,3 +8,4 @@ from .resolve import (build_energy_prefix, build_energy_tables,
                       build_fused_tables, build_prefix_tables,
                       resolve_windows_fused, resolve_windows_reference)
 from .exec_span import exec_span, exec_span_fused
+from .fabric import MeasLUT

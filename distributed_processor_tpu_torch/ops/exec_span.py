@@ -37,6 +37,12 @@ K1 runs on tiles of consecutive shots x every core, a warp per core's 32
 shots, the tile's carry staged in shared memory (:func:`tile_geometry`;
 ``csrc/exec_span.cu`` "Design"); a tile too wide for shared memory runs
 one thread per lane, K3's kernel.
+
+Under the ``'lut'`` fabric the span table carries the syndrome LUT and
+the first read index, and the span kernels (K1, K3) split their pass
+there, so that every LUT read sees final measurement planes of its
+shot's masked cores (``csrc/exec_span.cu`` "The 'lut' fabric"); the
+carry holds the ``meas_time`` plane, which the block kernel writes too.
 """
 
 from __future__ import annotations
@@ -53,8 +59,8 @@ from . import _cuda
 
 # state leaves in the order of csrc/exec_span.cu `enum Leaf`
 LEAVES = ('pc', 'regs', 'time', 'offset', 'done', 'err', 'fault', 'pp',
-          'n_pulses', 'n_resets', 'rst_time', 'n_meas', 'meas_avail', 'rec',
-          'op_hist', 'meas_state', 'meas_amp', 'meas_phase', 'meas_freq',
+          'n_pulses', 'n_resets', 'rst_time', 'n_meas', 'meas_avail',
+          'meas_time', 'rec', 'op_hist', 'meas_state', 'meas_amp', 'meas_phase', 'meas_freq',
           'meas_env', 'meas_gtime', 'qturns', 'meas_bits', 'meas_valid',
           'phys_wait')
 _BOOL_LEAVES = frozenset(('done', 'meas_valid', 'phys_wait'))
@@ -62,7 +68,8 @@ _LEAF_INDEX = {k: i for i, k in enumerate(LEAVES)}
 # scalar parameters in the order of csrc/exec_span.cu `enum Param`
 PARAMS = ('B', 'C', 'N', 'M', 'R', 'P', 'E', 'meas_elem', 'meas_latency',
           'alu_clks', 'jcond_clks', 'jfproc_clks', 'regwrite_clks',
-          'load_clks', 'x90_amp', 'drive_elem', 'n_addrs', 'W', 'Wp')
+          'load_clks', 'x90_amp', 'drive_elem', 'n_addrs', 'W', 'Wp',
+          'min_read', 'lut_n')
 
 N_REGS, N_PP, N_REC, N_KINDS = 16, 5, 9, 12
 # the largest envelope length word a pulse can latch (0xfff is CW)
@@ -72,6 +79,8 @@ _MAX_ENV_LEN = 0xffe
 # offset, err, fault, n_pulses, n_resets, n_meas, done), the shared memory
 # a block may take on the card
 TILE_SHOTS, TILE_WARPS = 32, 16
+# the one-thread-per-lane kernels' block size (csrc/exec_span.cu THREADS)
+_LANE_THREADS = 256
 N_SCALARS = 9
 SMEM_BUDGET = 227 * 1024
 
@@ -178,6 +187,10 @@ class SpanTable(NamedTuple):
     prog: torch.Tensor        # soa_np on the device
     spc: torch.Tensor         # [C, E] int32 samples per clock
     interp: torch.Tensor      # [C, E] int32 interpolation
+    # the 'lut' fabric (None under the sticky fabric): int32 [C + T], each
+    # core's address shift (-1: not in the mask), then the T-entry table
+    lut: torch.Tensor = None
+    min_read: int = 0         # the first fproc read index (N: none)
 
 
 def span_table(soa_np, spc, interp, cfg, device, fused: bool = False) \
@@ -192,8 +205,11 @@ def span_table(soa_np, spc, interp, cfg, device, fused: bool = False) \
     soa_np = np.ascontiguousarray(soa_np, np.int32)
     spc = np.ascontiguousarray(spc, np.int32)
     interp = np.ascontiguousarray(interp, np.int32)
+    lut = (tuple(bool(b) for b in cfg.lut_mask),
+           tuple(int(e) for e in cfg.lut_table)) \
+        if cfg.fabric == 'lut' else None
     bounds = (cfg.max_meas, cfg.max_resets, cfg.max_pulses,
-              cfg.x90_amp if fused else None)
+              cfg.x90_amp if fused else None, lut)
     device = torch.device(device)
     if device.type == 'cuda' and device.index is None:
         # 'cuda' and 'cuda:<current>' are one table
@@ -215,11 +231,44 @@ def _span_table_of(shape, content, geo_shape, spc_bytes, interp_bytes,
     if F != 18 or geo_shape[0] != C:
         raise ValueError(f'exec_span kernel: program shape {shape} and '
                          f'element geometry {geo_shape} do not fit')
-    max_meas, max_resets, max_pulses, x90_amp = bounds
+    max_meas, max_resets, max_pulses, x90_amp, lut = bounds
     _check_operands(spc, interp, max_meas, max_resets, max_pulses, x90_amp)
+    lut_t, min_read = None, N
+    if lut is not None:
+        lut_t, min_read = _lut_operand(soa_np, *lut)
+        lut_t = torch.as_tensor(lut_t, device=device)
     return SpanTable(soa_np, torch.as_tensor(soa_np, device=device),
                      torch.as_tensor(spc, device=device),
-                     torch.as_tensor(interp, device=device))
+                     torch.as_tensor(interp, device=device), lut_t, min_read)
+
+
+def _lut_operand(soa_np, mask, table) -> tuple:
+    """The kernels' LUT operand of a ``'lut'``-fabric program: int32 ``[C
+    + T]`` (each core's address shift, -1 where the core is not in the
+    mask, then the ``T`` table entries as int32 bit patterns) and the
+    first fproc read index of ``soa_np [C, N, 18]`` (``N``: none)."""
+    C = soa_np.shape[0]
+    mask = np.asarray(mask, bool)
+    if mask.shape != (C,) or len(table) != 1 << int(mask.sum()):
+        raise ValueError(f'exec_span kernel: a LUT of {len(table)} entries '
+                         f'over a mask of {mask.shape} does not fit {C} '
+                         f'cores (2^k entries for k masked cores)')
+    shifts = np.full(C, -1, np.int64)
+    shifts[mask] = np.arange(int(mask.sum()))
+    entries = np.asarray(table, np.int64).astype(np.uint32).view(np.int32)
+    kind = soa_np[..., 0]
+    fmask = (kind == isa.K_ALU_FPROC) | (kind == isa.K_JUMP_FPROC)
+    return np.concatenate([shifts.astype(np.int32), entries]), \
+        lut_min_read(fmask)
+
+
+def lut_min_read(fmask) -> int:
+    """The first program index holding an fproc read on any core
+    (``fmask [C, N]`` bool), or ``N`` when none does: under the ``'lut'``
+    fabric the span kernels retire every index below it on every core
+    before any LUT read."""
+    cols = np.nonzero(np.any(fmask, axis=0))[0]
+    return int(cols[0]) if len(cols) else int(fmask.shape[1])
 
 
 class BlockTable(NamedTuple):
@@ -316,7 +365,8 @@ def _launch_blocks(st: dict, table: BlockTable, cfg,
         ptrs[_LEAF_INDEX[k]] = v.data_ptr()
     rc = _blocks_fn()(
         (ctypes.c_uint64 * len(LEAVES))(*ptrs), len(LEAVES),
-        _param_values(B, C, N, table.spc.shape[1], cfg), len(PARAMS),
+        _param_values(B, C, N, table.spc.shape[1], cfg, min_read=N),
+        len(PARAMS),
         table.prog.data_ptr(), table.spc.data_ptr(),
         table.interp.data_ptr(), table.bid.data_ptr(),
         table.body_tab.data_ptr(), _tile_arg(B, C, True, per_lane),
@@ -331,7 +381,7 @@ def _kernel_fn():
     fn = _cuda.load('exec_span').dp_exec_span
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 8
+                   + [ctypes.c_void_p] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -365,7 +415,8 @@ def _leaf_shapes(B: int, C: int, cfg) -> dict:
 def _shapes_of(B: int, C: int, M: int, R: int, P: int) -> dict:
     shapes = {k: (B, C) for k in LEAVES}
     shapes.update(regs=(B, C, N_REGS), pp=(B, C, N_PP), rst_time=(B, C, R),
-                  meas_avail=(B, C, M), rec=(B, C, N_REC, P),
+                  meas_avail=(B, C, M), meas_time=(B, C, M),
+                  rec=(B, C, N_REC, P),
                   op_hist=(B, C, N_KINDS))
     for k in ('meas_state', 'meas_amp', 'meas_phase', 'meas_freq',
               'meas_env', 'meas_gtime', 'meas_bits', 'meas_valid'):
@@ -477,27 +528,42 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
         addrs = torch.as_tensor(list(fused['addrs']), dtype=torch.int32,
                                 device=device)
         amp_scale = float(fused['amp_scale'])
+    if (table.lut is not None) != (cfg.fabric == 'lut') \
+            or (table.lut is not None and 'meas_time' not in st):
+        raise ValueError(f"exec_span kernel: a run of fabric "
+                         f"{cfg.fabric!r} needs a span table built for it "
+                         f"and, under 'lut', the meas_time plane")
+    if table.lut is not None and table.min_read < N and C > _LANE_THREADS \
+            and (per_lane or fused is not None
+                 or tile_geometry(B, C, False) is None):
+        raise ValueError(f'exec_span kernel: a LUT read over {C} cores '
+                         f'needs whole shots in one block of at most '
+                         f'{_LANE_THREADS} threads')
     tile = _tile_arg(B, C, False, per_lane or fused is not None)
-    pvals = _param_values(B, C, N, E, cfg, n_addrs=n_addrs, W=W, Wp=Wp)
+    pvals = _param_values(B, C, N, E, cfg, n_addrs=n_addrs, W=W, Wp=Wp,
+                          min_read=table.min_read,
+                          lut_n=len(cfg.lut_table) if table.lut is not None
+                          else 0)
     rc = _kernel_fn()(
         (ctypes.c_uint64 * len(LEAVES))(*ins),
         (ctypes.c_uint64 * len(LEAVES))(*outs), len(LEAVES), pvals,
         len(PARAMS), ptr(table.prog), ptr(table.spc), ptr(table.interp),
-        ptr(bits_in), ptr(e2p), ptr(g0), ptr(g1), ptr(addrs), amp_scale,
-        int(fused is not None), tile, stream)
+        ptr(bits_in), ptr(e2p), ptr(g0), ptr(g1), ptr(addrs), ptr(table.lut),
+        amp_scale, int(fused is not None), tile, stream)
     if rc != 0:
         raise RuntimeError(f'exec_span kernel launch failed: cudaError {rc}')
     return out
 
 
-def _param_values(B, C, N, E, cfg, n_addrs=0, W=0, Wp=0):
+def _param_values(B, C, N, E, cfg, n_addrs=0, W=0, Wp=0, min_read=0,
+                  lut_n=0):
     """The kernel's scalar parameters, in :data:`PARAMS` order."""
     return _params_of((B, C, N, cfg.max_meas, cfg.max_resets,
                        cfg.max_pulses, E, cfg.meas_elem, cfg.meas_latency,
                        cfg.alu_instr_clks, cfg.jump_cond_clks,
                        cfg.jump_fproc_clks, cfg.pulse_regwrite_clks,
                        cfg.pulse_load_clks, cfg.x90_amp, cfg.drive_elem,
-                       n_addrs, W, Wp))
+                       n_addrs, W, Wp, min_read, lut_n))
 
 
 @functools.lru_cache(maxsize=64)

@@ -33,8 +33,10 @@ JAX run of the same engine on the same injected bits
 (tests/test_torch_interpreter.py, tests/test_torch_straightline.py,
 tests/test_torch_blocks.py).
 
-Scope: the parity device and physics mode, the ``'sticky'`` and
-``'fresh'`` fabrics.  Everything else raises ``NotImplementedError``
+Scope: the parity device and physics mode, the ``'sticky'``,
+``'fresh'`` and ``'lut'`` fabrics (the last: the time-indexed syndrome
+LUT of hdl/fproc_lut.sv + meas_lut.sv, over a ``meas_time`` plane of
+production clocks).  Everything else raises ``NotImplementedError``
 naming the ROADMAP.md item that ports it.
 """
 
@@ -47,7 +49,8 @@ import numpy as np
 import torch
 
 from .. import isa
-from ..ops.exec_span import block_table, exec_blocks, exec_span, span_table
+from ..ops.exec_span import (block_table, exec_blocks, exec_span,
+                             lut_min_read, span_table)
 
 # timing constants of the scalar golden model (the JAX package's
 # sim/oracle.py): program start time, sync release -> qclk zero, rdlo
@@ -193,11 +196,12 @@ class InterpreterConfig:
     def from_fpga_config(cls, fpga_config, **kw) -> 'InterpreterConfig':
         """A config with the timing constants of ``fpga_config`` (a
         :class:`~..hwconfig.FPGAConfig`); explicit ``kw`` win.  A
-        configured measurement LUT would flow into ``lut_mask`` /
-        ``lut_table``, which belong to the ``'lut'`` fabric."""
+        configured measurement LUT flows into ``lut_mask`` /
+        ``lut_table`` (the ``'lut'`` fabric's wiring; ``fabric`` itself
+        stays the caller's choice)."""
         if getattr(fpga_config, 'meas_lut_mask', ()):
-            raise not_ported('a configured FPGAConfig.meas_lut_mask (the '
-                             "'lut' fabric)", 2)
+            kw.setdefault('lut_mask', tuple(fpga_config.meas_lut_mask))
+            kw.setdefault('lut_table', tuple(fpga_config.meas_lut_table))
         return cls(alu_instr_clks=fpga_config.alu_instr_clks,
                    jump_cond_clks=fpga_config.jump_cond_clks,
                    jump_fproc_clks=fpga_config.jump_fproc_clks,
@@ -247,22 +251,28 @@ def straightline_ineligible(mp, cfg: InterpreterConfig) -> str:
 
     Eligible programs are forward-jump-only (no loops), SYNC-free,
     DONE-terminated, with fproc reads only of the core's own sticky
-    channel — the compiled active-reset + RB shape."""
+    channel — the compiled active-reset + RB shape — or, under the
+    ``'lut'`` fabric, LUT reads that every masked core's measurements
+    precede (:func:`_lut_span_reject`)."""
     if cfg.trace:
         return 'trace mode records per-step state'
     if cfg.physics and cfg.device == 'statevec':
         return 'statevec device (event-ordering gate needs the ' \
                'generic engine)'
+    soa_np = _soa_np(mp) if cfg.fabric == 'lut' else None
     return _sl_ineligible_fields(np.asarray(mp.soa.kind),
                                  np.asarray(mp.soa.jump_addr),
-                                 np.asarray(mp.soa.func_id), cfg)
+                                 np.asarray(mp.soa.func_id), cfg, soa_np)
 
 
-def _sl_ineligible_fields(kind, jump_addr, func_id,
-                          cfg: InterpreterConfig) -> str:
+def _sl_ineligible_fields(kind, jump_addr, func_id, cfg: InterpreterConfig,
+                          soa_np=None) -> str:
     """The straight-line shape checks of :func:`straightline_ineligible`
-    on ``[C, N]`` field arrays, shared with :func:`_pallas_mode` so that
-    dispatch and eligibility cannot drift."""
+    on ``[C, N]`` field arrays, shared with :func:`_pallas_mode` and
+    :func:`fused_ineligible` so that dispatch and eligibility cannot
+    drift.  ``soa_np``: the packed ``[C, N, F]`` program, needed only for
+    the ``'lut'`` fabric's admission (:func:`_lut_span_reject`); ``None``
+    rejects that combination."""
     C, N = kind.shape
     if np.any(kind == isa.K_SYNC):
         return 'SYNC barrier'
@@ -277,11 +287,47 @@ def _sl_ineligible_fields(kind, jump_addr, func_id,
             if np.any(fmask & (func_id != np.arange(C)[:, None])):
                 return 'cross-core fproc read'
         elif cfg.fabric == 'lut':
-            raise not_ported("span-mode fproc reads under fabric='lut'", 2)
+            reason = _lut_span_reject(soa_np, fmask, func_id, cfg)
+            if reason:
+                return reason
         else:
             return f'fabric {cfg.fabric!r} with fproc reads'
     if np.any(kind[:, -1] != isa.K_DONE):
         return 'program not DONE-terminated'
+    return None
+
+
+def _lut_span_reject(soa_np, fmask, func_id,
+                     cfg: InterpreterConfig) -> str:
+    """Why ``'lut'``-fabric fproc reads cannot be served in a span pass
+    (straight-line engine, K1 span, K3) — ``None`` when they can.
+
+    The span serves a LUT read from the measurement planes at the read's
+    index with no wait on the producers.  That equals the generic
+    engine's time-indexed serve exactly when the planes are final at the
+    read: every masked core's possibly-measurement trigger
+    (:func:`_possibly_meas_mask`) lies at an index below every fproc
+    read (``min_read``).  Own-fresh reads (``func_id == 0``) keep their
+    per-step stall and stay with the block engine."""
+    if soa_np is None:
+        return "fabric 'lut' with fproc reads"
+    if np.any(fmask & (func_id == 0)):
+        return ("own-fresh fproc read (func_id=0) under fabric 'lut' "
+                "(per-step stall semantics — block engine hosts it)")
+    if cfg.lut_mask is None or cfg.lut_table is None:
+        return "fabric 'lut' with fproc reads but no lut_mask/lut_table"
+    C = fmask.shape[0]
+    lmask = np.asarray(cfg.lut_mask, dtype=bool)
+    if lmask.shape[0] != C:
+        return f'lut_mask length {lmask.shape[0]} != n_cores {C}'
+    pm = _possibly_meas_mask(soa_np, cfg)
+    if pm is None:
+        return "fabric 'lut' with fproc reads in a looping program"
+    if np.any(pm[lmask, lut_min_read(fmask):]):
+        return ("fabric 'lut': a masked core's possibly-measurement "
+                "trigger at or after an fproc read index (measurement "
+                "planes not final at the span serve; the block engine "
+                "hosts this shape)")
     return None
 
 
@@ -330,12 +376,13 @@ def fused_ineligible(mp, cfg: InterpreterConfig) -> str:
                'static length'
     if cfg.trace:
         return 'trace mode records per-step state'
+    soa_np = _soa_np(mp)
     reason = _sl_ineligible_fields(np.asarray(mp.soa.kind),
                                    np.asarray(mp.soa.jump_addr),
-                                   np.asarray(mp.soa.func_id), cfg)
+                                   np.asarray(mp.soa.func_id), cfg, soa_np)
     if reason:
         return reason
-    mb, _ = _static_meas_bounds(_soa_np(mp), cfg)
+    mb, _ = _static_meas_bounds(soa_np, cfg)
     if mb is None:
         return 'measurement count not statically boundable'
     if mb > cfg.max_meas:
@@ -503,25 +550,29 @@ def _pallas_mode(mp, cfg: InterpreterConfig) -> str:
     """Which shape the megastep engine runs ``mp`` in: ``'span'`` (the
     whole forward-jump-only program as one kernel launch) or ``'block'``
     (superinstruction bodies inside the block engine's loop)."""
-    span = _sl_ineligible_fields(np.asarray(mp.soa.kind),
-                                 np.asarray(mp.soa.jump_addr),
-                                 np.asarray(mp.soa.func_id), cfg) is None
+    soa_np = _soa_np(mp)
+    span = _sl_ineligible_fields(soa_np[..., _F['kind']],
+                                 soa_np[..., _F['jump_addr']],
+                                 soa_np[..., _F['func_id']], cfg,
+                                 soa_np) is None
     return 'span' if span else 'block'
 
 
-def _check_fabric(cfg: InterpreterConfig) -> None:
-    if cfg.fabric == 'lut':
-        raise not_ported("fabric='lut'", 2)
-    if cfg.fabric not in ('sticky', 'fresh'):
+def _check_fabric(cfg: InterpreterConfig, n_cores: int) -> None:
+    if cfg.fabric not in ('sticky', 'fresh', 'lut'):
         raise ValueError(f"unknown fabric {cfg.fabric!r}; one of "
                          f"'sticky', 'fresh', 'lut'")
+    if cfg.fabric == 'lut' and (len(cfg.lut_mask) != n_cores
+                                or not cfg.lut_table):
+        raise ValueError("fabric='lut' needs lut_mask (len n_cores) and "
+                         "lut_table in the InterpreterConfig")
 
 
 def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
     """Resolve the engine of a run on ``device`` and raise for what this
     slice of the port leaves out; returns the engine."""
     eng = resolve_engine(mp, cfg, device)
-    _check_fabric(cfg)
+    _check_fabric(cfg, mp.n_cores)
     if cfg.trace:
         raise not_ported('trace=True', 12)
     if cfg.physics and cfg.device != 'parity':
@@ -596,6 +647,10 @@ def _init_state(batch: int, n_cores: int, cfg: InterpreterConfig,
         n_resets=z(B, C), rst_time=z(B, C, R), n_meas=z(B, C),
         meas_avail=torch.full((B, C, M), INT32_MAX, dtype=torch.int32,
                               device=device))
+    if cfg.fabric == 'lut':
+        # the lut fabric's production clock per slot (the trigger time)
+        st['meas_time'] = torch.full((B, C, M), INT32_MAX, dtype=torch.int32,
+                                     device=device)
     if cfg.record_pulses:
         st['rec'] = z(B, C, len(_REC_FIELDS), P)
     if cfg.opcode_histogram:
@@ -666,6 +721,65 @@ def _parity_pulse(qturns, cfg: InterpreterConfig, fire, elem, pp):
     return qturns, (qturns >> 1) & 1
 
 
+def _lut_select(st: dict, meas_bits, meas_valid, req,
+                cfg: InterpreterConfig):
+    """The ``'lut'`` fabric's time-indexed read (reference:
+    hdl/fproc_lut.sv + meas_lut.sv) for every (shot, reader core) lane at
+    its request time ``req [B, C]``: per masked producer the newest bit
+    PRODUCED strictly before the request, slot ``max(#{m < n_meas :
+    meas_time[m] < req}, 1) - 1`` (:meth:`..ops.fabric.MeasLUT.
+    timed_call`); the masked bits form the table address, LSB = the
+    lowest masked core, and bit ``c`` of the entry is core ``c``'s data.
+    Returns ``(data, valid, t_lut)`` ``[B, C]``: the reader's bit,
+    whether every selected masked bit is valid, and the distribution
+    time (the latest selected ``meas_avail`` over the mask, unwritten
+    read as 0, and 0 from each unmasked core)."""
+    B, C = req.shape
+    dev = req.device
+    lmask_np = np.asarray(cfg.lut_mask, dtype=bool)
+    shifts = np.zeros(C, dtype=np.int64)
+    shifts[lmask_np] = np.arange(int(lmask_np.sum()))
+    lmask = torch.as_tensor(lmask_np, device=dev)
+    M = cfg.max_meas
+    rec = torch.arange(M, device=dev)[None, None, :] \
+        < st['n_meas'][:, :, None]                               # [B, Cp, M]
+    early = rec[:, None] & (st['meas_time'][:, None]
+                            < req[:, :, None, None])             # [B,C,Cp,M]
+    slot = (early.sum(-1, dtype=torch.int32) - 1).clamp(min=0)   # [B, C, Cp]
+    pick = lambda plane: plane[:, None].expand(B, C, C, M).gather(
+        -1, slot.long()[..., None])[..., 0]                      # [B, C, Cp]
+    avail = pick(torch.where(st['meas_avail'] == INT32_MAX, 0,
+                             st['meas_avail']))
+    valid = torch.where(lmask, pick(meas_valid), True).all(-1)
+    t_lut = torch.where(lmask, avail, 0).amax(-1)
+    weight = torch.as_tensor(lmask_np.astype(np.int64) << shifts, device=dev)
+    addr = _wrap32((pick(meas_bits).long() * weight).sum(-1))
+    table = torch.as_tensor(np.asarray(cfg.lut_table, np.int64)
+                            .astype(np.uint32).view(np.int32), device=dev)
+    T = table.shape[0]
+    entry = torch.where((addr >= 0) & (addr < T),
+                        table[addr.clamp(0, T - 1).long()], 0)
+    core = torch.arange(C, dtype=torch.int32, device=dev).clamp(max=31)
+    return (entry >> core) & 1, valid, t_lut
+
+
+def _lut_serve(st: dict, meas_bits, meas_valid, req,
+               cfg: InterpreterConfig):
+    """The generic engine's LUT read (``func_id >= 1``): the time-indexed
+    select of :func:`_lut_select`, served once it is causal — every
+    masked producer has recorded a measurement and is done or has
+    simulated to the request — and its bits are valid (else, causal but
+    invalid, the physics pause).  Returns ``(ready, data, t_ready,
+    phys)`` ``[B, C]``."""
+    data, valid, t_lut = _lut_select(st, meas_bits, meas_valid, req, cfg)
+    lmask = torch.as_tensor(np.asarray(cfg.lut_mask, dtype=bool),
+                            device=req.device)
+    ok = (st['n_meas'] >= 1)[:, None, :] & (
+        st['done'][:, None, :] | (st['time'][:, None, :] >= req[..., None]))
+    causal = torch.where(lmask, ok, True).all(-1)
+    return causal & valid, data, torch.maximum(req, t_lut), causal & ~valid
+
+
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
           cfg: InterpreterConfig, traits) -> dict:
     """One instruction step of every live (shot, core) lane — the JAX
@@ -712,7 +826,9 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     if any_fproc:
         M = cfg.max_meas
         fid_bad = fid >= C
-        prod = fid.clamp(0, C - 1).long()                     # [B, C]
+        # func_id 0 reads the core's own channel under the 'lut' fabric
+        prod = fid.clamp(0, C - 1).long() if cfg.fabric != 'lut' \
+            else torch.arange(C, device=dev).expand(B, C)     # [B, C]
         sel = lambda arr: arr.gather(1, prod)                 # [B,C]->[B,C]
         prod_m = prod.unsqueeze(-1).expand(B, C, M)
         sel_m = lambda arr: arr.gather(1, prod_m)             # [B,C,M]
@@ -734,7 +850,9 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             f_race = ((mavail_p > (req - STICKY_RACE_MARGIN)[..., None])
                       & (mavail_p <= (req + STICKY_RACE_MARGIN)[..., None])
                       ).any(-1)
-        else:   # 'fresh': first measurement completing after the request
+        else:
+            # 'fresh' (and the 'lut' fabric's own read, func_id 0): the
+            # first measurement completing after the request
             fresh = (mavail_p > req[..., None]) & (
                 torch.arange(M, device=dev)[None, None, :]
                 < sel(st['n_meas'])[..., None])
@@ -748,6 +866,16 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
                 ready, torch.maximum(req, _take(mavail_p, j)), req)
             f_deadlock = ~exists & sel(st['done'])
             f_ready = ready | f_deadlock
+        if cfg.fabric == 'lut':
+            fid_bad = zeros_b
+            l_ready, l_data, l_tready, l_phys = _lut_serve(
+                st, meas_bits, meas_valid, req, cfg)
+            is_own = fid == 0
+            f_ready = torch.where(is_own, f_ready, l_ready)
+            f_data = torch.where(is_own, f_data, l_data)
+            f_tready = torch.where(is_own, f_tready, l_tready)
+            f_deadlock = is_own & f_deadlock
+            f_phys = torch.where(is_own, f_phys, l_phys)
         f_ready = f_ready | fid_bad
         f_data = torch.where(fid_bad, 0, f_data)
         f_phys = f_phys & ~fid_bad
@@ -832,6 +960,10 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
                      cfg.max_meas) & is_meas_pulse[..., None]
     meas_avail = torch.where(mwr, (trig + dur + cfg.meas_latency)[..., None],
                              st['meas_avail'])
+    if 'meas_time' in st:
+        # production clock = the trigger time, written once per slot (the
+        # CW rewrite below moves only meas_avail)
+        upd['meas_time'] = torch.where(mwr, trig[..., None], st['meas_time'])
     n_meas = st['n_meas'] + is_meas_pulse.to(i32)
 
     # ---- physics co-state: parity device + measurement records --------
@@ -1195,9 +1327,34 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
     if has(m_bad):
         fault_i = fault_i | _bit(j(m_bad), FAULT_ILLEGAL_OP)
 
-    # ---- fproc: own-core sticky read (eligibility guarantees) ----------
-    if has(m_fproc):
+    # ---- fproc: own-core sticky read, or the time-indexed LUT read -----
+    if has(m_fproc) and cfg.fabric == 'lut':
+        # the span-lut serve: eligibility (_lut_span_reject) puts every
+        # masked core's measurements at indices below every read, so the
+        # planes are final here and the generic serve's causality wait
+        # would change nothing but when the read is served
         req = time
+        f_data, l_valid, t_lut = _lut_select(st, meas_bits, meas_valid,
+                                             req, cfg)
+        f_race = torch.zeros((B, C), dtype=torch.bool, device=dev)
+        f_tready = torch.maximum(req, t_lut)
+        # a masked producer that retired with no measurement starves the
+        # reader: the generic engine's quiescence terminal, with the
+        # reader's pc and time frozen at the read
+        lmask = torch.as_tensor(np.asarray(cfg.lut_mask, dtype=bool),
+                                device=dev)
+        starved = (lmask & (st['n_meas'] == 0)).any(-1, keepdim=True)
+        starve_i = active & j(m_fproc) & starved
+        st['err'] = st['err'] | _bit(starve_i, ERR_FPROC_DEADLOCK)
+        st['fault'] = st['fault'] | _bit(starve_i, FAULT_FPROC_STARVED)
+        st['done'] = st['done'] | starve_i
+        active = active & ~starve_i
+        # an invalid selected bit stalls the lane (physics pause)
+        stall_i = active & j(m_fproc) & ~l_valid
+        stalled = stalled | stall_i
+        active = active & ~stall_i
+    elif has(m_fproc):
+        req = f_tready = time
         mavail = st['meas_avail']
         m_cnt = (mavail <= req[..., None]).sum(-1, dtype=i32)
         latest = (m_cnt - 1).clamp(min=0)
@@ -1298,6 +1455,10 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
         elif cfg.physics:
             err_i = err_i | _bit(is_meas & (env_len == 0xfff), ERR_CW_MEAS)
         st['meas_avail'] = meas_avail
+        if 'meas_time' in st:
+            # the lut fabric's production clock: the trigger time
+            st['meas_time'] = torch.where(mwr, trig[..., None],
+                                          st['meas_time'])
         st['n_meas'] = st['n_meas'] + is_meas.to(i32)
 
         if cfg.physics:
@@ -1372,8 +1533,9 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
         time_next = torch.where(j(m_jmpi | m_jcond),
                                 time + cfg.jump_cond_clks, time_next)
     if has(m_fproc):
-        # the sticky own-core read is served at the request time
-        time_next = torch.where(j(m_fproc), time + cfg.jump_fproc_clks,
+        # served at the request time (sticky) or at max(request, the LUT's
+        # distribution time)
+        time_next = torch.where(j(m_fproc), f_tready + cfg.jump_fproc_clks,
                                 time_next)
     st['time'] = torch.where(active, time_next, time)
     if has(m_incq):

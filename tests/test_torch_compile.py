@@ -5,7 +5,11 @@ The port carries a copy of the numpy compile stack (it may not import
 the JAX package), so this pins the copy: per-core ``cmd_buf`` bytes,
 env/freq buffers, the compiled asm, and every SoA field and table of the
 decoded program, on the headline program (8-qubit active reset + RB),
-its 2-qubit cut, the active-reset program and the golden programs.
+its 2-qubit cut, the active-reset program and the golden programs.  The
+copies of the ``'lut'`` fabric's workloads are pinned too: the machine
+programs, LUT tables and configs of ``models/repetition.py`` and
+``models/qec.py``, the compiled repetition round, and the numpy decoder
+oracles of ``ops/decode.py``.
 """
 
 import numpy as np
@@ -130,3 +134,62 @@ def test_machine_program_round_trip():
         for ej, et in zip(tj.elem_cfgs, tt.elem_cfgs):
             assert (et.samples_per_clk, et.interp_ratio, et.sample_freq) \
                 == (ej.samples_per_clk, ej.interp_ratio, ej.sample_freq)
+
+
+# the 'lut' fabric's workloads: the copied models/repetition.py,
+# models/qec.py and the numpy decoders of ops/decode.py
+from distributed_processor_tpu.models import qec as jqec  # noqa: E402
+from distributed_processor_tpu.models import repetition as jrep  # noqa: E402
+from distributed_processor_tpu.ops import decode as jdecode  # noqa: E402
+from distributed_processor_tpu_torch.models import qec as tqec  # noqa: E402
+from distributed_processor_tpu_torch.models import (  # noqa: E402
+    repetition as trep)
+from distributed_processor_tpu_torch.ops import decode as tdecode  # noqa: E402
+
+LUT_MACHINE_PROGRAMS = [
+    ('repetition_round_3', lambda rep, qec: rep.repetition_round_machine_program(3)),
+    ('repetition_round_8', lambda rep, qec: rep.repetition_round_machine_program(8)),
+    ('qec_multiround_3x4', lambda rep, qec: qec.qec_multiround_machine_program(3, 4)),
+    ('qec_multiround_8x8', lambda rep, qec: qec.qec_multiround_machine_program(8, 8)),
+    ('surface_cycle_3', lambda rep, qec: qec.surface_cycle_machine_program(3)),
+    ('surface_cycle_5', lambda rep, qec: qec.surface_cycle_machine_program(5)),
+]
+
+
+@pytest.mark.parametrize('name,thunk', LUT_MACHINE_PROGRAMS,
+                         ids=[p[0] for p in LUT_MACHINE_PROGRAMS])
+def test_lut_machine_programs_match_jax(name, thunk):
+    _assert_arrays_equal(machine_program_to_arrays(thunk(trep, tqec)),
+                         machine_program_to_arrays(thunk(jrep, jqec)))
+
+
+@pytest.mark.parametrize('n', [3, 4, 8])
+def test_lut_tables_and_configs_match_jax(n):
+    import dataclasses
+    assert trep.majority_lut(n) == jrep.majority_lut(n)
+    assert tqec.chain_lut(n) == jqec.chain_lut(n)
+    for t_cfg, j_cfg in ((trep.repetition_config(n), jrep.repetition_config(n)),
+                         (tqec.qec_config(n, 4), jqec.qec_config(n, 4)),
+                         (tqec.surface_cycle_config(n),
+                          jqec.surface_cycle_config(n))):
+        assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
+    assert trep.repetition_physics_kwargs(n) \
+        == jrep.repetition_physics_kwargs(n)
+    assert repr(trep.repetition_round_program(n)) \
+        == repr(jrep.repetition_round_program(n))
+    _check_same(jrep.repetition_round_program(n),
+                trep.repetition_round_program(n), n)
+
+
+def test_decode_oracles_match_jax():
+    for A in (1, 2, 4):
+        for s in range(1 << A):
+            synd = np.array([(s >> i) & 1 for i in range(A)], np.int32)
+            np.testing.assert_array_equal(tdecode.chain_matching_np(synd),
+                                          jdecode.chain_matching_np(synd))
+    for k in (3, 5):
+        for p in range(1 << k):
+            bits = np.array([(p >> i) & 1 for i in range(k)], np.int32)
+            np.testing.assert_array_equal(
+                tdecode.majority_correction_np(bits),
+                jdecode.majority_correction_np(bits))

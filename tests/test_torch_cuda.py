@@ -17,7 +17,11 @@ sigma = 0).  The megastep kernels of
 ``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
 engine on the card, K3 against its plain version and against the
 generic engine, K1 block (``engine='pallas'`` on a looping program)
-against the block engine's plain bodies.  The waveform kernel
+against the block engine's plain bodies, and under the ``'lut'`` fabric
+K1 span (tile and one thread per lane, on random LUT programs at 3, 5
+and 9 cores and batches that cut tiles and blocks raggedly), K1 block
+(multi-round QEC) and K3 (the compiled repetition round at 3 and 9
+qubits) against theirs.  The waveform kernel
 ``csrc/waveform.cu`` (one launch renders every trace of a shot) is held
 against its plain version to atol 1e-5 (the same arithmetic;
 ``sincosf`` against ``sin`` and ``cos``), the
@@ -133,6 +137,88 @@ def sl_feedback_program(rng, isa, from_cmds, n_cores=3, n_instr=24):
                 kind[c, i] = isa.N_KINDS + 1
     return dataclasses.replace(mp, soa=dataclasses.replace(mp.soa,
                                                            kind=kind))
+
+
+def lut_feedback_program(rng, isa, from_cmds, n_cores=4, n_pre=8,
+                         n_post=10):
+    """Random programs on the ``'lut'`` fabric that the span engines
+    serve: ``(mp, lut_mask, lut_table)``.  Every core holds ``n_pre``
+    rows of measurements, drive pulses, ALU rows, qclk loads, idles and
+    forward conditional jumps on the (random) registers — some past the
+    ``n_pre`` split (on some masked cores, a first row that skips the
+    whole prefix, so a lane can skip every measurement of a masked core
+    and starve the readers of its shot) — then ``n_post`` rows of LUT
+    reads
+    (``func_id`` >= 1, into a register or as a forward branch), drive
+    pulses, ALU rows and, on unmasked cores only, measurements.  Every
+    trigger names its element (a drive is element 0), so that the span
+    rule's analysis proves each masked core's measurements lie before the
+    first read.  ``isa``/``from_cmds``: the encoder module and
+    ``machine_program_from_cmds`` of either package."""
+    C, N = n_cores, n_pre + n_post
+    mask = rng.random(C) < 0.6
+    mask[int(rng.integers(C))] = True
+    table = tuple(int(x) for x in
+                  rng.integers(0, 1 << C, 1 << int(mask.sum())))
+    progs = []
+    for core in range(C):
+        cmds, t = [], 40
+
+        def pulse(meas):
+            return isa.pulse_cmd(
+                freq_word=int(rng.integers(1 << 9)),
+                amp_word=int(rng.integers(1 << 16)),
+                env_word=(int(rng.integers(1, 8)) << 12),
+                cfg_word=2 if meas else 0, cmd_time=t)
+        skip = mask[core] and rng.random() < 0.5
+        for i in range(N):
+            post = i >= n_pre
+            roll = rng.random()
+            if skip and i == 0:
+                # on some lanes, skip every measurement of a masked core
+                cmds.append(isa.alu_cmd(
+                    'jump_cond', 'i', int(rng.integers(-2, 2)),
+                    rng.choice(['eq', 'le', 'ge']), int(rng.integers(4)),
+                    jump_cmd_ptr=n_pre))
+            elif post and roll < 0.35:
+                fid = int(rng.integers(1, C + 2))
+                if rng.random() < 0.5:
+                    cmds.append(isa.alu_cmd(
+                        'alu_fproc', 'i', int(rng.integers(-2, 3)),
+                        list(isa.ALU_OPS)[int(rng.integers(8))],
+                        func_id=fid, write_reg_addr=int(rng.integers(4))))
+                else:
+                    cmds.append(isa.alu_cmd(
+                        'jump_fproc', 'i', int(rng.integers(0, 2)),
+                        rng.choice(['eq', 'le', 'ge']), func_id=fid,
+                        jump_cmd_ptr=min(i + 1 + int(rng.integers(1, 3)),
+                                         N)))
+            elif roll < 0.65:
+                t += int(rng.integers(10, 80))
+                meas = rng.random() < (0.3 if post else 0.5) \
+                    and not (post and mask[core])
+                cmds.append(pulse(meas))
+            elif roll < 0.8:
+                cmds.append(isa.alu_cmd(
+                    'reg_alu', 'i', int(rng.integers(-1000, 1000)),
+                    list(isa.ALU_OPS)[int(rng.integers(8))],
+                    int(rng.integers(4)),
+                    write_reg_addr=int(rng.integers(4))))
+            elif roll < 0.9:
+                cmds.append(isa.alu_cmd(
+                    'jump_cond', 'i', int(rng.integers(-2, 2)),
+                    rng.choice(['eq', 'le', 'ge']), int(rng.integers(4)),
+                    jump_cmd_ptr=min(i + 1 + int(rng.integers(1, 8)), N)))
+            elif roll < 0.95:
+                cmds.append(isa.alu_cmd('inc_qclk', 'i',
+                                        int(rng.integers(-50, 50))))
+            else:
+                t += int(rng.integers(150))
+                cmds.append(isa.idle(t))
+            t += 60
+        cmds.append(isa.done_cmd())
+        progs.append(cmds)
+    return from_cmds(progs), tuple(bool(b) for b in mask), table
 
 
 
@@ -1203,3 +1289,158 @@ def test_k5_rejects_bad_inputs(card):
     assert tuple(demod_iq(adc[:0], torch.zeros((16, 4), device=card)).shape) \
         == (0, 2, 2)
     assert demod_iq.launches == before        # nothing to launch
+
+
+# ---------------------------------------------------------------------------
+# the 'lut' fabric: K1 span (tile and one thread per lane), K1 block and K3
+# with the time-indexed LUT read, against their plain versions
+
+
+def _lut_fuzz(C, seed):
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.decoder import \
+        machine_program_from_cmds
+    mp, mask, table = lut_feedback_program(
+        np.random.default_rng(seed), isa, machine_program_from_cmds,
+        n_cores=C)
+    return mp, InterpreterConfig(fabric='lut', lut_mask=mask,
+                                 lut_table=table, max_meas=8, max_pulses=24,
+                                 record_pulses=True, opcode_histogram=True)
+
+
+@pytest.mark.parametrize('C', [3, 5, 9])
+@pytest.mark.parametrize('B', [1, 33, 1001])
+def test_lut_k1_span_matches_plain_version(card, B, C):
+    """K1 span under the 'lut' fabric, the tile kernel and one thread per
+    lane, against the straight-line engine on the card: random LUT
+    programs (reads into registers and branches, jumps past the split,
+    starved lanes) at batches that cut tiles (32 shots) and shot-aligned
+    blocks (256 // C shots) raggedly — every key identical."""
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        _exec_span_per_lane, exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _exec_straightline, _init_state, _span_table)
+    mp, cfg = _lut_fuzz(C, 70 * C + B)
+    rng = np.random.default_rng(B)
+    table = _span_table(mp, cfg, card)
+    assert table.lut is not None and table.min_read < mp.n_instr
+    init = torch.as_tensor(rng.integers(-3, 3, (B, C, 16)),
+                           dtype=torch.int32, device=card)
+    st = _init_state(B, C, cfg, init, card)
+    bits = torch.as_tensor(rng.integers(0, 2, (B, C, 8)), dtype=torch.int32,
+                           device=card)
+    want = _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                              bits, torch.ones_like(bits, dtype=torch.bool),
+                              cfg)
+    for run in (exec_span, _exec_span_per_lane):
+        got = run(st, table, bits, cfg)
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+
+
+@pytest.mark.parametrize('workload', ['repetition8', 'surface5'])
+def test_lut_workloads_take_k1_on_the_card(card, workload):
+    """The repetition round (8 cores) and the surface cycle (9 cores) on
+    ``engine='pallas'`` and ``'auto'`` (one K1 launch each) against the
+    straight-line and generic engines on the card."""
+    from distributed_processor_tpu_torch.models import qec, repetition
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    mp, cfg = (repetition.repetition_round_machine_program(8),
+               repetition.repetition_config(8)) \
+        if workload == 'repetition8' else \
+        (qec.surface_cycle_machine_program(5), qec.surface_cycle_config(5))
+    B = 2001
+    bits = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 2, (B, mp.n_cores, 2)), dtype=torch.int32, device=card)
+    outs = {}
+    for eng in ('pallas', 'auto', 'straightline', 'generic'):
+        before = exec_span.launches
+        outs[eng] = simulate_batch(mp, bits, cfg=dataclasses.replace(
+            cfg, engine=eng), device=card)
+        assert exec_span.launches - before == (eng in ('pallas', 'auto'))
+    torch.cuda.synchronize()
+    for eng in ('auto', 'straightline'):
+        _assert_same(outs['pallas'], outs[eng])
+    for key in outs['generic']:
+        if key != 'steps':
+            assert torch.equal(outs['pallas'][key], outs['generic'][key]), key
+
+
+def test_lut_k1_block_matches_plain_version(card):
+    """The multi-round QEC program (every round's measurement after the
+    previous round's read: block mode) on ``engine='pallas'`` (K1 block,
+    one launch per iteration) against the plain block engine."""
+    from distributed_processor_tpu_torch.models import qec
+    from distributed_processor_tpu_torch.ops.exec_span import exec_blocks
+    mp, cfg = qec.qec_multiround_machine_program(8, 4), qec.qec_config(8, 4)
+    B = 3001
+    bits = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 2, (B, 8, 4)), dtype=torch.int32, device=card)
+    before = exec_blocks.launches
+    got = simulate_batch(mp, bits, cfg=dataclasses.replace(
+        cfg, engine='pallas', opcode_histogram=True), device=card)
+    assert exec_blocks.launches - before == int(got['steps']) > 0
+    want = simulate_batch(mp, bits, cfg=dataclasses.replace(
+        cfg, engine='block', opcode_histogram=True), device=card)
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+    assert not bool(got['incomplete'])
+
+
+@pytest.mark.parametrize('n', [3, 9])
+def test_lut_k3_matches_plain_version_and_generic(card, n):
+    """The compiled repetition round closed at sigma = 0 on
+    ``engine='fused'`` (K3 with the LUT read; at 9 cores a block of 252
+    lanes holds 28 shots) against its plain version on the CPU and the
+    generic engine on the card: every key identical, one epoch, every
+    core corrected to its pattern's majority."""
+    from distributed_processor_tpu_torch.models import repetition
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span_fused
+    from distributed_processor_tpu_torch.simulator import Simulator
+    mp = Simulator(n_qubits=n, device=card).compile(
+        repetition.repetition_round_program(n))
+    B = 1001
+    init = np.array([[(s >> i) & 1 for i in range(n)]
+                     for s in range(B)])
+    cfg = InterpreterConfig(max_steps=mp.n_instr * 6 + 64,
+                            **repetition.repetition_physics_kwargs(n))
+    model = ReadoutPhysics(sigma=0.0)
+    before = exec_span_fused.launches
+    fused = run_physics_batch(mp, model, 1, B, init_states=init,
+                              cfg=dataclasses.replace(cfg, engine='fused'),
+                              device=card)
+    assert exec_span_fused.launches == before + 1
+    plain = run_physics_batch(mp, model, 1, B, init_states=init,
+                              cfg=dataclasses.replace(cfg, engine='fused'),
+                              device='cpu')
+    _assert_same(fused, plain)
+    generic = run_physics_batch(mp, model, 1, B, init_states=init,
+                                cfg=dataclasses.replace(cfg,
+                                                        engine='generic'),
+                                device=card)
+    for key in generic:
+        if key not in ('epochs', 'steps'):
+            assert torch.equal(fused[key], generic[key]), key
+    assert int(fused['epochs']) == 1
+    maj = (init.sum(1) * 2 > n).astype(np.int32)
+    np.testing.assert_array_equal(fused['qturns'].cpu().numpy() % 4 // 2,
+                                  np.broadcast_to(maj[:, None], (B, n)))
+
+
+def test_lut_rejects_mismatched_tables(card):
+    """A LUT run needs a span table built for its fabric, and a sticky
+    run one without the LUT: the wrapper raises rather than launch."""
+    from distributed_processor_tpu_torch.models import repetition
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _init_state, _span_table)
+    mp, cfg = repetition.repetition_round_machine_program(3), \
+        repetition.repetition_config(3)
+    sticky = dataclasses.replace(cfg, fabric='sticky')
+    bits = torch.zeros((8, 3, 2), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match='fabric'):
+        exec_span(_init_state(8, 3, cfg, None, card),
+                  _span_table(mp, sticky, card), bits, cfg)
+    with pytest.raises(ValueError, match='fabric'):
+        exec_span(_init_state(8, 3, sticky, None, card),
+                  _span_table(mp, cfg, card), bits, sticky)

@@ -54,7 +54,11 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/ops/waveform.py',
                  'distributed_processor_tpu_torch/ops/demod.py',
                  'distributed_processor_tpu_torch/simulator.py',
-                 'distributed_processor_tpu_torch/parallel/driver.py'):
+                 'distributed_processor_tpu_torch/parallel/driver.py',
+                 'distributed_processor_tpu_torch/ops/fabric.py',
+                 'distributed_processor_tpu_torch/ops/decode.py',
+                 'distributed_processor_tpu_torch/models/repetition.py',
+                 'distributed_processor_tpu_torch/models/qec.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
         assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
@@ -102,6 +106,9 @@ def test_entry_points_default_to_cuda():
         simulate_batch(mp, np.zeros((4, 1, 1), np.int32))
     with pytest.raises(RuntimeError, match='CUDA'):
         run_physics_sweep(mp, ReadoutPhysics(), 8, 4)
+    from distributed_processor_tpu_torch.ops.fabric import MeasLUT
+    with pytest.raises(RuntimeError, match='CUDA'):
+        MeasLUT((True,), (0, 1))
     # the explicit CPU device runs
     out = simulate_batch(mp, np.zeros((4, 1, 1), np.int32), device='cpu')
     assert bool(out['done'].all())

@@ -101,14 +101,11 @@ def test_rtl_timing_vectors(case):
         fixed = np.asarray(case['meas_bits'], np.int32)
         meas[:, :, :fixed.shape[-1]] = fixed[None, :, :4]
     fabric = case.get('fabric', 'sticky')
+    kw = dict(fabric=fabric, max_meas=4)
     if fabric == 'lut':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_simulate_batch(_to_port(mp), meas, device='cpu',
-                                 fabric='lut', max_meas=4,
-                                 lut_mask=tuple(case['lut_mask']),
-                                 lut_table=tuple(case['lut_table']))
-        return
-    out = assert_same_as_jax(mp, meas, fabric=fabric, max_meas=4)
+        kw.update(lut_mask=tuple(case['lut_mask']),
+                  lut_table=tuple(case['lut_table']))
+    out = assert_same_as_jax(mp, meas, **kw)
     # the vectors' own expectations hold on the port too
     exp = case['expected']
     for key in ('time', 'qclk'):

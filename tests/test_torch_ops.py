@@ -379,10 +379,11 @@ def test_from_fpga_config_matches_jax():
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert dataclasses.asdict(TCfg.from_fpga_config(TFPGAConfig())) \
         == dataclasses.asdict(JCfg.from_fpga_config(JFPGAConfig()))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TCfg.from_fpga_config(TFPGAConfig(
-            n_cores=2, meas_lut_mask=(True, True),
-            meas_lut_table=(0, 1, 2, 3)))
+    # a configured measurement LUT flows into lut_mask / lut_table
+    lut = dict(n_cores=2, meas_lut_mask=(True, True),
+               meas_lut_table=(0, 1, 2, 3))
+    assert dataclasses.asdict(TCfg.from_fpga_config(TFPGAConfig(**lut))) \
+        == dataclasses.asdict(JCfg.from_fpga_config(JFPGAConfig(**lut)))
 
 
 # ---------------------------------------------------------------------------

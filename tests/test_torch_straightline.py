@@ -117,14 +117,10 @@ def test_rtl_timing_vectors(case):
         fixed = np.asarray(case['meas_bits'], np.int32)
         meas[:, :, :fixed.shape[-1]] = fixed[None, :, :4]
     fabric = case.get('fabric', 'sticky')
-    if fabric == 'lut':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_simulate_batch(_to_port(mp), meas, device='cpu',
-                                 engine='straightline', fabric='lut',
-                                 max_meas=4, lut_mask=tuple(case['lut_mask']),
-                                 lut_table=tuple(case['lut_table']))
-        return
     kw = dict(fabric=fabric, max_meas=4)
+    if fabric == 'lut':
+        kw.update(lut_mask=tuple(case['lut_mask']),
+                  lut_table=tuple(case['lut_table']))
     if jax_interp.straightline_ineligible(mp, JCfg(**kw)):
         assert_same_error(mp, meas, engine='straightline', **kw)
         return
