@@ -10,7 +10,10 @@ Phases, in order (any failure exits nonzero):
 2. each kernel against its plain torch version on the card, at the
    shapes its path gives it, with its time beside the plain version's and
    its bound: the resolver K2 (sigma = 0, identical streamed noise, and
-   the kernel's own Philox noise held to CLT bounds); the span kernel K1
+   the kernel's own Philox noise held to CLT bounds), and K2 with AR(1)
+   noise (on the same streamed whites, and its own draws against the
+   projection's closed-form variance; one epoch timed beside the white
+   kernel); the span kernel K1
    (``engine='pallas'``) against the straight-line engine on seeded
    injected bits, then its tile kernel and its one-thread-per-lane
    kernel (K3's, the design before the tile) held to each other and
@@ -64,6 +67,16 @@ Phases, in order (any failure exits nonzero):
    read in one launch, every core corrected to its majority and equal to
    the generic engine; then sigma = 0.05 on the straight-line engine with
    K2 per epoch);
+   then the physics models at the headline's width: the readout models
+   (the analytic closed form, AR(1) ADC noise on K2's AR(1) mode, the
+   resonator ring-up, CW readout at the finite window's horizon with
+   bits identical to the finite program's), the bloch path (the headline
+   with the Bloch device on the straight-line engine + K2, then card =
+   CPU at 4096 shots) and the statevec path (GHZ-8 on the generic engine
+   + K2, shot-exact parity; 2-qubit interleaved RB with leakage and
+   IQ-level 3-class readout at 262144 shots), each with its steady
+   batch's wall, epochs, K2 launches and device ms and the device's idle
+   share;
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths at a small batch;
@@ -76,6 +89,7 @@ of JAX.  Without CUDA it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -115,6 +129,20 @@ ISSUE_PER_CLK, IMUL_PER_CLK, SFU_PER_CLK = 128, 64, 16
 # prefix reads, the deterministic products and the warp's reduce, ~32
 K2_SAMPLE_INSTR, K2_SAMPLE_SFU, K2_SAMPLE_IMUL = 38, 4, 10
 K2_WINDOW_INSTR = 32
+# what AR(1) noise adds to the function, per noisy sample: the
+# recursion n_t = rho n_(t-1) + c w_t, one FMA per stream (the scale c
+# folds into Box-Muller's radius product): 2 instructions; the bound
+# counts these only
+K2_AR1_SAMPLE_INSTR = 2
+# what K2's warp scan spends on it (csrc/resolve.cu ar1_window), per lane
+# iteration of 2 samples and both streams: 5 compose steps of 2 shuffles,
+# 2 FMAs and a select (25), the pair's map (4), the even sample's 2
+# shuffles and 4 operations (6) and the carry broadcast (2 shuffles): 37
+# instructions, 14 of them shuffles, per 2 samples; warp shuffles issue
+# at 32 per clock per SM (CUDA C++ Programming Guide, compute capability
+# 9.0).  Printed as the design's own cost, not part of the bound
+K2_AR1_SCAN_INSTR, K2_AR1_SCAN_SHFL = 19, 7
+SHFL_PER_CLK = 32
 # K1's work is 32-bit integer add, compare and logic, which compute
 # capability 9.0 issues at 64 per clock per SM (CUDA C++ Programming
 # Guide, arithmetic instruction throughput): 132 x 64 x 1.98e9 = 1.67e13
@@ -164,6 +192,19 @@ LUT = dict(batch=262144, n_data=8, distance=5, rounds=8, cpu_batch=256)
 # read the table bounds test and load, a shift, an and and the max with
 # the request
 LUT_SLOT_OPS, LUT_PRODUCER_OPS, LUT_READ_OPS = 4, 12, 8
+# the physics models at the headline's width: K2's AR(1) pole; the
+# readout-model configurations (the analytic closed form, AR(1) noise,
+# the resonator ring-up, CW readout at the finite window's horizon); the
+# Bloch device of the bloch path with its card = CPU batch; the statevec
+# path's GHZ-8 batch (sized so that the phase stays within a minute) and
+# the 2-qubit interleaved RB with leakage and IQ-level 3-class readout
+AR1 = dict(rho=0.5, rtol=1e-4, atol=1e-3, ck=128)
+READOUT = dict(analytic_sigma=0.05, ar1=0.5, ring_tau=20.0)
+BLOCH = dict(device=dict(detuning_hz=50e3, t1_s=80e-6, t2_s=60e-6,
+                         depol_per_pulse=1e-3), cpu_batch=4096)
+STATEVEC = dict(ghz_qubits=8, ghz_batch=131072, rb_batch=262144, rb_depth=4,
+                rb_seed=31, sigma=0.05, g2=-0.9 - 0.4j, leak2=0.02,
+                depol2=0.01)
 # stated tolerances of the two new kernels against their plain versions
 K4_ATOL = 1e-5
 K5_RTOL, K5_ATOL = 2e-5, 2e-4
@@ -363,8 +404,8 @@ def phase_kernels(mp) -> dict:
         prepare_physics_tables
     model = headline_model()
     tables = prepare_physics_tables(mp, model, DEV)
-    full_tables = prepare_physics_tables(
-        mp, headline_model(resolve_mode='persample'), DEV)
+    # full-table mode: the same tables without their static row list
+    full_tables = dict(tables, rows=tables['rows'][:0])
     C, W, Lp = tables['env'].shape[0], tables['bas'].shape[3], \
         tables['env'].shape[2]
     ck = 256
@@ -513,6 +554,134 @@ def phase_kernels(mp) -> dict:
                 library_ms=None)
 
 
+def phase_k2_ar1(mp) -> dict:
+    """K2 with AR(1) ADC noise at the main path's windows (262144 x 8):
+    against its plain version on the same streamed whites and initial
+    states (the kernel colors them by its warp scan, the plain version by
+    a triangular product per chunk), stated tolerance rtol 1e-4 / atol
+    1e-3; on its own Philox draws, the variance of each window's noise
+    projection against the closed form ``sigma^2 a^2 sum_{s,t} rho^|s-t|
+    Re(z_s conj(z_t))`` within 5 standard errors; and one epoch timed
+    beside the white kernel in turns, events and device time."""
+    import torch
+    from distributed_processor_tpu_torch.ops.resolve import (
+        build_prefix_tables, resolve_windows_fused,
+        resolve_windows_reference)
+    from distributed_processor_tpu_torch.sim.physics import \
+        prepare_physics_tables
+    rho, ck = AR1['rho'], AR1['ck']
+    tables = prepare_physics_tables(mp, headline_model(), DEV)
+    C, W, Lp = tables['env'].shape[0], tables['bas'].shape[3], \
+        tables['env'].shape[2]
+    B, sigma = HEADLINE['batch'], float(HEADLINE['sigma'])
+
+    # (1) the same whites and initial states into both
+    sc, gs_i, gs_q = resolve_inputs(tables, B, seed=21)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    white = torch.randn((2, C, B, W), generator=gen, device=DEV).mul_(sigma)
+    init = torch.randn((2, C, B), generator=gen, device=DEV).mul_(sigma)
+    args = (sc, tables, gs_i, gs_q, sigma, 0.0, 7, W, Lp)
+    got = resolve_windows_fused(*args, noise=white, noise0=init, rho=rho)
+    want = resolve_windows_reference(*args, noise=white, noise0=init,
+                                     rho=rho, ck=ck)
+    sync()
+    worst, ratio = 0.0, 0.0
+    for name, g, w in zip(('acc_i', 'acc_q', 'energy'), got, want):
+        err = (g - w).abs()
+        tol = AR1['rtol'] * w.abs() + AR1['atol']
+        bad = err > tol
+        check(not bool(bad.any()),
+              f'K2 AR(1): {name} differs from the plain version at '
+              f'{int(bad.sum())} windows (max |err| {float(err.max()):.3e})')
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / tol).max()))
+    print(f'K2 AR(1) rho={rho} vs plain on streamed whites (B={B} C={C} '
+          f'W={W}, a quarter of the windows short): agree within rtol '
+          f"{AR1['rtol']} / atol {AR1['atol']}, max |err| {worst:.3e}, "
+          f'max |err|/tol {ratio:.3f}')
+    del white, init, got, want
+    torch.cuda.empty_cache()
+
+    # (2) the kernel's own draws against the closed form, full windows
+    sc, gs_i, gs_q = resolve_inputs(tables, B, seed=23, full_windows=True)
+    args = (sc, tables, gs_i, gs_q)
+    clean = resolve_windows_fused(*args, 0.0, 0.0, 7, W, Lp)
+    noisy = resolve_windows_fused(*args, sigma, 0.0, 7, W, Lp, rho=rho,
+                                  epoch=1)
+    pre = build_prefix_tables(tables)
+    z = pre['z'].double()
+    z = torch.complex(z[..., 0], z[..., 1])                  # [C, R, F, W]
+    idx = torch.arange(W, device=DEV, dtype=torch.float64)
+    K = rho ** (idx[:, None] - idx[None, :]).abs()
+    q = torch.einsum('crfs,st,crft->crf', z, K.to(z.dtype), z.conj()).real
+    rows = tables['rows']
+    r_idx = (sc['addr'][..., 0, None] == rows).int().argmax(-1)   # [B, C]
+    c_idx = torch.arange(C, device=DEV)[None, :].expand(B, C)
+    lane_q = q[c_idx, r_idx, sc['f_idx'][..., 0].long()]
+    norm = sigma * sc['amp'][..., 0].double() * lane_q.sqrt()
+    n = B * C
+    for comp in (0, 1):
+        d = ((noisy[comp] - clean[comp]).double() / norm).flatten()
+        var, mean = float(d.var()), float(d.mean())
+        check(abs(var - 1.0) < 5 * math.sqrt(2.0 / n)
+              and abs(mean) < 5 * math.sqrt(1.0 / n),
+              f'K2 AR(1) Philox noise: normalised projection mean {mean:.5f}'
+              f' var {var:.5f} (closed form: 0 and 1, tolerances '
+              f'{5 * math.sqrt(1.0 / n):.5f} / {5 * math.sqrt(2.0 / n):.5f})')
+        print(f"K2 AR(1) Philox draws, {'IQ'[comp]}: the projection over "
+              f'its closed-form sd has mean {mean:.5f} and variance '
+              f'{var:.5f} over {n} windows (5 SE: {5 * math.sqrt(1 / n):.5f}'
+              f' / {5 * math.sqrt(2 / n):.5f}); white noise would give '
+              f'{float((pre["p1"][..., -1].double() / q).mean()):.4f}')
+
+    # (3) one epoch, white and AR(1), in turns
+    white_args = args + (sigma, 0.0, 7, W, Lp)
+    run = {'white': lambda: resolve_windows_fused(*white_args),
+           'ar1': lambda: resolve_windows_fused(*white_args, rho=rho)}
+    turns = {'white': [], 'ar1': []}
+    for mode in ('white', 'ar1', 'ar1', 'white'):
+        turns[mode].append(cuda_time_ms(run[mode], reps=10))
+    dev = {mode: _kernel_ms(run[mode], 10, match='resolve_rows')
+           for mode in ('white', 'ar1')}
+    ms = sum(turns['ar1']) / 2
+    white_ms = sum(turns['white']) / 2
+    plain_ms = cuda_time_ms(lambda: resolve_windows_reference(
+        *white_args, rho=rho, ck=ck), reps=2)
+    windows = B * C
+    noisy_n = float(sc['n_samp'].clamp(0, W).sum())
+    nbytes = windows * (8 * 4 + 3 * 4) + _nbytes(
+        pre['p1'], pre['pw'], pre['z'], tables['rows'])
+    per_s = H100_SMS * H100_CLOCK_HZ / 1e3                   # per ms
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_issue = (noisy_n * (K2_SAMPLE_INSTR + K2_AR1_SAMPLE_INSTR)
+               + windows * K2_WINDOW_INSTR) / (ISSUE_PER_CLK * per_s)
+    t_sfu = noisy_n * K2_SAMPLE_SFU / (SFU_PER_CLK * per_s)
+    t_mul = noisy_n * K2_SAMPLE_IMUL / (IMUL_PER_CLK * per_s)
+    bound_ms = max(t_bytes, t_issue, t_sfu, t_mul)
+    # the warp scan's own cost, beside the bound
+    scan_issue = noisy_n * K2_AR1_SCAN_INSTR / (ISSUE_PER_CLK * per_s)
+    scan_shfl = noisy_n * K2_AR1_SCAN_SHFL / (SHFL_PER_CLK * per_s)
+    print(f'K2 epoch at B={B} C={C} W={W}, sigma={sigma}, in turns (white, '
+          f"AR(1), AR(1), white): white {turns['white'][0]:.4f}, "
+          f"{turns['white'][1]:.4f} ms; AR(1) {turns['ar1'][0]:.4f}, "
+          f"{turns['ar1'][1]:.4f} ms (x{ms / white_ms:.3f}); device white "
+          f"{_device_note(dev['white'])}, AR(1) {_device_note(dev['ar1'])} "
+          f'ms; plain {plain_ms:.3f} ms; AR(1) bound {bound_ms:.4f} ms '
+          f'(issue {t_issue:.4f}, special-function {t_sfu:.4f}, multiplies '
+          f'{t_mul:.4f}, bytes {t_bytes:.4f} ms); the warp scan alone '
+          f'issues {K2_AR1_SCAN_INSTR} instructions per sample '
+          f'({scan_issue:.4f} ms) of which {K2_AR1_SCAN_SHFL} shuffles '
+          f'({scan_shfl:.4f} ms on the shuffle pipe)')
+    return dict(name='resolve_windows_ar1', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/resolve.cu',
+                replaces='distributed_processor_tpu/ops/resolve_pallas.py:196',
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by='operations' if bound_ms > t_bytes else 'bytes',
+                library_ms=None)
+
+
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes by."""
     from distributed_processor_tpu_torch.ops.demod import demod_iq
@@ -540,6 +709,26 @@ def _launches() -> dict:
 def _only_launched(counts: dict, *names) -> bool:
     """No kernel outside ``names`` was launched."""
     return not any(n for name, n in counts.items() if name not in names)
+
+
+def _k2_launches(kernels: dict) -> tuple:
+    """K2's launches among a profiled run's kernels (``{name: [us,
+    count]}``): all of them, and those of its AR(1) instantiations,
+    whose last template argument is ``AR1`` (``resolve_rows_noisy<STREAM,
+    SMEM_Z, AR1>``, ``resolve_full_table<AR1>``): ``true`` in a
+    demangled name, ``Lb1E`` last in a mangled one."""
+    import re
+    total = ar1 = 0
+    for name, (_us, n) in kernels.items():
+        if not re.search(r'resolve_(rows_|full_table)', name):
+            continue
+        total += n
+        m = re.search(r'resolve_(?:rows_noisy|full_table)<([^<>]*)>', name)
+        if (m and m.group(1).split(',')[-1].strip() in ('true', '1')) or \
+                re.search(r'resolve_(?:rows_noisy|full_table)I(?:Lb[01]E)*'
+                          r'Lb1EE', name):
+            ar1 += n
+    return total, ar1
 
 
 def _max_abs_diff(a: dict, b: dict, what: str) -> float:
@@ -2082,6 +2271,293 @@ def phase_lut_physics(env) -> dict:
                 noisy_s=noisy_dt, noisy_epochs=epochs)
 
 
+def _physics_batch(mp, model, seed: int, B: int, cfg, device=None,
+                   **kw) -> dict:
+    from distributed_processor_tpu_torch.sim.physics import run_physics_batch
+    return run_physics_batch(mp, model, seed, B, cfg=cfg,
+                             device=device or DEV, **kw)
+
+
+def _steady(label: str, run, env, k2_expected: bool = True) -> dict:
+    """One warm batch, then one timed batch with every launch count set
+    to 0 just before it, then one under the profiler: the wall, epochs,
+    steps and launches of the timed batch, K2's device ms and the
+    device's busy share.  Returns the timed batch's outputs and
+    numbers."""
+    int(run(0)['epochs'])
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = run(1)
+    epochs = int(out['epochs'])
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _launches()
+    check(not bool(out['incomplete']), f'{label}: shots left incomplete')
+    check(not bool(out['fault'].any()), f'{label}: faulted shots')
+    check(bool(out['meas_bits_valid'][
+        torch_arange(out['meas_bits'].shape[-1])
+        < out['n_meas'][..., None]].all()),
+        f'{label}: fired measurement slots left unresolved')
+    k2 = counts['resolve_windows']
+    if k2_expected:
+        check(k2 == epochs and epochs > 0,
+              f'{label}: K2 launched {k2} times in {epochs} epochs')
+    else:
+        check(k2 == 0, f'{label}: K2 launched {k2} times')
+    check(_only_launched(counts, 'resolve_windows'),
+          f'{label}: other kernels launched: {counts}')
+    pwall, kernels = device_kernel_times(lambda: int(run(2)['epochs']))
+    busy = sum(us for us, _n in kernels.values()) / 1e6
+    k2_ms = sum(us for name, (us, _n) in kernels.items()
+                if 'resolve_' in name) / 1e3
+    k2_prof, k2_ar1 = _k2_launches(kernels)
+    n_launch = sum(n for _us, n in kernels.values())
+    fired = torch_arange(out['meas_bits'].shape[-1]) \
+        < out['n_meas'][..., None]
+    fid = float((out['meas_bits'] == out['meas_state'])[fired]
+                .float().mean())
+    print(f'{label}: steady batch {wall:.3f} s ({out["meas_bits"].shape[0]}'
+          f' shots, {out["meas_bits"].shape[0] / wall:.1f} shots/s), epochs '
+          f"{epochs}, steps {int(out['steps'])}, K2 launches {k2} (profiled "
+          f'batch: {k2_prof}, {k2_ar1} of them AR(1)), K2 device '
+          f'{k2_ms:.3f} ms per batch; profiled batch wall {pwall:.4f} s, device busy '
+          f'{busy:.4f} s ({100 * busy / pwall:.1f}%, idle '
+          f'{100 - 100 * busy / pwall:.1f}%), {n_launch} kernel launches; '
+          f'readout fidelity (bit = sampled state) {fid:.5f} on '
+          f'{env["smi"]}')
+    return dict(out=out, wall=wall, epochs=epochs, counts=counts,
+                k2_ms=k2_ms, k2_prof=k2_prof, k2_ar1=k2_ar1, busy=busy,
+                pwall=pwall, fidelity=fid)
+
+
+def torch_arange(n: int):
+    import torch
+    return torch.arange(n, device=DEV)
+
+
+def cw_headline(mp):
+    """The headline with every readout's env word patched to the CW
+    sentinel (its table address kept), and the finite window's samples:
+    a CW readout at that horizon reads exactly the finite window."""
+    import copy
+    import numpy as np
+    from distributed_processor_tpu_torch.elements import ENV_CW_SENTINEL
+    meas = (np.asarray(mp.soa.p_cfg) & 0b11) == 2
+    check(bool(meas.any()), 'the headline has no readout rows')
+    envw = np.asarray(mp.soa.p_env)[meas]
+    n_words = (envw >> 12) & 0xfff
+    check(len(set(n_words.tolist())) == 1,
+          f'the headline readouts have several lengths: {set(n_words)}')
+    interp = {int(t.elem_cfgs[2].interp_ratio) for t in mp.tables}
+    check(len(interp) == 1, f'readout interpolation differs: {interp}')
+    n_samp = int(n_words[0]) * 4 * interp.pop()
+    cw_mp = copy.deepcopy(mp)
+    cw_mp.soa.p_env[meas] = (ENV_CW_SENTINEL << 12) | (envw & 0xfff)
+    return cw_mp, n_samp
+
+
+def phase_readout_models(mp, env) -> int:
+    """The headline at 262144 shots under each readout model of the port:
+    the analytic closed form (no K2 launch), AR(1) ADC noise (K2's AR(1)
+    mode), the resonator ring-up, and CW readout (the readout env words
+    patched to the CW sentinel, at a horizon of the finite window: its
+    bits identical to the finite run of the same seed).  The profiler
+    shows which K2 instantiation ran: the AR(1) one in every K2 launch of
+    the AR(1) run, in none of the others.  Returns K2's launches in the
+    AR(1) run."""
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        resolve_engine
+    from distributed_processor_tpu_torch.sim.physics import physics_config
+    B = HEADLINE['batch']
+    cfg = headline_config(mp)
+    cw_mp, n_samp = cw_headline(mp)
+    runs = (
+        ('analytic', mp, headline_model(resolve_mode='analytic',
+                                        sigma=READOUT['analytic_sigma'])),
+        (f"AR(1) rho={READOUT['ar1']}", mp,
+         headline_model(resolve_mode='persample',
+                        noise_ar1=READOUT['ar1'])),
+        (f"ring_tau={READOUT['ring_tau']}", mp,
+         headline_model(ring_tau=READOUT['ring_tau'])),
+        (f'CW horizon {n_samp}', cw_mp, headline_model(cw_horizon=n_samp)))
+    ar1_launches = 0
+    for label, prog, model in runs:
+        eng = resolve_engine(prog, physics_config(cfg, model), DEV)
+        check(eng == 'straightline', f'{label} resolves to {eng!r}')
+        res = _steady(f'readout model {label}', lambda k, p=prog, m=model:
+                      _physics_batch(p, m, 3000 + k, B, cfg), env,
+                      k2_expected=model.resolve_mode != 'analytic')
+        for seed in (3003, 3004):
+            if res['k2_prof'] or model.resolve_mode == 'analytic':
+                break
+            # the profiler can lose a batch's events; profile another
+            _wall, kernels = device_kernel_times(
+                lambda p=prog, m=model, k=seed: int(_physics_batch(
+                    p, m, k, B, cfg)['epochs']))
+            res['k2_prof'], res['k2_ar1'] = _k2_launches(kernels)
+        want_ar1 = res['k2_prof'] if model.noise_ar1 > 0 else 0
+        check(res['k2_ar1'] == want_ar1,
+              f"{label}: {res['k2_ar1']} of {res['k2_prof']} profiled K2 "
+              f'launches ran the AR(1) instantiation, not {want_ar1}')
+        if model.noise_ar1 > 0:
+            check(res['k2_prof'] > 0, f'{label}: no K2 launch profiled')
+            ar1_launches = res['counts']['resolve_windows']
+        if model.cw_horizon:
+            fin = _physics_batch(mp, headline_model(), 3001, B, cfg)
+            check(bool((fin['meas_bits'] == res['out']['meas_bits']).all()),
+                  'CW readout at the finite horizon changed bits')
+            print(f'CW readout at horizon {n_samp}: all {B} x {mp.n_cores}'
+                  f' x 2 bits identical to the finite program of the same '
+                  f'seed')
+        del res
+    return ar1_launches
+
+
+@contextlib.contextmanager
+def _shared_meas_uniforms():
+    """Within the block, every device's run reads the CPU generator's
+    measurement uniforms (moved to the device): the card draws its own
+    on the card, from another generator, so a card = CPU hold needs one
+    draw for both."""
+    from distributed_processor_tpu_torch.sim import physics
+    draw = physics._meas_uniforms
+    physics._meas_uniforms = lambda seed, shots, C, M, device: draw(
+        seed, shots, C, M, 'cpu').to(device)
+    try:
+        yield
+    finally:
+        physics._meas_uniforms = draw
+
+
+def phase_bloch_path(mp, env) -> int:
+    """The headline with ``DeviceModel('bloch', ...)`` at 262144 shots:
+    the straight-line engine plus K2 per epoch; then card = CPU at
+    sigma = 0 on 4096 shots with the same initial states and the same
+    measurement uniforms (:func:`_shared_meas_uniforms`): bits
+    identical but for tie lanes (a uniform within 1e-6 of its P(1),
+    counted, their shots set aside), ``bloch`` to atol 1e-5.  Returns
+    K2's launches."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.sim.device import DeviceModel
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        resolve_engine
+    from distributed_processor_tpu_torch.sim.physics import (
+        _meas_uniforms, physics_config)
+    B = HEADLINE['batch']
+    dev_model = DeviceModel('bloch', **BLOCH['device'])
+    model = headline_model(device=dev_model)
+    cfg = headline_config(mp)
+    eng = resolve_engine(mp, physics_config(cfg, model), DEV)
+    check(eng == 'straightline', f'the bloch headline resolves to {eng!r}')
+    res = _steady('bloch path', lambda k: _physics_batch(
+        mp, model, 4000 + k, B, cfg), env)
+    out = res['out']
+    check(not bool(out['err'].any()), 'bloch path: errored shots')
+    p1 = out['meas_p1']
+    check(bool(torch.isfinite(out['bloch']).all())
+          and bool(((p1 >= 0) & (p1 <= 1)).all()),
+          'bloch path: a Bloch vector or P(1) out of range')
+    launches = res['epochs']
+    del res, out
+    # card = CPU
+    Bc, C = BLOCH['cpu_batch'], mp.n_cores
+    init = np.random.default_rng(41).integers(0, 2, (Bc, C))
+    model0 = headline_model(sigma=0.0, device=dev_model)
+    with _shared_meas_uniforms():
+        outs = {d: _physics_batch(mp, model0, 42, Bc, cfg, device=d,
+                                  init_states=init) for d in (DEV, 'cpu')}
+    u = _meas_uniforms(42, Bc, C, cfg.max_meas, 'cpu')
+    cpu = outs['cpu']
+    fired = torch.arange(cfg.max_meas)[None, None, :] \
+        < cpu['n_meas'][..., None]
+    tie = (fired & ((u - cpu['meas_p1']).abs() < 1e-6)).any(-1).any(-1)
+    keep = ~tie
+    card = {k: v.cpu() for k, v in outs[DEV].items()}
+    for key in ('meas_bits', 'meas_bits_valid', 'n_pulses', 'err', 'fault'):
+        check(torch.equal(card[key][keep], cpu[key][keep]),
+              f'bloch card vs CPU: {key} differs off the tie lanes')
+    dmax = float((card['bloch'][keep] - cpu['bloch'][keep]).abs().max())
+    check(dmax <= 1e-5, f'bloch card vs CPU: bloch differs by {dmax:.3e}')
+    print(f'bloch path card vs CPU (B={Bc}, sigma=0): bits identical on '
+          f'{int(keep.sum())} shots, {int(tie.sum())} shots with a tie lane '
+          f'set aside; max |bloch diff| {dmax:.3e} (atol 1e-5)')
+    return launches
+
+
+def phase_statevec_path(env) -> int:
+    """The statevec device on the generic engine plus K2: GHZ-8 through
+    the compiled CNOT chain (the event gate, 7 couplings) at sigma = 0,
+    every shot's 8 bits equal; then 2-qubit interleaved RB with
+    coupling-induced leakage, 2q depolarization and IQ-level 3-class
+    readout at 262144 shots.  Returns K2's launches in the RB run."""
+    import numpy as np
+    from distributed_processor_tpu_torch import compile_to_machine
+    from distributed_processor_tpu_torch.models import (
+        couplings_from_qchip, ghz_program, make_default_qchip,
+        rb2q_interleaved_program)
+    from distributed_processor_tpu_torch.sim.device import DeviceModel
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        InterpreterConfig, resolve_engine)
+    from distributed_processor_tpu_torch.sim.physics import physics_config
+    n = STATEVEC['ghz_qubits']
+    qchip = make_default_qchip(n)
+    mp = compile_to_machine(ghz_program([f'Q{i}' for i in range(n)]), qchip,
+                            n_qubits=n)
+    cps = couplings_from_qchip(mp, qchip)
+    check(len(cps) == n - 1, f'GHZ-{n} couples {len(cps)} pairs')
+    model = headline_model(sigma=0.0, p1_init=0.0, device=DeviceModel(
+        'statevec', couplings=cps))
+    cfg = InterpreterConfig(max_steps=4000, max_pulses=64, max_meas=2,
+                            max_resets=2, record_pulses=False)
+    eng = resolve_engine(mp, physics_config(cfg, model), DEV)
+    check(eng == 'generic', f'GHZ-{n} resolves to {eng!r}')
+    B = STATEVEC['ghz_batch']
+    init = np.zeros((B, n), np.int32)
+    res = _steady(f'statevec GHZ-{n}', lambda k: _physics_batch(
+        mp, model, 5000 + k, B, cfg, init_states=init), env)
+    out = res['out']
+    bits = out['meas_bits'][:, :, 0]
+    check(not bool(out['err'].any()), f'GHZ-{n}: errored shots')
+    check(bool((bits == bits[:, :1]).all()),
+          f'GHZ-{n}: bits disagree across the chain')
+    mean = float(bits[:, 0].float().mean())
+    check(abs(mean - 0.5) < 5 * 0.5 / math.sqrt(B),
+          f'GHZ-{n}: P(1) {mean:.5f} is not 1/2')
+    print(f'statevec GHZ-{n}: {B} shots, every shot\'s {n} bits equal, '
+          f'P(1) {mean:.5f}')
+    del res, out, bits
+    # 2-qubit interleaved RB with leakage and IQ-level readout
+    q2 = make_default_qchip(2)
+    prog, info = rb2q_interleaved_program('Q0', 'Q1', STATEVEC['rb_depth'],
+                                          seed=STATEVEC['rb_seed'])
+    mp2 = compile_to_machine(prog, q2, n_qubits=2)
+    model2 = headline_model(
+        sigma=STATEVEC['sigma'], p1_init=0.0, g2=STATEVEC['g2'],
+        classify3=True, device=DeviceModel(
+            'statevec', couplings=couplings_from_qchip(mp2, q2),
+            leak2_per_pulse=STATEVEC['leak2'],
+            depol2_per_pulse=STATEVEC['depol2']))
+    cfg2 = InterpreterConfig(max_steps=8000, max_pulses=192, max_meas=4,
+                             max_resets=2, record_pulses=False)
+    B2 = STATEVEC['rb_batch']
+    res = _steady(f"statevec 2q interleaved RB depth {STATEVEC['rb_depth']}"
+                  f" ({info['n_cz']} CZ), leakage + IQ 3-class",
+                  lambda k: _physics_batch(mp2, model2, 5100 + k, B2, cfg2),
+                  env)
+    out = res['out']
+    check(not bool(out['err'].any()), '2q RB: errored shots')
+    leaked = float(out['leaked'].float().mean())
+    fired = torch_arange(cfg2.max_meas) < out['n_meas'][..., None]
+    cls2 = float((out['meas_class'] == 2)[fired].float().mean())
+    surv = float((out['meas_bits'][:, :, 0] == 0).all(-1).float().mean())
+    check(leaked > 0 and cls2 > 0, f'2q RB: no leakage seen ({leaked})')
+    print(f"statevec 2q RB: {B2} shots, leaked {leaked:.5f} per core, class "
+          f'2 {cls2:.5f} of readouts, survival {surv:.5f}')
+    return res['epochs']
+
+
 def device_kernel_times(fn) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only);
     returns its wall time in s and ``{kernel name: [device us, count]}``,
@@ -2244,6 +2720,8 @@ def main() -> int:
     mp = headline_program()
     resolve = timed(phase_kernels, mp)
     torch.cuda.empty_cache()
+    resolve_ar1 = timed(phase_k2_ar1, mp)
+    torch.cuda.empty_cache()
     k1 = timed(phase_k1, mp, env)
     k3 = timed(phase_k3, mp, env)
     torch.cuda.empty_cache()
@@ -2262,6 +2740,11 @@ def main() -> int:
     lut_span = timed(phase_lut_span, env)
     lut_block = timed(phase_lut_block, env)
     lut_phys = timed(phase_lut_physics, env)
+    torch.cuda.empty_cache()
+    resolve_ar1['launches'] = timed(phase_readout_models, mp, env)
+    timed(phase_bloch_path, mp, env)
+    torch.cuda.empty_cache()
+    timed(phase_statevec_path, env)
     torch.cuda.empty_cache()
     counts = timed(phase_render_path, env)
     k4['launches'] = counts['render_shot']
@@ -2287,8 +2770,8 @@ def main() -> int:
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'library_ms')
     print(json.dumps({'kernels': [{k: kernel[k] for k in order}
-                                  for kernel in (resolve, k1, k3, k4,
-                                                 k5, k1_block)]}))
+                                  for kernel in (resolve, resolve_ar1, k1,
+                                                 k3, k4, k5, k1_block)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -51,11 +51,33 @@
 // scaled by sigma), so the kernel and the plain torch version can see
 // identical noise.
 //
-// Full-table mode (no static rows: resolve_mode='persample', or more than
-// 8 static addresses; not on the main path) keeps the per-sample chain,
-// one thread per window, with accurate log, sqrt and sincospi on 24-bit
-// uniforms, as the port first wrote it: it serves as the same-call
+// Full-table mode (no static rows: a register-sourced envelope word, or
+// more than 8 static addresses; not on the main path) keeps the per-sample
+// chain, one thread per window, with accurate log, sqrt and sincospi on
+// 24-bit uniforms, as the port first wrote it: it serves as the same-call
 // comparison with the rows-mode design.
+//
+// AR(1) ADC noise (rho > 0; the colored branch of the TPU package's
+// physics._resolve).  Per window and per I/Q stream the noise is
+//   n_t = rho n_{t-1} + c w_t,  c = sqrt(1 - rho^2),  n_{-1} ~ N(0, 1),
+// w_t the unit whites above (scaled by sigma like them), so the stream is
+// stationary with unit variance; the matched filter then projects n as
+// it projects white noise.  The TPU formulation, a triangular [chunk,
+// chunk] product per chunk with one sample carried across chunks, stays
+// the plain version (ops/resolve.py).  Here the recursion is a warp scan:
+// a warp walks its window 64 samples per iteration, lane l holding
+// samples 2l and 2l + 1, whose two steps compose into one affine map
+// n -> rho^2 n + c (rho w_{2l} + w_{2l+1}); an inclusive Hillis-Steele
+// scan of the maps (5 shuffle steps; the slopes are powers of rho known
+// in advance, so only the intercepts are shuffled) gives every lane's
+// odd sample from the iteration's carry, one more shuffle the even one,
+// and lane 31's odd sample is the next carry.  n_{-1} is one extra
+// Philox call per window (counter pair index 0xffffffff).  The
+// full-table kernel, one thread per window, runs the recursion as it is.
+// With `noise` streamed, it holds the whites and `noise0` [2, C, B] the
+// initial states (both scaled by sigma), so the kernel and the plain
+// version color the same numbers.  The white-noise kernels are other
+// instantiations of the same templates (AR1 = false) and unchanged.
 //
 // Bound on this card.  Device memory sees ~10 scalars in and 3 out per
 // window (0.09 GB per epoch at B = 262144, C = 8: 0.03 ms at 3.35 TB/s);
@@ -68,7 +90,11 @@
 // at 1.98 GHz.  The design does nothing per sample that the noise does
 // not need; what the compiled loop issues beyond that (round keys, loop
 // control, the odd-tail select) and the multiply and special-function
-// pipes' latencies keep it above.
+// pipes' latencies keep it above.  AR(1) adds, per sample and stream,
+// about 2 FMAs (the lane's map and its even sample) and, per 64 samples,
+// 5 compose steps of a shuffle and an FMA per stream, the even sample's
+// shuffle and the carry broadcast: chip_smoke.py restates the bound with
+// these counts (the shuffles issue at a quarter of the FMA rate).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -206,14 +232,120 @@ __global__ void resolve_rows_clean(Lanes in, const int* __restrict__ rows,
   out.energy[lane] = w.energy;
 }
 
-// rows mode with noise: one warp per window, its lanes over sample pairs
+// the counter pair index of a window's AR(1) initial state
+constexpr uint32_t AR1_INIT_PAIR = 0xffffffffu;
+
+// one sample pair of a window's z row, (z(2p), z(2p+1)), zero past the
+// pairs of the window
+template <bool SMEM_Z>
+__device__ __forceinline__ float4 z_pair(const Window& w, int c, int p,
+                                         int n_pairs, int wh, int n_zrows,
+                                         int W, const float4* zs,
+                                         const float2* __restrict__ z) {
+  if (p >= n_pairs) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (SMEM_Z) return zs[(size_t)(w.zrow - c * n_zrows) * wh + p];
+  const float2* zr = z + (size_t)w.zrow * W;
+  const float2 z0 = zr[2 * p];
+  const float2 z1 = 2 * p + 1 < w.n ? zr[2 * p + 1] : make_float2(0.f, 0.f);
+  return make_float4(z0.x, z0.y, z1.x, z1.y);
+}
+
+// the AR(1) projection sum_{s<n} n(s) conj(z(s)) of one window, this
+// lane's share in (x, y): the warp walks 64 samples per iteration and
+// scans the lanes' affine maps (see the header); every lane of the warp
+// runs every iteration (the window's n is warp-uniform)
 template <bool STREAM, bool SMEM_Z>
+__device__ __forceinline__ void ar1_window(
+    const Window& w, int c, int b, int B, int C, int W, int wh, int n_zrows,
+    int n_pairs, int lane_id, const float4* zs, const float2* __restrict__ z,
+    const float* n_i, const float* n_q, const float* __restrict__ noise0,
+    float rho, const PhiloxKey& key, uint32_t epoch, float* x, float* y) {
+  const unsigned full = 0xffffffffu;
+  const float cr = sqrtf(fmaxf(1.0f - rho * rho, 0.0f));
+  // every lane's map has the slope rho^2, so after the scan step of
+  // offset o a lane l >= o composes with the slope rho^(2o) of a full
+  // segment: pw[k] = rho^(2 * 2^k), and the lane's whole prefix has the
+  // slope rho^(2(l + 1)); only the intercepts need shuffles
+  float pw[6];
+  pw[0] = rho * rho;
+#pragma unroll
+  for (int k = 1; k < 6; ++k) pw[k] = pw[k - 1] * pw[k - 1];
+  float a = 1.0f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    if (((lane_id + 1) >> k) & 1) a *= pw[k];
+  float car_i, car_q;        // n at the sample before the iteration's first
+  if (STREAM) {
+    car_i = noise0[(size_t)c * B + b];
+    car_q = noise0[(size_t)(C + c) * B + b];
+  } else {
+    const uint4 bits = philox(
+        make_uint4(AR1_INIT_PAIR, (uint32_t)b, (uint32_t)c, epoch), key);
+    const float2 n = box_muller_fast(bits.x, bits.y);
+    car_i = n.x;
+    car_q = n.y;
+  }
+  for (int p0 = 0; p0 < n_pairs; p0 += 32) {
+    const int p = p0 + lane_id;
+    const int s = 2 * p;
+    const bool first = s < w.n, second = s + 1 < w.n;
+    float2 w0, w1;           // this lane's two whites
+    if (STREAM) {
+      w0 = first ? make_float2(n_i[s], n_q[s]) : make_float2(0.f, 0.f);
+      w1 = second ? make_float2(n_i[s + 1], n_q[s + 1])
+                  : make_float2(0.f, 0.f);
+    } else {
+      const uint4 bits = philox(
+          make_uint4((uint32_t)p, (uint32_t)b, (uint32_t)c, epoch), key);
+      w0 = box_muller_fast(bits.x, bits.y);
+      w1 = box_muller_fast(bits.z, bits.w);
+    }
+    // the pair's map n_{s-1} -> n_{s+1}, then its inclusive scan
+    float bi = cr * fmaf(rho, w0.x, w1.x);
+    float bq = cr * fmaf(rho, w0.y, w1.y);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int o = 1 << k;
+      const float bip = __shfl_up_sync(full, bi, o);
+      const float bqp = __shfl_up_sync(full, bq, o);
+      if (lane_id >= o) {
+        bi = fmaf(pw[k], bip, bi);
+        bq = fmaf(pw[k], bqp, bq);
+      }
+    }
+    const float n1i = fmaf(a, car_i, bi), n1q = fmaf(a, car_q, bq);
+    float qi = __shfl_up_sync(full, n1i, 1), qq = __shfl_up_sync(full, n1q, 1);
+    if (lane_id == 0) {
+      qi = car_i;
+      qq = car_q;
+    }
+    const float n0i = fmaf(rho, qi, cr * w0.x);
+    const float n0q = fmaf(rho, qq, cr * w0.y);
+    car_i = __shfl_sync(full, n1i, 31);
+    car_q = __shfl_sync(full, n1q, 31);
+    const float4 zz =
+        z_pair<SMEM_Z>(w, c, p, n_pairs, wh, n_zrows, W, zs, z);
+    const float2 n0 = first ? make_float2(n0i, n0q) : make_float2(0.f, 0.f);
+    const float2 n1 = second ? make_float2(n1i, n1q) : make_float2(0.f, 0.f);
+    *x = fmaf(n0.x, zz.x, *x);
+    *x = fmaf(n0.y, zz.y, *x);
+    *x = fmaf(n1.x, zz.z, *x);
+    *x = fmaf(n1.y, zz.w, *x);
+    *y = fmaf(n0.y, zz.x, *y);
+    *y = fmaf(-n0.x, zz.y, *y);
+    *y = fmaf(n1.y, zz.z, *y);
+    *y = fmaf(-n1.x, zz.w, *y);
+  }
+}
+
+// rows mode with noise: one warp per window, its lanes over sample pairs
+template <bool STREAM, bool SMEM_Z, bool AR1>
 __global__ void __launch_bounds__(THREADS) resolve_rows_noisy(
     Lanes in, const int* __restrict__ rows, int n_rows,
     const float* __restrict__ p1, const float* __restrict__ pw,
     const float2* __restrict__ z, const float* __restrict__ noise,
-    float sigma, uint32_t k0, uint32_t k1, uint32_t epoch, int B, int C,
-    int W, int F, Outs out) {
+    const float* __restrict__ noise0, float rho, float sigma, uint32_t k0,
+    uint32_t k1, uint32_t epoch, int B, int C, int W, int F, Outs out) {
   extern __shared__ float4 zs[];
   const int c = blockIdx.y;
   const int wh = (W + 1) >> 1;          // pairs per z row
@@ -241,39 +373,45 @@ __global__ void __launch_bounds__(THREADS) resolve_rows_noisy(
     const float* n_q = STREAM ? noise + ((size_t)(C + c) * B + b) * W
                               : nullptr;
     float x = 0.0f, y = 0.0f;   // sum nz(s) conj(z(s)), real and imaginary
-    for (int p = lane_id; p < n_pairs; p += 32) {
-      const int s = 2 * p;
-      const bool second = s + 1 < w.n;
-      float4 zz;
-      if (SMEM_Z) {
-        zz = zs[(size_t)(w.zrow - c * n_zrows) * wh + p];
-      } else {
-        const float2* zr = z + (size_t)w.zrow * W;
-        const float2 z0 = zr[s];
-        const float2 z1 = second ? zr[s + 1] : make_float2(0.f, 0.f);
-        zz = make_float4(z0.x, z0.y, z1.x, z1.y);
+    if (AR1) {
+      ar1_window<STREAM, SMEM_Z>(w, c, b, B, C, W, wh, n_zrows, n_pairs,
+                                 lane_id, zs, z, n_i, n_q, noise0, rho, key,
+                                 epoch, &x, &y);
+    } else {
+      for (int p = lane_id; p < n_pairs; p += 32) {
+        const int s = 2 * p;
+        const bool second = s + 1 < w.n;
+        float4 zz;
+        if (SMEM_Z) {
+          zz = zs[(size_t)(w.zrow - c * n_zrows) * wh + p];
+        } else {
+          const float2* zr = z + (size_t)w.zrow * W;
+          const float2 z0 = zr[s];
+          const float2 z1 = second ? zr[s + 1] : make_float2(0.f, 0.f);
+          zz = make_float4(z0.x, z0.y, z1.x, z1.y);
+        }
+        float2 n0, n1;
+        if (STREAM) {
+          n0 = make_float2(n_i[s], n_q[s]);
+          n1 = second ? make_float2(n_i[s + 1], n_q[s + 1])
+                      : make_float2(0.f, 0.f);
+        } else {
+          const uint4 bits =
+              philox(make_uint4((uint32_t)p, (uint32_t)b, (uint32_t)c, epoch),
+                     key);
+          n0 = box_muller_fast(bits.x, bits.y);
+          n1 = box_muller_fast(bits.z, bits.w);
+          if (!second) n1 = make_float2(0.f, 0.f);
+        }
+        x = fmaf(n0.x, zz.x, x);
+        x = fmaf(n0.y, zz.y, x);
+        x = fmaf(n1.x, zz.z, x);
+        x = fmaf(n1.y, zz.w, x);
+        y = fmaf(n0.y, zz.x, y);
+        y = fmaf(-n0.x, zz.y, y);
+        y = fmaf(n1.y, zz.z, y);
+        y = fmaf(-n1.x, zz.w, y);
       }
-      float2 n0, n1;
-      if (STREAM) {
-        n0 = make_float2(n_i[s], n_q[s]);
-        n1 = second ? make_float2(n_i[s + 1], n_q[s + 1])
-                    : make_float2(0.f, 0.f);
-      } else {
-        const uint4 bits =
-            philox(make_uint4((uint32_t)p, (uint32_t)b, (uint32_t)c, epoch),
-                   key);
-        n0 = box_muller_fast(bits.x, bits.y);
-        n1 = box_muller_fast(bits.z, bits.w);
-        if (!second) n1 = make_float2(0.f, 0.f);
-      }
-      x = fmaf(n0.x, zz.x, x);
-      x = fmaf(n0.y, zz.y, x);
-      x = fmaf(n1.x, zz.z, x);
-      x = fmaf(n1.y, zz.w, x);
-      y = fmaf(n0.y, zz.x, y);
-      y = fmaf(-n0.x, zz.y, y);
-      y = fmaf(n1.y, zz.z, y);
-      y = fmaf(-n1.x, zz.w, y);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -290,12 +428,15 @@ __global__ void __launch_bounds__(THREADS) resolve_rows_noisy(
   }
 }
 
-// full-table mode: the per-sample chain, one thread per window
+// full-table mode: the per-sample chain, one thread per window (with
+// AR(1), the recursion on each sample's white)
+template <bool AR1>
 __global__ void resolve_full_table(
     Lanes in, const float* __restrict__ env, const float* __restrict__ bas,
     const int* __restrict__ interps, const float* __restrict__ noise,
-    float sigma, float inv_ring, int ring, uint32_t k0, uint32_t k1,
-    uint32_t epoch, int B, int C, int W, int Lp, int F, Outs out) {
+    const float* __restrict__ noise0, float rho, float sigma,
+    float inv_ring, int ring, uint32_t k0, uint32_t k1, uint32_t epoch,
+    int B, int C, int W, int Lp, int F, Outs out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const int c = blockIdx.y;
   if (b >= B) return;
@@ -317,6 +458,18 @@ __global__ void resolve_full_table(
 
   float ai = 0.0f, aq = 0.0f, en = 0.0f;
   uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+  const float cr = sqrtf(fmaxf(1.0f - rho * rho, 0.0f));
+  float ar_i = 0.0f, ar_q = 0.0f;     // AR(1) state, scaled by sigma
+  if (AR1) {
+    if (noise != nullptr) {
+      ar_i = noise0[(size_t)c * B + b];
+      ar_q = noise0[(size_t)(C + c) * B + b];
+    } else if (draw) {
+      const uint4 b0 = philox(
+          make_uint4(AR1_INIT_PAIR, (uint32_t)b, (uint32_t)c, epoch), key);
+      box_muller(b0.x, b0.y, sigma, &ar_i, &ar_q);
+    }
+  }
   for (int s = 0; s < ns; ++s) {
     const int k = min(base + s / it, Lp - 1);
     const float ei = e_i[k], eq = e_q[k];
@@ -340,6 +493,12 @@ __global__ void resolve_full_table(
       else
         box_muller(bits.z, bits.w, sigma, &nzi, &nzq);
     }
+    if (AR1) {
+      ar_i = fmaf(rho, ar_i, cr * nzi);
+      ar_q = fmaf(rho, ar_q, cr * nzq);
+      nzi = ar_i;
+      nzq = ar_q;
+    }
     const float ri = w * (gi * yi - gq * yq) + nzi;
     const float rq = w * (gi * yq + gq * yi) + nzq;
     ai += ri * yi + rq * yq;
@@ -351,13 +510,14 @@ __global__ void resolve_full_table(
   out.energy[lane] = en;
 }
 
-template <bool STREAM, bool SMEM_Z>
+template <bool STREAM, bool SMEM_Z, bool AR1>
 cudaError_t launch_noisy(const Lanes& in, const int* rows, int n_rows,
                          const float* p1, const float* pw, const float2* z,
-                         const float* noise, float sigma, uint32_t k0,
-                         uint32_t k1, uint32_t epoch, int B, int C, int W,
-                         int F, const Outs& out, cudaStream_t stream) {
-  auto kernel = resolve_rows_noisy<STREAM, SMEM_Z>;
+                         const float* noise, const float* noise0, float rho,
+                         float sigma, uint32_t k0, uint32_t k1,
+                         uint32_t epoch, int B, int C, int W, int F,
+                         const Outs& out, cudaStream_t stream) {
+  auto kernel = resolve_rows_noisy<STREAM, SMEM_Z, AR1>;
   const size_t smem =
       SMEM_Z ? (size_t)n_rows * F * ((W + 1) / 2) * sizeof(float4) : 0;
   cudaError_t rc = cudaSuccess;
@@ -380,9 +540,34 @@ cudaError_t launch_noisy(const Lanes& in, const int* rows, int n_rows,
   const int want = (64 * sms + C - 1) / C;
   const dim3 grid(per_core < want ? per_core : want, C);
   kernel<<<grid, THREADS, smem, stream>>>(in, rows, n_rows, p1, pw, z, noise,
-                                          sigma, k0, k1, epoch, B, C, W, F,
-                                          out);
+                                          noise0, rho, sigma, k0, k1, epoch,
+                                          B, C, W, F, out);
   return cudaGetLastError();
+}
+
+template <bool AR1>
+cudaError_t launch_rows_noisy(const Lanes& in, const int* rows, int n_rows,
+                              const float* p1, const float* pw,
+                              const float2* z, const float* noise,
+                              const float* noise0, float rho, float sigma,
+                              uint32_t k0, uint32_t k1, uint32_t epoch, int B,
+                              int C, int W, int F, const Outs& out,
+                              cudaStream_t st) {
+  const bool smem =
+      (size_t)n_rows * F * ((W + 1) / 2) * sizeof(float4) <= MAX_SMEM_Z;
+  if (noise != nullptr)
+    return smem ? launch_noisy<true, true, AR1>(
+                      in, rows, n_rows, p1, pw, z, noise, noise0, rho, sigma,
+                      k0, k1, epoch, B, C, W, F, out, st)
+                : launch_noisy<true, false, AR1>(
+                      in, rows, n_rows, p1, pw, z, noise, noise0, rho, sigma,
+                      k0, k1, epoch, B, C, W, F, out, st);
+  return smem ? launch_noisy<false, true, AR1>(
+                    in, rows, n_rows, p1, pw, z, noise, noise0, rho, sigma,
+                    k0, k1, epoch, B, C, W, F, out, st)
+              : launch_noisy<false, false, AR1>(
+                    in, rows, n_rows, p1, pw, z, noise, noise0, rho, sigma,
+                    k0, k1, epoch, B, C, W, F, out, st);
 }
 
 }  // namespace
@@ -393,27 +578,35 @@ cudaError_t launch_noisy(const Lanes& in, const int* rows, int n_rows,
 // (ops/resolve.py build_prefix_tables); env/bas/interps are not read.
 // Full-table mode (n_rows = 0): env is [C, 2, Lp], bas [C, 2, F, W],
 // interps [C]; p1/pw/z are not read.  noise is [2, C, B, W] or null.
+// rho > 0 colors the noise AR(1); then a streamed noise holds the whites
+// and noise0 [2, C, B] the initial states (both scaled by sigma).
 // Returns the launch's cudaError as an int (0 = launched).
 extern "C" int dp_resolve_windows(
     const float* amp, const float* cosa, const float* sina,
     const float* gs_i, const float* gs_q, const int* f_idx,
     const int* addr, const int* nsamp, const float* env, const float* bas,
     const int* rows, int n_rows, const int* interps, const float* p1,
-    const float* pw, const float* z, const float* noise, float sigma,
-    float inv_ring, int ring, unsigned long long seed, int epoch, int B,
-    int C, int W, int Lp, int F, float* acc_i, float* acc_q, float* energy,
-    void* stream) {
+    const float* pw, const float* z, const float* noise,
+    const float* noise0, float rho, float sigma, float inv_ring, int ring,
+    unsigned long long seed, int epoch, int B, int C, int W, int Lp, int F,
+    float* acc_i, float* acc_q, float* energy, void* stream) {
   if ((long long)B * C == 0) return 0;
   const Lanes in = {amp, cosa, sina, gs_i, gs_q, f_idx, addr, nsamp};
   const Outs out = {acc_i, acc_q, energy};
   const cudaStream_t st = (cudaStream_t)stream;
   const uint32_t k0 = (uint32_t)(seed & 0xffffffffull);
   const uint32_t k1 = (uint32_t)(seed >> 32);
+  const bool ar1 = rho != 0.0f;
   if (n_rows == 0) {
     const dim3 grid((B + THREADS - 1) / THREADS, C);
-    resolve_full_table<<<grid, THREADS, 0, st>>>(
-        in, env, bas, interps, noise, sigma, inv_ring, ring, k0, k1,
-        (uint32_t)epoch, B, C, W, Lp, F, out);
+    if (ar1)
+      resolve_full_table<true><<<grid, THREADS, 0, st>>>(
+          in, env, bas, interps, noise, noise0, rho, sigma, inv_ring, ring,
+          k0, k1, (uint32_t)epoch, B, C, W, Lp, F, out);
+    else
+      resolve_full_table<false><<<grid, THREADS, 0, st>>>(
+          in, env, bas, interps, noise, noise0, rho, sigma, inv_ring, ring,
+          k0, k1, (uint32_t)epoch, B, C, W, Lp, F, out);
     return (int)cudaGetLastError();
   }
   if (noise == nullptr && sigma == 0.0f) {
@@ -424,22 +617,11 @@ extern "C" int dp_resolve_windows(
     return (int)cudaGetLastError();
   }
   const float2* z2 = reinterpret_cast<const float2*>(z);
-  const bool smem =
-      (size_t)n_rows * F * ((W + 1) / 2) * sizeof(float4) <= MAX_SMEM_Z;
-  cudaError_t rc;
-  if (noise != nullptr)
-    rc = smem ? launch_noisy<true, true>(in, rows, n_rows, p1, pw, z2, noise,
-                                         sigma, k0, k1, epoch, B, C, W, F,
-                                         out, st)
-              : launch_noisy<true, false>(in, rows, n_rows, p1, pw, z2,
-                                          noise, sigma, k0, k1, epoch, B, C,
-                                          W, F, out, st);
-  else
-    rc = smem ? launch_noisy<false, true>(in, rows, n_rows, p1, pw, z2,
-                                          noise, sigma, k0, k1, epoch, B, C,
-                                          W, F, out, st)
-              : launch_noisy<false, false>(in, rows, n_rows, p1, pw, z2,
-                                           noise, sigma, k0, k1, epoch, B,
-                                           C, W, F, out, st);
-  return (int)rc;
+  const uint32_t ep = (uint32_t)epoch;
+  return (int)(ar1 ? launch_rows_noisy<true>(in, rows, n_rows, p1, pw, z2,
+                                             noise, noise0, rho, sigma, k0,
+                                             k1, ep, B, C, W, F, out, st)
+                   : launch_rows_noisy<false>(in, rows, n_rows, p1, pw, z2,
+                                              noise, noise0, rho, sigma, k0,
+                                              k1, ep, B, C, W, F, out, st));
 }

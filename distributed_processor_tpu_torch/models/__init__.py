@@ -1,6 +1,12 @@
 from .channels import make_channel_config, make_channel_configs
-from .experiments import active_reset
-from .rb import rb_program
+from .experiments import (active_reset, rabi_program, t1_program,
+                          ramsey_program, loop_shots_program, ghz_program,
+                          t2_echo_program)
+from .rb import rb_program, rb_sequence, rb_ensemble, clifford_table
+from .rb2q import (rb2q_program, rb2q_sequence, clifford2_table,
+                   rb2q_interleaved_program, element_index,
+                   depol2_survival, count_cz)
+from .coupling import couplings_from_qchip
 from .default_qchip import make_default_qchip, make_default_qchip_dict
 from .readout import (sample_meas_bits, apply_assignment_error,
                       IQReadoutModel)

@@ -6,16 +6,20 @@ Counterpart of the JAX package's ``ops/resolve_pallas.py``.  For every
 (hold-last-sample overrun), phase-coherent carrier ``e^{iA} * basis[f]``,
 window mask ``s < nsamp``, amplitude, state-dependent channel
 ``w(s) * g_s * y`` (ring-up ``w(s) = 1 - exp(-(s+1) / ring_tau)`` when
-``ring``), additive ADC noise, and the matched-filter sums ``acc_i``,
-``acc_q`` and ``energy``.
+``ring``), additive ADC noise (white, or AR(1) with pole ``rho``: ``n_t =
+rho n_{t-1} + sqrt(1 - rho^2) w_t`` from a stationary unit-variance
+start), and the matched-filter sums ``acc_i``, ``acc_q`` and
+``energy``.
 
 * :func:`resolve_windows_fused` — the wrapper.  CUDA tensors launch the
   hand-written kernel ``csrc/resolve.cu`` (one launch per epoch, noise
   drawn in-kernel with Philox unless ``noise`` is given); CPU tensors take
   :func:`resolve_windows_reference`.  Any other device raises.
 * :func:`resolve_windows_reference` — the same chain in plain torch,
-  streamed over chunks of ``ck`` samples like the JAX ``physics._resolve``.
-  The CPU tests and the kernel's on-card comparison use it.
+  streamed over chunks of ``ck`` samples like the JAX ``physics._resolve``
+  (AR(1) noise as its triangular product per chunk, one sample carried
+  across chunks).  The CPU tests and the kernel's on-card comparison use
+  it.
 * :func:`build_prefix_tables` — what the kernel reads in rows mode.  With
   ``y(s) = a e^{iA} z(s)``, ``z(s) = env(base + s // interp) basis_f(s)``,
   the sums factor exactly:
@@ -182,6 +186,20 @@ def _window_base(addr, rows, Lp: int):
     return base
 
 
+def ar1_tables(rho: float, ck: int, device=None):
+    """AR(1) coloring of one chunk as a lower-triangular product (the
+    JAX ``physics._ar1_tables``): ``n[i] = sum_j T[i, j] w[j] + rpow[i] *
+    n_carry`` with ``T[i, j] = c rho^(i-j)`` for ``i >= j`` (``c = sqrt(1 -
+    rho^2)``) and ``rpow[i] = rho^(i+1)``; float32 ``[ck, ck]`` and
+    ``[ck]``."""
+    r = torch.tensor(rho, dtype=torch.float32, device=device)
+    i = torch.arange(ck, dtype=torch.float32, device=device)
+    d = i[:, None] - i[None, :]
+    c = torch.sqrt((1.0 - r * r).clamp(min=0.0))
+    T = torch.where(d >= 0, c * r ** d, 0.0)
+    return T, r ** (i + 1.0)
+
+
 def _noise_generator(device, seed: int, epoch: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 1000003 + int(epoch)) % (2**63 - 1))
@@ -192,7 +210,8 @@ def resolve_windows_reference(sc: dict, tables: dict, gs_i, gs_q,
                               sigma: float, inv_ring: float, seed: int,
                               W: int, Lp: int, *, ring: bool = False,
                               noise=None, epoch: int = 0,
-                              ck: int = 256):
+                              ck: int = 256, rho: float = 0.0,
+                              noise0=None):
     """The resolver in plain torch, chunk by chunk (``ck`` samples).
 
     ``sc``: per-window scalars ``amp``, ``cosA``, ``sinA``, ``f_idx``,
@@ -200,8 +219,11 @@ def resolve_windows_reference(sc: dict, tables: dict, gs_i, gs_q,
     of the compacted pending slot).  ``gs_i``/``gs_q``: ``[B, C]`` channel
     response.  ``noise``: optional ``[2, C, B, W]`` additive noise (already
     scaled by sigma); without it, ``sigma * N(0, 1)`` is drawn per chunk
-    from a generator seeded by ``(seed, epoch)``.  Returns
-    ``(acc_i, acc_q, energy)``, each ``[B, C]`` float32."""
+    from a generator seeded by ``(seed, epoch)``.  ``rho > 0``: AR(1)
+    noise colored from those whites by :func:`ar1_tables`, starting from
+    ``noise0 [2, C, B]`` (scaled by sigma) when ``noise`` is given, else
+    from ``N(0, 1)`` drawn first from the generator.  Returns ``(acc_i,
+    acc_q, energy)``, each ``[B, C]`` float32."""
     amp = sc['amp'][..., 0].to(torch.float32)
     cosa = sc['cosA'][..., 0].to(torch.float32)
     sina = sc['sinA'][..., 0].to(torch.float32)
@@ -218,6 +240,13 @@ def resolve_windows_reference(sc: dict, tables: dict, gs_i, gs_q,
     gen = None
     if noise is None and sigma != 0:
         gen = _noise_generator(dev, seed, epoch)
+    colored = rho != 0 and (noise is not None or gen is not None)
+    if colored:
+        T, rpow = ar1_tables(rho, ck, dev)
+        # the IIR carry [2, B, C]: the stationary start, then the last
+        # sample of each chunk
+        n_prev = noise0.transpose(1, 2) if noise is not None \
+            else sigma * torch.randn((2, B, C), generator=gen, device=dev)
     acc_i = torch.zeros((B, C), dtype=torch.float32, device=dev)
     acc_q = torch.zeros_like(acc_i)
     energy = torch.zeros_like(acc_i)
@@ -240,12 +269,18 @@ def resolve_windows_reference(sc: dict, tables: dict, gs_i, gs_q,
             w = 1.0
         r_i = w * (gs_i[..., None] * y_i - gs_q[..., None] * y_q)
         r_q = w * (gs_i[..., None] * y_q + gs_q[..., None] * y_i)
+        nz = None
         if noise is not None:
-            r_i = r_i + noise[0, :, :, s0:s1].transpose(0, 1)
-            r_q = r_q + noise[1, :, :, s0:s1].transpose(0, 1)
+            nz = noise[:, :, :, s0:s1].transpose(1, 2)          # [2, B, C, w]
         elif gen is not None:
             nz = sigma * torch.randn((2, B, C, s1 - s0), generator=gen,
                                      device=dev)
+        if nz is not None and colored:
+            w_ = s1 - s0
+            nz = torch.einsum('zbcs,ts->zbct', nz, T[:w_, :w_]) \
+                + n_prev[..., None] * rpow[:w_]
+            n_prev = nz[..., -1]
+        if nz is not None:
             r_i, r_q = r_i + nz[0], r_q + nz[1]
         acc_i += (r_i * y_i + r_q * y_q).sum(-1)
         acc_q += (r_q * y_i - r_i * y_q).sum(-1)
@@ -260,10 +295,9 @@ def _lane(x, dtype) -> torch.Tensor:
     return x.to(dtype).contiguous()
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.c_uint64] + [ctypes.c_int] * 6
-             + [ctypes.c_void_p] * 4)
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+             + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_uint64]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,23 +321,26 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device):
 def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
                           sigma: float, inv_ring: float, seed: int,
                           W: int, Lp: int, *, ring: bool = False,
-                          noise=None, epoch: int = 0, ck: int = 256):
+                          noise=None, epoch: int = 0, ck: int = 256,
+                          rho: float = 0.0, noise0=None):
     """Matched-filter accumulators for one compacted window per (B, C).
 
     Arguments as :func:`resolve_windows_reference`; ``seed`` (64 bits)
-    and ``epoch`` key the kernel's in-kernel Philox noise.  CUDA tensors
-    launch ``csrc/resolve.cu`` on the current stream and count one in
-    ``resolve_windows_fused.launches``; with a static row list (rows
-    mode) the kernel reads :func:`build_prefix_tables`, built on the
-    first call and cached in ``tables``, and without one (full-table
-    mode) the per-sample chain.  CPU tensors take the plain version
-    (``ck`` applies to it only).  Returns ``(acc_i, acc_q, energy)``,
-    each ``[B, C]`` float32."""
+    and ``epoch`` key the kernel's in-kernel Philox noise, ``rho`` colors
+    it AR(1) (a warp scan in rows mode, the recursion in full-table
+    mode).  CUDA tensors launch ``csrc/resolve.cu`` on the current stream
+    and count one in ``resolve_windows_fused.launches``; with a static
+    row list (rows mode) the kernel reads :func:`build_prefix_tables`,
+    built on the first call and cached in ``tables``, and without one
+    (full-table mode) the per-sample chain.  CPU tensors take the plain
+    version (``ck`` applies to it only).  Returns ``(acc_i, acc_q,
+    energy)``, each ``[B, C]`` float32."""
     device = sc['amp'].device
     if device.type == 'cpu':
         return resolve_windows_reference(
             sc, tables, gs_i, gs_q, sigma, inv_ring, seed, W, Lp,
-            ring=ring, noise=noise, epoch=epoch, ck=ck)
+            ring=ring, noise=noise, epoch=epoch, ck=ck, rho=rho,
+            noise0=noise0)
     if device.type != 'cuda':
         raise ValueError(f'resolve kernel: unsupported device {device}')
     B, C = sc['amp'].shape[:2]
@@ -323,6 +360,13 @@ def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
     _check('interps', interps, i32, (C,), device)
     if noise is not None:
         _check('noise', noise, f32, (2, C, B, W), device)
+        if rho != 0:
+            if noise0 is None:
+                raise ValueError('resolve kernel: AR(1) with streamed noise '
+                                 'needs noise0, the initial states')
+            _check('noise0', noise0, f32, (2, C, B), device)
+    if not 0.0 <= rho < 1.0:
+        raise ValueError(f'resolve kernel: rho={rho} must be in [0, 1)')
     p1 = pw = z = None
     R = rows.numel()
     if R:
@@ -338,6 +382,7 @@ def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
     ptr = lambda t: t.data_ptr() if t is not None else None
     rc = fn(*[ptr(t) for t in lanes], ptr(env), ptr(bas), ptr(rows), R,
             ptr(interps), ptr(p1), ptr(pw), ptr(z), ptr(noise),
+            ptr(noise0 if rho != 0 else None), float(rho),
             float(sigma), float(inv_ring), int(bool(ring)),
             int(seed) & 0xffffffffffffffff, int(epoch), B, C, W, Lp, F,
             *[ptr(t) for t in outs],

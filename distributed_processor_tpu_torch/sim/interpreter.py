@@ -33,11 +33,15 @@ JAX run of the same engine on the same injected bits
 (tests/test_torch_interpreter.py, tests/test_torch_straightline.py,
 tests/test_torch_blocks.py).
 
-Scope: the parity device and physics mode, the ``'sticky'``,
-``'fresh'`` and ``'lut'`` fabrics (the last: the time-indexed syndrome
-LUT of hdl/fproc_lut.sv + meas_lut.sv, over a ``meas_time`` plane of
-production clocks).  Everything else raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+Scope: physics mode on every device co-state of :mod:`.device` — the
+parity counter and the Bloch vector (:func:`_device_1q_pulse`, shared by
+every engine) and the entangling state vector (:func:`_statevec_pulse`,
+the generic engine only, behind the discrete-event gate of
+:func:`_step`) — and the ``'sticky'``, ``'fresh'`` and ``'lut'`` fabrics
+(the last: the time-indexed syndrome LUT of hdl/fproc_lut.sv +
+meas_lut.sv, over a ``meas_time`` plane of production clocks).
+Everything else raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ import torch
 from .. import isa
 from ..ops.exec_span import (block_table, exec_blocks, exec_span,
                              lut_min_read, span_table)
+from ..ops.waveform import PHASE_BITS
+from .device import DEVICE_KINDS, STATEVEC_MAX_CORES
 
 # timing constants of the scalar golden model (the JAX package's
 # sim/oracle.py): program start time, sync release -> qclk zero, rdlo
@@ -575,8 +581,6 @@ def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
     _check_fabric(cfg, mp.n_cores)
     if cfg.trace:
         raise not_ported('trace=True', 12)
-    if cfg.physics and cfg.device != 'parity':
-        raise not_ported(f'device={cfg.device!r}', 4)
     if cfg.rounds != 1:
         raise not_ported(f'rounds={cfg.rounds}', 8)
     return eng
@@ -656,15 +660,45 @@ def _init_state(batch: int, n_cores: int, cfg: InterpreterConfig,
     if cfg.opcode_histogram:
         st['op_hist'] = z(B, C, isa.N_KINDS)
     if cfg.physics:
+        if cfg.device not in DEVICE_KINDS:
+            raise ValueError(f'unknown device kind {cfg.device!r}; '
+                             f'one of {DEVICE_KINDS}')
         # measurement records for the epoch resolver (sim/physics.py)
-        # plus the parity device's quarter-turn counter
+        # plus the device co-state
         st.update(meas_state=z(B, C, M), meas_amp=z(B, C, M),
                   meas_phase=z(B, C, M), meas_freq=z(B, C, M),
                   meas_env=z(B, C, M), meas_gtime=z(B, C, M),
                   phys_wait=torch.zeros((B, C), dtype=torch.bool,
                                         device=device),
-                  qturns=z(B, C))
+                  **_device_state(cfg, B, C, M, device))
     return st
+
+
+def _device_state(cfg: InterpreterConfig, B: int, C: int, M: int,
+                  device) -> dict:
+    """The device co-state per device kind (:mod:`.device`): the parity
+    quarter-turn counter; the Bloch vector ``[B, C, 3]``; or one
+    ``[B, 2^C]`` complex64 state vector per shot with the ``leaked``
+    flags.  Bloch and statevec also carry the lane's last evolution time
+    ``phys_t`` and the pre-projection P(1) per slot ``meas_p1``."""
+    if cfg.device == 'parity':
+        return {'qturns': torch.zeros((B, C), dtype=torch.int32,
+                                      device=device)}
+    cont = {'phys_t': torch.full((B, C), INIT_TIME, dtype=torch.int32,
+                                 device=device),
+            'meas_p1': torch.zeros((B, C, M), dtype=torch.float32,
+                                   device=device)}
+    if cfg.device == 'bloch':
+        return {'bloch': torch.zeros((B, C, 3), dtype=torch.float32,
+                                     device=device), **cont}
+    if C > STATEVEC_MAX_CORES:
+        raise ValueError(
+            f"device='statevec' holds a [shots, 2^n_cores] state vector; "
+            f"n_cores={C} exceeds the cap of {STATEVEC_MAX_CORES}")
+    return {'psi': torch.zeros((B, 1 << C), dtype=torch.complex64,
+                               device=device),
+            'leaked': torch.zeros((B, C), dtype=torch.bool, device=device),
+            **cont}
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -709,16 +743,383 @@ def _slot_mask(idx, n: int):
                                              device=idx.device)
 
 
-def _parity_pulse(qturns, cfg: InterpreterConfig, fire, elem, pp):
-    """The parity device's co-state at a pulse trigger, shared by the
-    generic and straight-line engines: each drive pulse adds
-    ``round(amp / x90)`` quarter turns; the state bit is the half-turn
-    parity.  Returns ``(qturns, state_bit)``."""
-    if cfg.x90_amp > 0:
-        x90 = cfg.x90_amp
-        dq = torch.div(2 * pp[..., 3] + x90, 2 * x90, rounding_mode='floor')
-        qturns = qturns + torch.where(fire & (elem == cfg.drive_elem), dq, 0)
-    return qturns, (qturns >> 1) & 1
+def _device_1q_pulse(st: dict, cfg: InterpreterConfig, dm, fire, elem, pp,
+                     trig, slot, is_meas):
+    """The per-core device co-state at a pulse trigger, shared by every
+    engine (the JAX ``_device_1q_pulse``).  Returns ``(updates,
+    state_bit)``: the device keys to write and the state bit each
+    (shot, core) lane samples.
+
+    ``'parity'``: each drive pulse adds ``round(amp / x90)`` quarter
+    turns; the state bit is the half-turn parity.  ``'bloch'``: at a
+    drive or readout pulse the lane first evolves freely over the gap
+    since its previous one (detuning precession about z, T2 on x and y,
+    T1 toward |0>); a drive pulse then rotates by ``theta = (pi/2) *
+    amp / x90`` about the equatorial axis of its phase word (Rodrigues)
+    and contracts by the depolarizing rate; a readout samples the
+    evolved state against the slot's pre-drawn uniform
+    (``dm['meas_u']``), collapses to the outcome pole and records P(1)
+    in ``meas_p1``.  ``slot``: each lane's measurement slot (its count,
+    clamped to the last slot); ``is_meas``: the lanes firing a
+    readout."""
+    if cfg.device == 'parity':
+        qturns = st['qturns']
+        if cfg.x90_amp > 0:
+            x90 = cfg.x90_amp
+            dq = torch.div(2 * pp[..., 3] + x90, 2 * x90,
+                           rounding_mode='floor')
+            qturns = qturns + torch.where(fire & (elem == cfg.drive_elem),
+                                          dq, 0)
+        return {'qturns': qturns}, (qturns >> 1) & 1
+    if dm is None:
+        raise ValueError(
+            "device='bloch' needs device-model parameter arrays; "
+            "run it via sim.physics.run_physics_batch (the "
+            "injected-bits simulate/simulate_batch path has no "
+            "device co-state to evolve)")
+    f32 = torch.float32
+    r = st['bloch']
+    x, y, z = r[..., 0], r[..., 1], r[..., 2]
+    is_drive = fire & (elem == cfg.drive_elem)
+    touch = is_drive | is_meas
+    dt = (trig - st['phys_t']).to(f32)
+    alpha = (2 * np.pi) * dm['det'][None, :] * dt
+    ca, sa = torch.cos(alpha), torch.sin(alpha)
+    e2 = torch.exp(-dt * dm['inv_t2'][None, :])
+    e1 = torch.exp(-dt * dm['inv_t1'][None, :])
+    xf = e2 * (x * ca - y * sa)
+    yf = e2 * (x * sa + y * ca)
+    zf = 1.0 + (z - 1.0) * e1
+    phi = (2 * np.pi / (1 << PHASE_BITS)) * pp[..., 1].to(f32)
+    theta = ((np.pi / 2) / cfg.x90_amp if cfg.x90_amp > 0 else 0.0) \
+        * pp[..., 3].to(f32)
+    nx, ny = torch.cos(phi), torch.sin(phi)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    ndot = nx * xf + ny * yf
+    k1 = 1.0 - cth
+    keep = dm['keep']
+    rx = keep * (xf * cth + ny * zf * sth + nx * ndot * k1)
+    ry = keep * (yf * cth - nx * zf * sth + ny * ndot * k1)
+    rz = keep * (zf * cth + (nx * yf - ny * xf) * sth)
+    p1 = ((1.0 - zf) * 0.5).clamp(0.0, 1.0)
+    state_bit = (_take(dm['meas_u'], slot) < p1).to(torch.int32) \
+        * is_meas.to(torch.int32)
+    zc = 1.0 - 2.0 * state_bit.to(f32)
+    x1 = torch.where(is_meas, 0.0, torch.where(is_drive, rx, x))
+    y1 = torch.where(is_meas, 0.0, torch.where(is_drive, ry, y))
+    z1 = torch.where(is_meas, zc, torch.where(is_drive, rz, z))
+    mwr = _slot_mask(slot, cfg.max_meas) & is_meas[..., None]
+    return dict(
+        bloch=torch.stack([x1, y1, z1], dim=-1),
+        phys_t=torch.where(touch, trig, st['phys_t']),
+        meas_p1=torch.where(mwr, p1[..., None], st['meas_p1']),
+    ), state_bit
+
+
+# ---- statevec device helpers ---------------------------------------------
+# Basis convention: core c is bit (C-1-c) of the state index, so
+# ``psi.reshape(B, 2, 2, ...)`` puts core 0 on the first qubit axis.
+
+_PAULI_1 = np.stack([
+    np.eye(2), [[0, 1], [1, 0]], [[0, -1j], [1j, 0]], [[1, 0], [0, -1]],
+]).astype(np.complex64)                                 # I, X, Y, Z
+_PAULI_2 = np.stack([np.kron(_PAULI_1[a], _PAULI_1[b])
+                     for a in range(4) for b in range(4)])  # [16, 4, 4]
+
+
+@functools.lru_cache(maxsize=None)
+def _sv_zsign_np(C: int) -> np.ndarray:
+    """``[C, 2^C]`` float32: Z eigenvalue (+1/-1) of core c in basis d."""
+    d = np.arange(1 << C)
+    return np.stack([1.0 - 2.0 * ((d >> (C - 1 - c)) & 1)
+                     for c in range(C)]).astype(np.float32)
+
+
+def _sv_apply_1q(psi, U, c: int, C: int):
+    """Apply per-shot 2x2 ``U [B, 2, 2]`` to qubit ``c`` of ``psi
+    [B, 2^C]``."""
+    B = psi.shape[0]
+    pn = psi.reshape((B,) + (2,) * C).movedim(1 + c, 1)
+    sh = pn.shape
+    pn = torch.einsum('bxu,bud->bxd', U, pn.reshape(B, 2, -1))
+    return pn.reshape(sh).movedim(1, 1 + c).reshape(B, -1)
+
+
+def _sv_apply_pair(psi, U4, cc: int, tt: int, C: int):
+    """Apply per-shot 4x4 ``U4 [B, 4, 4]`` to qubits ``(cc, tt)`` (index
+    within the 4-block is ``bit_cc * 2 + bit_tt``)."""
+    B = psi.shape[0]
+    pn = psi.reshape((B,) + (2,) * C).movedim((1 + cc, 1 + tt), (1, 2))
+    sh = pn.shape
+    pn = torch.einsum('bxu,bud->bxd', U4, pn.reshape(B, 4, -1))
+    return pn.reshape(sh).movedim((1, 2), (1 + cc, 1 + tt)).reshape(B, -1)
+
+
+def _sv_rot_1q(theta, phi):
+    """``exp(-i theta/2 (cos phi X + sin phi Y))`` as ``[B, 2, 2]``
+    complex64."""
+    ch, sh = torch.cos(0.5 * theta), torch.sin(0.5 * theta)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    d = torch.complex(ch, torch.zeros_like(ch))
+    o01 = torch.complex(-sh * sp, -sh * cp)       # -i e^{-i phi} sin
+    o10 = torch.complex(sh * sp, -sh * cp)        # -i e^{+i phi} sin
+    return torch.stack([torch.stack([d, o01], -1),
+                        torch.stack([o10, d], -1)], -2)
+
+
+def _sv_rot_zx(theta, phi):
+    """``exp(-i theta/2 Z (x) (cos phi X + sin phi Y))`` as ``[B, 4, 4]``:
+    block-diagonal (control-conditioned +/- rotation of the target)."""
+    up, dn = _sv_rot_1q(theta, phi), _sv_rot_1q(-theta, phi)
+    z = torch.zeros_like(up)
+    return torch.cat([torch.cat([up, z], -1), torch.cat([z, dn], -1)], -2)
+
+
+def _traj_uniforms(seed: int, step: int, shape: tuple, device):
+    """The statevec trajectory's uniforms of one instruction step,
+    ``shape`` float32 in [0, 1): a generator stream keyed by the run's
+    trajectory seed and the step index, so draws are deterministic per
+    (shot, core, step)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) * 1000003 + int(step)) % (2**63 - 1))
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def _norm2(psi):
+    return psi.real ** 2 + psi.imag ** 2
+
+
+def _sv_leak_jump(psi, leaked, c: int, p_eff, u, bit1):
+    """The leakage channel of core ``c`` as a trajectory (the CPTP
+    unraveling of ``sqrt(p)|2><1|``): with probability ``p_eff * P(|1>)``
+    the state projects onto the core's |1> component and the core is
+    marked leaked; otherwise the no-jump back-action damps the |1>
+    amplitude by ``sqrt(1 - p_eff)`` and renormalizes."""
+    p1c = (bit1[c][None] * _norm2(psi)).sum(-1)
+    occ = u < p_eff * p1c
+    proj = psi * (bit1[c][None, :]
+                  / torch.sqrt(p1c.clamp(min=1e-12))[:, None])
+    damp = 1.0 - (1.0 - torch.sqrt(1.0 - p_eff))[:, None] * bit1[c][None, :]
+    nrm = torch.sqrt((1.0 - p_eff * p1c).clamp(min=1e-12))
+    psi = torch.where(occ[:, None], proj, psi * (damp / nrm[:, None]))
+    col = torch.arange(leaked.shape[1], device=leaked.device) == c
+    return psi, leaked | (occ[:, None] & col[None, :])
+
+
+def _statevec_cofire(couplings, cp_masks, leaked, has_leak, fire, trig,
+                     is_1q, is_meas, pp):
+    """``ERR_COFIRE_ORDER`` on a coupling's control core where an
+    equal-trigger cross-core pulse does not commute with it (the stage
+    order 1q -> couplings -> measurements would be a simulator-chosen
+    ordering): a zx target leg against a different-axis 1q drive or a
+    measurement of the target, a zz target leg against any 1q drive of
+    the target, and overlapping couplings whose legs clash.  Under the
+    event gate, cross-core pulses of one step have equal triggers."""
+    B, C = fire.shape
+    eff = []
+    for mk, (c1, _fi, t1, _kd) in zip(cp_masks, couplings):
+        if has_leak:
+            mk = mk & ~leaked[:, c1] & ~leaked[:, t1]
+        eff.append(mk)
+    cols = [torch.zeros((B,), dtype=torch.bool, device=fire.device)] * C
+    # equatorial axes agree mod pi <=> phase words agree mod a half turn
+    half = 1 << (PHASE_BITS - 1)
+    pw = pp[..., 1]
+    ax_ne = lambda a, b: ((pw[:, a] - pw[:, b]) % half) != 0
+    for i, (mi, (c1, _f1, t1, k1)) in enumerate(zip(eff, couplings)):
+        tcc = trig[:, c1]
+        same = lambda c: fire[:, c] & (trig[:, c] == tcc)
+        bad = same(t1) & is_1q[:, t1]
+        if k1 == 'zx':
+            bad = bad & ax_ne(c1, t1)
+            bad = bad | (same(t1) & is_meas[:, t1])
+        for jj in range(i + 1, len(couplings)):
+            mj, (c2, _f2, t2, k2) = eff[jj], couplings[jj]
+            if k1 == 'zz' and k2 == 'zz':
+                continue          # both diagonal: commute
+            if k1 == 'zx' and k2 == 'zx':
+                hard = (t1 == c2) or (t2 == c1)      # X vs Z
+                soft = t1 == t2                      # X vs X
+            elif k1 == 'zx':
+                hard, soft = t1 in (c2, t2), False
+            else:
+                hard, soft = t2 in (c1, t1), False
+            if hard:
+                bad = bad | (mj & same(c2))
+            elif soft:
+                bad = bad | (mj & same(c2) & ax_ne(c1, c2))
+        cols[c1] = cols[c1] | (mi & bad)
+    return _bit(torch.stack(cols, dim=-1), ERR_COFIRE_ORDER)
+
+
+def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
+                    fire, elem, pp, trig, slot, is_meas):
+    """The statevec device at one instruction step (the JAX ``_step``
+    statevec block): one ``[B, 2^C]`` trajectory per shot.  In order:
+    (1) detuning precession over each touched core's gap, (2) T1 and
+    pure-dephasing quantum jumps, (3) 1q drive rotations with 1q
+    depolarization folded in and the 1q leakage channel, (4) coupling
+    pulses (ZX cross-resonance or ZZ) with 2q depolarization and
+    coupling-induced leakage of the control, (5) joint projective
+    measurement, sequentially conditioned across cores, then seepage.
+    Stochastic channels draw this step's uniforms
+    (:func:`_traj_uniforms`).  Returns ``(updates, state_bit,
+    cofire_err)``; with IQ-level leakage readout a leaked core records
+    state 2 for the resolver."""
+    if dm is None:
+        raise ValueError(
+            "device='statevec' needs device-model parameters; "
+            "run it via sim.physics.run_physics_batch")
+    (couplings, has_det, has_decay, has_dp1, has_dp2, has_leak, leak_bit,
+     has_leak1, has_leak2, has_seep, leak_iq) = dm['static']
+    f32 = torch.float32
+    B, C = fire.shape
+    dv = fire.device
+    leaked = st['leaked']
+    psi = st['psi']
+    zsign = torch.as_tensor(_sv_zsign_np(C), device=dv)       # [C, D]
+    bit1 = (1.0 - zsign) * 0.5                                # 1 where |1>
+    is_drive = fire & (elem == cfg.drive_elem)
+    freqw = pp[..., 2]
+    # a drive pulse whose frequency word matches a coupling entry is a 2q
+    # interaction, not a 1q rotation
+    cp_masks = [is_drive[:, cc] & (freqw[:, cc] == fi)
+                for (cc, fi, tt, kd) in couplings]
+    core = torch.arange(C, device=dv)
+    is_cr = torch.zeros((B, C), dtype=torch.bool, device=dv)
+    for mk, (cc, fi, tt, kd) in zip(cp_masks, couplings):
+        is_cr = is_cr | (mk[:, None] & (core == cc)[None, :])
+    is_1q = is_drive & ~is_cr
+    touch = is_drive | is_meas
+    cofire_err = 0
+    if couplings:
+        cofire_err = _statevec_cofire(couplings, cp_masks, leaked, has_leak,
+                                      fire, trig, is_1q, is_meas, pp)
+    dt = torch.where(touch, (trig - st['phys_t']).to(f32), 0.0)
+    if has_decay or has_dp1 or has_dp2 or has_leak:
+        traj_u = _traj_uniforms(
+            dm['traj_seed'], step_i,
+            (B, C, 6 + (1 if has_leak else 0) + (1 if has_seep else 0)), dv)
+    # (1) free evolution: detuning precession, one diagonal Rz
+    if has_det:
+        alpha = (2 * np.pi) * dm['det'][None, :] * dt
+        arg = torch.einsum('bc,cd->bd', -0.5 * alpha, zsign)
+        psi = psi * torch.complex(torch.cos(arg), torch.sin(arg))
+    # (2) T1 / pure-dephasing quantum jumps per touched core
+    if has_decay:
+        inv_t1, inv_t2 = dm['inv_t1'], dm['inv_t2']
+        inv_phi = (inv_t2 - 0.5 * inv_t1).clamp(min=0.0)
+        for c in range(C):
+            p_dec = 1.0 - torch.exp(-dt[:, c] * inv_t1[c])
+            if has_leak:
+                # a leaked core's psi slot is a frozen |1> bookkeeping
+                # state: it neither relaxes nor dephases
+                p_dec = torch.where(leaked[:, c], 0.0, p_dec)
+            p1c = (bit1[c][None] * _norm2(psi)).sum(-1)
+            jump = traj_u[:, c, 0] < p_dec * p1c
+            damp = 1.0 - (1.0 - torch.sqrt(1.0 - p_dec))[:, None] \
+                * bit1[c][None, :]
+            nrm = torch.sqrt((1.0 - p_dec * p1c).clamp(min=1e-12))
+            psi_nj = psi * (damp / nrm[:, None])
+            pn = psi.reshape((B,) + (2,) * C).movedim(1 + c, 1) \
+                .reshape(B, 2, -1)
+            pj = torch.stack([pn[:, 1, :], torch.zeros_like(pn[:, 0, :])], 1)
+            pj = pj.reshape((B, 2) + (2,) * (C - 1)).movedim(1, 1 + c) \
+                .reshape(B, -1)
+            pj = pj / torch.sqrt(p1c.clamp(min=1e-12))[:, None]
+            psi = torch.where(jump[:, None], pj, psi_nj)
+            p_phi = 1.0 - torch.exp(-dt[:, c] * inv_phi[c])
+            if has_leak:
+                p_phi = torch.where(leaked[:, c], 0.0, p_phi)
+            flip = traj_u[:, c, 1] < 0.5 * p_phi
+            psi = torch.where(flip[:, None], psi * zsign[c][None, :], psi)
+    # (3) 1q drive rotations (the bloch convention), 1q depolarization as
+    # a stochastic X/Y/Z after the rotation, then 1q leakage
+    theta1 = ((np.pi / 2) / cfg.x90_amp if cfg.x90_amp > 0 else 0.0) \
+        * pp[..., 3].to(f32)
+    theta1 = torch.where(is_1q, theta1, 0.0)
+    if has_leak:
+        # drives on a leaked core act on |2>: a no-op in the model
+        theta1 = torch.where(leaked, 0.0, theta1)
+    phi1 = (2 * np.pi / (1 << PHASE_BITS)) * pp[..., 1].to(f32)
+    pauli1 = torch.as_tensor(_PAULI_1, device=dv)
+    for c in range(C):
+        U = _sv_rot_1q(theta1[:, c], phi1[:, c])
+        if has_dp1:
+            occ = (traj_u[:, c, 2] < dm['depol']) & is_1q[:, c]
+            if has_leak:
+                occ = occ & ~leaked[:, c]
+            pick = (traj_u[:, c, 3] * 3).to(torch.int32).clamp(max=2) + 1
+            sel = torch.where(occ, pick, 0)
+            U = torch.einsum('bxy,byu->bxu', pauli1[sel.long()], U)
+        psi = _sv_apply_1q(psi, U, c, C)
+        if has_leak1:
+            exposed = is_1q[:, c] & ~leaked[:, c]
+            psi, leaked = _sv_leak_jump(
+                psi, leaked, c, torch.where(exposed, dm['leak'], 0.0),
+                traj_u[:, c, 6], bit1)
+    # (4) coupling pulses: ZX / ZZ interactions, 2q depolarization,
+    # coupling-induced leakage of the control
+    amp_f = pp[..., 3].to(f32)
+    pauli2 = torch.as_tensor(_PAULI_2, device=dv)
+    for mk, (cc, fi, tt, kd) in zip(cp_masks, couplings):
+        if has_leak:
+            # interactions involving a leaked core no-op
+            mk = mk & ~leaked[:, cc] & ~leaked[:, tt]
+        ref = dm['zz90'] if kd == 'zz' else dm['zx90']
+        th = torch.where(mk, (np.pi / 2) * amp_f[:, cc] / ref, 0.0)
+        if kd == 'zz':
+            zz_row = (zsign[cc] * zsign[tt])[None, :]
+            arg = -0.5 * th[:, None] * zz_row
+            psi = psi * torch.complex(torch.cos(arg), torch.sin(arg))
+        else:
+            psi = _sv_apply_pair(psi, _sv_rot_zx(th, phi1[:, cc]), cc, tt, C)
+        if has_dp2:
+            occ = (traj_u[:, cc, 4] < dm['depol2']) & mk
+            pick = (traj_u[:, cc, 5] * 15).to(torch.int32).clamp(max=14)
+            sel = torch.where(occ, pick + 1, 0)          # 0 = identity
+            psi = _sv_apply_pair(psi, pauli2[sel.long()], cc, tt, C)
+        if has_leak2:
+            psi, leaked = _sv_leak_jump(
+                psi, leaked, cc, torch.where(mk, dm['leak2'], 0.0),
+                traj_u[:, cc, 6], bit1)
+    # (5) measurement: joint projective collapse, sequentially
+    # conditioned across cores
+    u_sel = _take(dm['meas_u'], slot)                        # [B, C]
+    p1_cols, bit_cols = [], []
+    for c in range(C):
+        mc = is_meas[:, c]
+        p1c = (bit1[c][None] * _norm2(psi)).sum(-1).clamp(0.0, 1.0)
+        if has_leak and not leak_iq:
+            # a leaked core discriminates as leak_readout_bit: forcing
+            # P(1) to 0/1 forces the comparison below
+            p1c = torch.where(leaked[:, c], float(leak_bit), p1c)
+        bitc = (u_sel[:, c] < p1c).to(torch.int32) * mc.to(torch.int32)
+        if has_leak and leak_iq:
+            # IQ-level leakage readout: the resolver synthesizes the
+            # window with the |2> response
+            bitc = torch.where(leaked[:, c] & mc, 2, bitc)
+        keep = torch.where(bitc[:, None] == 1, bit1[c][None, :],
+                           1.0 - bit1[c][None, :])
+        p_sel = torch.where(bitc == 1, p1c, 1.0 - p1c)
+        proj = psi * (keep / torch.sqrt(p_sel.clamp(min=1e-12))[:, None])
+        do_proj = mc if not has_leak else mc & ~leaked[:, c]
+        psi = torch.where(do_proj[:, None], proj, psi)
+        p1_cols.append(torch.where(mc, p1c, 0.0))
+        bit_cols.append(bitc)
+    p1 = torch.stack(p1_cols, dim=-1)                          # [B, C]
+    state_bit = torch.stack(bit_cols, dim=-1)
+    if has_seep:
+        # seepage |2> -> |1>: a drive on a core leaked before this step
+        # un-leaks it from the next step; the seeping pulse no-ops
+        leaked = leaked & ~(is_drive & st['leaked']
+                            & (traj_u[..., 7] < dm['seep']))
+    mwr = _slot_mask(slot, cfg.max_meas) & is_meas[..., None]
+    return dict(
+        psi=psi, leaked=leaked,
+        phys_t=torch.where(touch, trig, st['phys_t']),
+        meas_p1=torch.where(mwr, p1[..., None], st['meas_p1']),
+    ), state_bit, cofire_err
 
 
 def _lut_select(st: dict, meas_bits, meas_valid, req,
@@ -781,9 +1182,12 @@ def _lut_serve(st: dict, meas_bits, meas_valid, req,
 
 
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
-          cfg: InterpreterConfig, traits) -> dict:
+          cfg: InterpreterConfig, traits, dm=None, step_i: int = 0) -> dict:
     """One instruction step of every live (shot, core) lane — the JAX
-    ``_step`` for the parity device and the sticky/fresh fabrics."""
+    ``_step``.  ``dm``: the device-model parameters of a bloch or
+    statevec physics run (:func:`..sim.physics.run_physics_batch`);
+    ``step_i``: the run's step index, which keys the statevec
+    trajectory's uniforms."""
     B, C = st['pc'].shape
     N = soa.shape[1]
     dev = st['pc'].device
@@ -814,6 +1218,25 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     qclk = time - offset
     is_fproc = (kind == isa.K_ALU_FPROC) | (kind == isa.K_JUMP_FPROC)
 
+    # ---- discrete-event gate, stage A (statevec + couplings only) ------
+    # Each core's frontier lower-bounds the trigger time of anything it
+    # can still emit: its pending trigger if it sits at one, else its
+    # clock; a sync-stalled core is raised to the release lower bound.
+    pt_gate = cfg.physics and cfg.device == 'statevec' \
+        and dm is not None and len(dm['static'][0]) > 0
+    if pt_gate:
+        is_ptk = kind == isa.K_PULSE_TRIG
+        trig_e = torch.maximum(
+            _wrap32(offset.long() + g('cmd_time').long()), time)
+        fr_gate = torch.where(live & is_ptk, trig_e,
+                              torch.where(live, time, INT32_MAX))
+        at_sync_g = live & (kind == isa.K_SYNC)
+        if has_sync:
+            f_part = torch.where(sync_part[None, :], fr_gate, -INT32_MAX) \
+                .amax(-1, keepdim=True)
+            fr_gate = torch.where(at_sync_g, torch.maximum(fr_gate, f_part),
+                                  fr_gate)
+
     # ---- fproc fabric (reference: hdl/fproc_meas.sv /
     # core_state_mgr.sv, selected statically by cfg.fabric) -------------
     fid = g('func_id')
@@ -839,6 +1262,11 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             # bit latched at read time; the producer must have simulated
             # past `req`
             f_time_ok = sel(st['done']) | (sel(time) >= req)
+            if pt_gate:
+                # under the event gate the latched snapshot is final once
+                # the producer's frontier passes the request: anything it
+                # can still measure lands past the race margin
+                f_time_ok = f_time_ok | (sel(fr_gate) >= req)
             m_cnt = (mavail_p <= req[..., None]).sum(-1, dtype=i32)
             latest = (m_cnt - 1).clamp(min=0)
             latest_valid = (m_cnt == 0) | _take(valid_p, latest)
@@ -903,6 +1331,38 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     stalled = is_fproc & ~f_ready
     if has_sync:
         stalled = stalled | (at_sync & ~sync_ready[:, None])
+    if pt_gate:
+        # the conservative discrete-event gate: a pulse trigger fires only
+        # when no other live core could still produce an earlier-time op.
+        # The frontiers are raised by a monotone fixpoint over stall
+        # chains (a sync-stalled core's ops land at the release; a fresh
+        # or LUT reader inherits its producers' frontier), C rounds
+        # covering chains of any length.  The least pending trigger always
+        # fires, so the gate cannot deadlock; equal triggers co-fire.
+        fr = fr_gate
+        inherit = any_fproc and cfg.fabric in ('fresh', 'lut')
+        if inherit:
+            fstall = is_fproc & live & ~f_ready & ~f_phys
+            if cfg.fabric == 'lut':
+                lmask_g = torch.as_tensor(
+                    np.asarray(cfg.lut_mask, dtype=bool), device=dev)
+        for _ in range(C if (has_sync or inherit) else 0):
+            if has_sync:
+                f_part = torch.where(sync_part[None, :], fr, -INT32_MAX) \
+                    .amax(-1, keepdim=True)
+                fr = torch.where(at_sync_g, torch.maximum(fr, f_part), fr)
+            if inherit:
+                if cfg.fabric == 'fresh':
+                    prod_f = fr.gather(1, prod)
+                else:
+                    lut_f = torch.where(lmask_g[None, :], fr, -INT32_MAX) \
+                        .amax(-1, keepdim=True)
+                    prod_f = torch.where(fid == 0, fr, lut_f.expand_as(fr))
+                fr = torch.where(fstall, torch.maximum(fr, prod_f), fr)
+        eye = torch.eye(C, dtype=torch.bool, device=dev)
+        pt_ok = ((trig_e[:, :, None] <= fr[:, None, :])
+                 | ~live[:, None, :] | eye[None]).all(-1)
+        stalled = stalled | (is_ptk & live & ~pt_ok)
     adv = live & ~stalled                     # cores executing this step
 
     # ---- pulse-register latch + trigger --------------------------------
@@ -966,8 +1426,8 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         upd['meas_time'] = torch.where(mwr, trig[..., None], st['meas_time'])
     n_meas = st['n_meas'] + is_meas_pulse.to(i32)
 
-    # ---- physics co-state: parity device + measurement records --------
-    cw_meas_err = 0
+    # ---- physics co-state: the device model + measurement records -----
+    cw_meas_err = cofire_err = 0
     if cfg.physics:
         if cfg.cw_horizon > 0:
             cw_clks = torch.div(cfg.cw_horizon + spc_e - 1, spc_e,
@@ -978,9 +1438,16 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         else:
             # a CW readout window has no length to demodulate
             cw_meas_err = _bit(is_meas_pulse & (env_len == 0xfff), ERR_CW_MEAS)
-        qturns, state_bit = _parity_pulse(st['qturns'], cfg, fire, elem, pp)
+        slot = st['n_meas'].clamp(max=cfg.max_meas - 1)
+        if cfg.device == 'statevec':
+            dev_upd, state_bit, cofire_err = _statevec_pulse(
+                st, cfg, dm, step_i, fire, elem, pp, trig, slot,
+                is_meas_pulse)
+        else:
+            dev_upd, state_bit = _device_1q_pulse(
+                st, cfg, dm, fire, elem, pp, trig, slot, is_meas_pulse)
         upd.update(
-            qturns=qturns,
+            **dev_upd,
             meas_state=torch.where(mwr, state_bit[..., None],
                                    st['meas_state']),
             meas_amp=torch.where(mwr, pp[..., 3:4], st['meas_amp']),
@@ -1049,7 +1516,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     if has_sync:
         offset_next = torch.where(sync_adv, release, offset_next)
 
-    err = st['err'] | rec_of | meas_of | cw_meas_err \
+    err = st['err'] | rec_of | meas_of | cw_meas_err | cofire_err \
         | _bit(missed_trig | missed_idle, ERR_MISSED_TRIG)
     if any_fproc:
         err = err \
@@ -1091,11 +1558,14 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
 
 
 def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
-               meas_bits, meas_valid, cfg: InterpreterConfig, traits):
+               meas_bits, meas_valid, cfg: InterpreterConfig, traits,
+               dm=None):
     """Step until every shot is done or, in physics mode, paused waiting
     for a measurement bit the epoch resolver has not produced yet.
     ``steps`` is the step count so far (the budget is shared across
-    physics epochs); returns ``(st, steps, paused)``."""
+    physics epochs; it is also each step's index); ``dm``: the device
+    parameters of a bloch or statevec run.  Returns ``(st, steps,
+    paused)``."""
     while steps < cfg.max_steps:
         settled = st['done'].all(-1)
         if cfg.physics:
@@ -1103,7 +1573,7 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         if bool(settled.all()):
             break
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
-                                meas_valid, cfg, traits)
+                                meas_valid, cfg, traits, dm, steps)
         st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
         steps += 1
     return st, steps, paused
@@ -1151,7 +1621,7 @@ def _block_ids(pc, bid_tab):
 
 def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
                  meas_bits, meas_valid, cfg: InterpreterConfig, traits,
-                 kernel: bool = False):
+                 dm=None, kernel: bool = False):
     """The block-compiled engine — the JAX ``_exec_blocks``, with
     :func:`_exec_loop`'s calling shape: returns ``(st, steps, paused)``.
 
@@ -1170,12 +1640,14 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     is this loop's condition: an iteration runs only while some shot is
     unsettled and budget is left.
 
-    ``kernel``: run the bodies with the K1 block kernel
-    (:func:`..ops.exec_span.exec_blocks`; ``engine='pallas'``), else
-    with their plain version :func:`_apply_blocks`."""
+    ``dm``: the device parameters of a bloch run.  ``kernel``: run the
+    bodies with the K1 block kernel (:func:`..ops.exec_span.exec_blocks`;
+    ``engine='pallas'``, never in physics mode), else with their plain
+    version :func:`_apply_blocks`."""
     soa_np = soa.cpu().numpy()
     table = block_table(soa_np, *_block_plan(soa_np), spc, interp, cfg)
-    run_bodies = exec_blocks if kernel else _apply_blocks
+    run_bodies = exec_blocks if kernel \
+        else functools.partial(_apply_blocks, dm=dm)
     B, C = st['pc'].shape
     while steps < cfg.max_steps:
         settled = st['done'].all(-1)
@@ -1186,7 +1658,7 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         # (1) boundary step, undone for cores parked at a block start
         sup = _block_ids(st['pc'], table.bid) >= 0
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
-                                meas_valid, cfg, traits)
+                                meas_valid, cfg, traits, dm, steps)
         stall_sync = stall_sync & ~sup
         st2 = {k: torch.where(sup.view(B, C, *(1,) * (v.ndim - 2)), st[k], v)
                for k, v in st2.items()}
@@ -1198,7 +1670,8 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     return st, steps, paused
 
 
-def _apply_blocks(st: dict, table, cfg: InterpreterConfig) -> dict:
+def _apply_blocks(st: dict, table, cfg: InterpreterConfig,
+                  dm=None) -> dict:
     """The plain version of one K1 block launch: every live lane whose
     ``pc`` starts a block retires that block's deduplicated body
     ``table.bodies[table.bid[pc]]`` (rows of ``table.soa_np [C, N, F]``;
@@ -1208,12 +1681,12 @@ def _apply_blocks(st: dict, table, cfg: InterpreterConfig) -> dict:
     for k, (s, L) in enumerate(table.bodies):
         act = (bid == k) & ~st['done']
         st = _exec_block_body(st, act, table.soa_np[:, s:s + L, :],
-                              table.spc, table.interp, cfg)
+                              table.spc, table.interp, cfg, dm)
     return st
 
 
 def _exec_block_body(st: dict, act, rows_np, spc, interp,
-                     cfg: InterpreterConfig) -> dict:
+                     cfg: InterpreterConfig, dm=None) -> dict:
     """One deduplicated superinstruction: the ``[C, L, F]`` rows
     ``rows_np`` applied in order to the lanes selected by ``act [B, C]``
     — the JAX ``_exec_block_body`` / ``_blk_apply_row``.
@@ -1229,7 +1702,7 @@ def _exec_block_body(st: dict, act, rows_np, spc, interp,
     for off in range(L):
         f = {name: rows_np[:, off, _F[name]] for name in _FIELDS}
         st, _ = _sl_apply_instr(st, None, None, L, f, spc, interp, None,
-                                None, cfg, act=act)
+                                None, cfg, act=act, dm=dm)
     return st
 
 
@@ -1240,7 +1713,7 @@ def _exec_block_body(st: dict, act, rows_np, spc, interp,
 
 def _exec_straightline(st0: dict, soa_np, spc, interp, meas_bits,
                        meas_valid, cfg: InterpreterConfig,
-                       fused: dict = None) -> dict:
+                       fused: dict = None, dm=None) -> dict:
     """One pass over a forward-jump-only program ``soa_np [C, N, F]``.
 
     Each lane carries ``pc`` = next instruction index; a lane executes
@@ -1253,7 +1726,8 @@ def _exec_straightline(st0: dict, soa_np, spc, interp, meas_bits,
 
     ``fused``: the sigma = 0 readout tables (:func:`_sl_apply_instr`);
     then ``meas_bits``/``meas_valid`` ride in ``st0`` as state and the
-    arguments are ignored."""
+    arguments are ignored.  ``dm``: the device parameters of a bloch
+    run."""
     N = soa_np.shape[1]
     st = dict(st0)
     stalled = torch.zeros(st['pc'].shape, dtype=torch.bool,
@@ -1263,7 +1737,8 @@ def _exec_straightline(st0: dict, soa_np, spc, interp, meas_bits,
         if fused is not None:
             meas_bits, meas_valid = st['meas_bits'], st['meas_valid']
         st, stalled = _sl_apply_instr(st, stalled, i, N, f, spc, interp,
-                                      meas_bits, meas_valid, cfg, fused)
+                                      meas_bits, meas_valid, cfg, fused,
+                                      dm=dm)
     if cfg.physics:
         st['phys_wait'] = stalled
     return st
@@ -1283,7 +1758,7 @@ def _reg_read_static(regs, addr_c):
 
 def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
                     interp, meas_bits, meas_valid, cfg: InterpreterConfig,
-                    fused: dict = None, act=None):
+                    fused: dict = None, act=None, dm=None):
     """Apply instruction index ``i`` (static fields ``f``, one value per
     core) to every lane with ``pc == i`` — the JAX ``_sl_apply_instr``.
     Returns ``(st, stalled)``.
@@ -1295,7 +1770,8 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
     ``fused``: the measure-in-megastep directive (K3's plain version):
     a measurement trigger also computes its window's sigma = 0 bit
     (:func:`_fused_window_energy`, :func:`_fused_discriminate`) and
-    writes it into ``st['meas_bits']``/``st['meas_valid']``."""
+    writes it into ``st['meas_bits']``/``st['meas_valid']``.  ``dm``:
+    the device parameters of a bloch run (:func:`_device_1q_pulse`)."""
     st = dict(st)
     B, C = st['pc'].shape
     dev = st['pc'].device
@@ -1441,8 +1917,8 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
         mover = is_meas & (st['n_meas'] >= cfg.max_meas)
         err_i = err_i | _bit(mover, ERR_MEAS_OVERFLOW)
         fault_i = fault_i | _bit(mover, FAULT_MEAS_OVERFLOW)
-        mwr = _slot_mask(st['n_meas'].clamp(max=cfg.max_meas - 1),
-                         cfg.max_meas) & is_meas[..., None]
+        mslot = st['n_meas'].clamp(max=cfg.max_meas - 1)
+        mwr = _slot_mask(mslot, cfg.max_meas) & is_meas[..., None]
         meas_avail = torch.where(
             mwr, (trig + dur + cfg.meas_latency)[..., None],
             st['meas_avail'])
@@ -1462,8 +1938,9 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
         st['n_meas'] = st['n_meas'] + is_meas.to(i32)
 
         if cfg.physics:
-            st['qturns'], state_bit = _parity_pulse(st['qturns'], cfg, fire,
-                                                    elem, pp)
+            dev_upd, state_bit = _device_1q_pulse(
+                st, cfg, dm, fire, elem, pp, trig, mslot, is_meas)
+            st.update(dev_upd)
             for key, val in (('meas_state', state_bit),
                              ('meas_amp', pp[..., 3]),
                              ('meas_phase', pp[..., 1]),

@@ -1,4 +1,4 @@
-"""Physics-closed measurement feedback: epoch execution (parity device).
+"""Physics-closed measurement feedback: epoch execution.
 
 Counterpart of the JAX package's ``sim/physics.py``.  The reference
 closes its measurement loop in hardware (rdlo pulse -> demodulator ->
@@ -11,7 +11,8 @@ hdl/core_state_mgr.sv:45-56).  Here, as in the JAX package, each epoch
 2. **resolves** the first fired-but-unresolved readout window of every
    lane through the per-sample chain (:mod:`..ops.resolve`: the CUDA
    kernel on the card, its plain torch version on the CPU) and
-   discriminates it against the clean |0>/|1> responses;
+   discriminates it against the clean |0>/|1> responses (with IQ-level
+   leakage readout, |2> too);
 3. **resumes** with the resolved bits, until every shot is done.
 
 ``engine='fused'`` (sigma = 0 only) collapses the loop to one pass of
@@ -20,14 +21,20 @@ resolves each window at its trigger.  The epoch loop is a Python
 ``while`` whose condition is read with one ``.item()`` per epoch.
 ``resolve_mode='fused'`` and ``'persample'`` select the same per-sample
 chain here (the JAX package holds its two formulations bit-identical at
-sigma = 0).  The qubit is the parity co-state: each drive pulse adds
-``round(amp / x90_amp)`` quarter turns and the state bit is the
-half-turn parity.
+sigma = 0), over the program's static envelope rows where it has them;
+only ``'persample'`` takes AR(1) ADC noise (``noise_ar1``), colored in
+the kernel.  ``'analytic'`` is the closed form of the white-noise
+matched filter, ``acc = g_s E + sigma sqrt(E) xi``, every fired window at
+once.  CW readout windows (``cw_horizon > 0``) integrate over the
+horizon.  The qubit is the device co-state of :mod:`.device`: the
+parity counter, the Bloch vector, or the entangling state vector (the
+generic engine only, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 import zlib
 from dataclasses import dataclass, replace
 
@@ -44,8 +51,8 @@ from .device import DeviceModel
 from .interpreter import (InterpreterConfig, _program_constants,
                           _span_table, _init_state, _exec_blocks, _exec_loop,
                           _exec_straightline, _finalize, _fault_policy,
-                          _check_strict, _soa_np, check_supported,
-                          program_traits, not_ported, torch_device)
+                          _check_fabric, _check_strict, _soa_np,
+                          check_supported, program_traits, torch_device)
 
 # default-qchip X90 amplitude word: round(0.48 * (2^16 - 1))
 X90_AMP_DEFAULT = 31457
@@ -65,10 +72,14 @@ class ReadoutPhysics:
     (:class:`~.device.DeviceModel`, not a torch device).  ``ring_tau``:
     resonator ring-up time constant in DAC samples (0 = instantaneous).
     ``resolve_chunk``: samples per chunk of the plain resolver.
-    ``resolve_mode``: 'persample' or 'fused' (the same chain here).
-    This slice raises for ``g2``/``classify3``, ``cw_horizon > 0``,
-    ``noise_ar1 > 0``, ``resolve_mode='analytic'`` and devices other than
-    'parity'.
+    ``resolve_mode``: 'persample' or 'fused' (the same chain here) or
+    'analytic' (the white-noise closed form).  ``g2``: the |2> response
+    of IQ-level leakage readout (statevec with leakage); ``classify3``:
+    3-class nearest-centroid discrimination (output ``meas_class``).
+    ``cw_horizon``: the integration horizon of CW readout windows in DAC
+    samples (0: a CW window is ``ERR_CW_MEAS``).  ``noise_ar1``: the AR(1)
+    pole of the ADC noise ('persample' only).  ``fused_native_rng`` is
+    accepted and changes nothing here (the kernel always draws Philox).
     """
     g0: complex = 1.0 + 0.0j
     g1: complex = -0.6 + 0.8j
@@ -228,15 +239,113 @@ def _scatter_slot_bit(bits, valid, new_bit, slot, has_pending):
     return bits, valid | resolved
 
 
+def _bcast(g, k: int, like) -> torch.Tensor:
+    """Component ``k`` of a ``[C, 2]`` response, shaped to broadcast
+    against ``like`` (``[B, C]`` or ``[B, C, M]``)."""
+    return g[:, k].view((1, -1) + (1,) * (like.ndim - 2))
+
+
 def _discriminate_acc(acc_i, acc_q, energy, g0, g1):
-    """Project the matched-filter sums ``[B, C]`` onto the |0>-|1> axis
-    (clean responses ``g_s * E``) and threshold — the 2-class
-    ``_acc_to_bit``."""
-    a0_i, a0_q = g0[None, :, 0] * energy, g0[None, :, 1] * energy
-    a1_i, a1_q = g1[None, :, 0] * energy, g1[None, :, 1] * energy
+    """Project the matched-filter sums onto the |0>-|1> axis (clean
+    responses ``g_s * E``) and threshold."""
+    a0_i, a0_q = _bcast(g0, 0, energy) * energy, _bcast(g0, 1, energy) * energy
+    a1_i, a1_q = _bcast(g1, 0, energy) * energy, _bcast(g1, 1, energy) * energy
     proj = (acc_i - (a0_i + a1_i) / 2) * (a1_i - a0_i) \
         + (acc_q - (a0_q + a1_q) / 2) * (a1_q - a0_q)
     return (proj > 0).to(torch.int32)
+
+
+def _classify3_acc(acc_i, acc_q, energy, g0, g1, g2):
+    """Nearest-centroid 3-class discrimination in the IQ plane against
+    ``g_s * E`` (maximum likelihood under the isotropic matched-filter
+    noise): classes in {0, 1, 2}."""
+    def dist2(g):
+        return (acc_i - _bcast(g, 0, energy) * energy) ** 2 \
+            + (acc_q - _bcast(g, 1, energy) * energy) ** 2
+    d0, d1, d2 = dist2(g0), dist2(g1), dist2(g2)
+    cls = torch.where(d1 < d0, 1, 0)
+    return torch.where(d2 < torch.minimum(d0, d1), 2, cls).to(torch.int32)
+
+
+def _acc_to_bit(acc_i, acc_q, energy, g0, g1, iq3):
+    """The shared tail of every resolve mode: ``(bit, cls)`` — the 2-class
+    threshold, or with ``classify3`` the 3-class classes and the fabric
+    bit that maps class 2 to ``leak_readout_bit``.  ``iq3``: ``(g2,
+    classify3, leak_bit)`` or None; ``cls`` is None when 2-class."""
+    g2, classify3, leak_bit = iq3 if iq3 is not None else (None, False, 1)
+    if not classify3:
+        return _discriminate_acc(acc_i, acc_q, energy, g0, g1), None
+    cls = _classify3_acc(acc_i, acc_q, energy, g0, g1, g2)
+    return torch.where(cls == 2, leak_bit, cls).to(torch.int32), cls
+
+
+def _channel(state, g0, g1, g2):
+    """The state-dependent response per lane: ``g1`` where ``state`` is
+    1, ``g2`` where it is 2 (a leaked core under IQ-level leakage
+    readout), else ``g0``; the responses broadcast against ``state``."""
+    gs = torch.where(state == 1, g1, g0)
+    return gs if g2 is None else torch.where(state == 2, g2, gs)
+
+
+def _analytic_energy(sc: dict, env, W: int):
+    """The window energy ``E = sum |y|^2`` of the analytic mode, shaped
+    like ``sc['addr']``: ``amp^2 * (interp * (pref[b] - pref[a] + held) +
+    partial)`` from a prefix sum of |env|^2 over the padded plane ``env
+    [C, 2, Lp]`` (the carrier drops out): whole envelope samples in the
+    table, samples past it holding the last value, and the trailing
+    partial sample.  ``sc``: :func:`_window_scalars` (``addr``,
+    ``n_samp``, ``amp``, ``interp_c`` ``[1, C, 1]``)."""
+    env_i, env_q = env[:, 0], env[:, 1]                       # [C, Lp]
+    C, Lp = env_i.shape
+    dv = env_i.device
+    env2 = env_i * env_i + env_q * env_q
+    pref = torch.cat([torch.zeros((C, 1), dtype=torch.float32, device=dv),
+                      torch.cumsum(env2, -1)], -1)
+    interp_c = sc['interp_c']
+    count = sc['n_samp'].clamp(max=W)
+    n_full = torch.div(count, interp_c, rounding_mode='floor')
+    n_part = count - n_full * interp_c
+    addr = sc['addr']
+    a = addr.clamp(0, Lp).long()
+    b = (addr + n_full).clamp(0, Lp).long()
+    c_idx = torch.arange(C, device=dv)[None, :, None]
+    in_table = pref[c_idx, b] - pref[c_idx, a]
+    held = (n_full - (b - a)).to(torch.float32) * env2[:, -1][c_idx]
+    part_val = env2[c_idx, (addr + n_full).clamp(0, Lp - 1).long()]
+    amp = sc['amp']
+    return amp * amp * (interp_c.to(torch.float32) * (in_table + held)
+                        + n_part.to(torch.float32) * part_val)
+
+
+def _resolve_analytic(st: dict, bits, valid, xi, window_tables, env, g,
+                      sigma: float, W: int, cw: int, iq3, cls):
+    """The closed form of the white-noise matched filter (the JAX
+    ``_resolve_analytic``), every fired-but-unresolved slot at once.
+
+    The filter is linear, so demodulating ``g_s y + noise`` against
+    ``y`` gives ``acc = g_s E + sigma sqrt(E) xi``, ``E = sum |y|^2``
+    (:func:`_analytic_energy`), ``xi ~ N(0, I2)``.  ``xi [2, B, C, M]``
+    is drawn once per run (:func:`_analytic_xi`; None at sigma = 0), so
+    each slot's noise is fixed by its position.  With ``ring_tau > 0``
+    this is the flat-response approximation."""
+    g0, g1, g2 = g
+    B, C, M = bits.shape
+    dv = bits.device
+    fired = torch.arange(M, device=dv)[None, None, :] < st['n_meas'][..., None]
+    pending = fired & ~valid
+    energy = _analytic_energy(_window_scalars(st, window_tables, cw), env, W)
+    state = st['meas_state'][..., None]
+    gs = _channel(state, g0[None, :, None], g1[None, :, None],
+                  None if g2 is None else g2[None, :, None])
+    acc_i, acc_q = gs[..., 0] * energy, gs[..., 1] * energy
+    if xi is not None:
+        root_e = torch.sqrt(energy)
+        acc_i = acc_i + sigma * root_e * xi[0]
+        acc_q = acc_q + sigma * root_e * xi[1]
+    new_bit, new_cls = _acc_to_bit(acc_i, acc_q, energy, g0, g1, iq3)
+    if new_cls is not None:
+        cls = torch.where(pending, new_cls, cls)
+    return torch.where(pending, new_bit, bits), valid | fired, cls
 
 
 def _static_meas_env_addrs(mp, max_rows: int = 8):
@@ -298,27 +407,67 @@ def _fused_blockers(model: ReadoutPhysics, rows) -> None:
             'for the general model')
 
 
-def _check_model(model: ReadoutPhysics, eng: str) -> None:
-    """Raise for invalid readout models, and for those this slice does
-    not port.  Under ``engine='fused'`` the resolver never runs, so only
-    the fused engine's own gates apply to it."""
+def _check_model(model: ReadoutPhysics, W: int) -> None:
+    """The JAX ``run_physics_batch``'s readout-model checks, in its order,
+    with its exception types and messages; the analytic mode with a
+    ring-up warns."""
     if model.resolve_mode not in ('persample', 'fused', 'analytic'):
         raise ValueError(f'unknown resolve_mode {model.resolve_mode!r}')
+    if model.cw_horizon < 0 or model.cw_horizon > W:
+        raise ValueError(
+            f'cw_horizon={model.cw_horizon} must lie in [0, W={W}] — '
+            f'the resolve tables cover W samples; raise '
+            f'window_samples to integrate longer CW windows')
     if not 0.0 <= model.noise_ar1 < 1.0:
         raise ValueError(f'noise_ar1={model.noise_ar1} must be in [0, 1)')
-    if eng != 'fused':
-        if model.resolve_mode == 'analytic':
-            raise not_ported("resolve_mode='analytic'", 3)
-        if model.noise_ar1 > 0:
-            raise not_ported('AR(1) ADC noise (noise_ar1 > 0)', 3)
-    if model.g2 is not None or model.classify3:
-        raise not_ported('IQ-level leakage readout (g2, classify3)', 3)
-    if model.cw_horizon < 0:
-        raise ValueError(f'cw_horizon={model.cw_horizon} must be >= 0')
-    if model.cw_horizon > 0:
-        raise not_ported('CW readout (cw_horizon > 0)', 3)
-    if model.device.kind != 'parity':
-        raise not_ported(f'device {model.device.kind!r}', 4)
+    if model.g2 is not None and (
+            model.device.kind != 'statevec'
+            or not (np.any(np.asarray(model.device.leak_per_pulse,
+                                      np.float64))
+                    or np.any(np.asarray(model.device.leak2_per_pulse,
+                                         np.float64)))):
+        raise ValueError(
+            'g2 (the |2> IQ response) needs device=statevec with '
+            'leak_per_pulse > 0 or leak2_per_pulse > 0 — no leakage '
+            'channel, no |2> population')
+    if model.classify3 and model.g2 is None:
+        raise ValueError(
+            'classify3 (3-class discrimination) needs g2 (the |2> '
+            'response) set')
+    if model.noise_ar1 > 0 and model.resolve_mode != 'persample':
+        raise ValueError(
+            f"resolve_mode={model.resolve_mode!r} generates white ADC "
+            f"noise (analytic: closed form; fused: in-kernel "
+            f"generator); colored noise (noise_ar1 > 0) needs "
+            f"resolve_mode='persample'")
+    if model.ring_tau > 0 and model.resolve_mode == 'analytic':
+        warnings.warn(
+            "resolve_mode='analytic' ignores the resonator ring-up "
+            '(ring_tau > 0): bits follow the flat-response model, which '
+            'is optimistic at short windows — use persample/fused for '
+            'the structured channel', stacklevel=3)
+
+
+def _has_cross_core_freqs(mp, drive_elem: int = 0) -> bool:
+    """Does any core's drive-element frequency table hold a value that
+    appears in another core's — the cross-resonance signature, used to
+    warn when a statevec run has no coupling map.  CZ-style ef drives
+    live in the control core's own table and are not caught."""
+    per_core = []
+    for t in mp.tables:
+        if drive_elem < len(t.freqs):
+            per_core.append(np.asarray(t.freqs[drive_elem]['freq'],
+                                       np.float64))
+        else:
+            per_core.append(np.zeros(0))
+    for c, fc in enumerate(per_core):
+        for o, fo in enumerate(per_core):
+            if o == c or not len(fc) or not len(fo):
+                continue
+            if np.any(np.isclose(fc[:, None], fo[None, :], rtol=1e-12,
+                                 atol=1.0)):
+                return True
+    return False
 
 
 def _as_iq(g, C: int, device) -> torch.Tensor:
@@ -390,10 +539,12 @@ def prepare_physics_tables(mp, model: ReadoutPhysics, device=None) -> dict:
         torch.as_tensor(env_stack, device=device),
         _aligned_chunk(model.resolve_chunk, W, interps))
     # the static row select is the 'fused' mode's envelope fetch in the
-    # JAX package; 'persample' reads the full clamped table — both give
-    # the same envelope samples
-    rows = _static_meas_env_addrs(mp) if model.resolve_mode == 'fused' \
-        else None
+    # JAX package, and 'persample' here reads it too: a window's address
+    # is always one of the rows, so both give the envelope samples of the
+    # full clamped table, which remains for programs without a static row
+    # list ('analytic' reads only the padded planes)
+    rows = _static_meas_env_addrs(mp) \
+        if model.resolve_mode in ('fused', 'persample') else None
     tabs = build_fused_tables(
         env_pads, _carrier_basis(torch.as_tensor(freq_stack, device=device),
                                  W), W, interps, rows)
@@ -417,34 +568,147 @@ def derive_seed(seed: int, *words: int) -> int:
     return x
 
 
+# seed words of the independent streams of a run (derive_seed): initial
+# states 1, ADC noise 2, the analytic mode's draws 3; the projective-
+# measurement uniforms and the statevec trajectory take the JAX package's
+# fold_in words
+ANALYTIC_WORD = 3
+MEAS_U_WORD = 0x424c4f43
+TRAJ_WORD = 0x53563251
+
+
+def _meas_uniforms(seed: int, shots: int, C: int, M: int, device):
+    """The projective-measurement uniforms of a bloch or statevec run, one
+    per (shot, core, slot), ``[shots, C, M]`` float32 drawn on ``device``
+    from their own stream, independent of the initial states and the ADC
+    noise (the trajectory's uniforms are drawn the same way).  The CPU's
+    and the card's generators give different draws for one seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(seed, MEAS_U_WORD) >> 1)
+    return torch.rand((shots, C, M), generator=gen, device=device)
+
+
+def _analytic_xi(seed: int, B: int, C: int, M: int, device):
+    """The analytic mode's unit normals ``[2, B, C, M]`` (I, Q), one per
+    (shot, core, slot), fixed for the run."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(seed, ANALYTIC_WORD) >> 1)
+    return torch.randn((2, B, C, M), generator=gen, device=device)
+
+
+def _device_params(mp, model: ReadoutPhysics, seed: int, shots: int, M: int,
+                   device):
+    """The device-model parameters the engines read (None for parity):
+    per-core per-clock detuning and decay rates, the depolarizing keep
+    factor, the measurement uniforms and, for statevec, the 2q, leakage
+    and seepage rates, the trajectory seed and the static channel
+    facts (:meth:`~.device.DeviceModel.statevec_static` plus whether
+    leaked cores read out at the IQ level).  Scalars are float32 values,
+    as the JAX package traces them."""
+    d = model.device
+    if d.kind == 'parity':
+        return None
+    C = mp.n_cores
+    f32 = np.float32
+    det, it1, it2 = d.per_clock_rates(C)
+    dm = dict(det=torch.as_tensor(det, device=device),
+              inv_t1=torch.as_tensor(it1, device=device),
+              inv_t2=torch.as_tensor(it2, device=device),
+              depol=float(f32(d.depol_per_pulse)),
+              keep=float(f32(1.0) - f32(d.depol_per_pulse)),
+              meas_u=_meas_uniforms(seed, shots, C, M, device))
+    if d.kind == 'statevec':
+        if not d.couplings and _has_cross_core_freqs(mp):
+            warnings.warn(
+                "device='statevec' with couplings=() but the program "
+                'drives cross-core frequencies (the cross-resonance '
+                'signature): entangling pulses will execute as 1q '
+                'rotations.  Derive the map with '
+                'models.coupling.couplings_from_qchip(mp, qchip) or '
+                'run via Simulator.run (auto-derives).  (CZ-style '
+                'ef drives cannot be detected without the gate '
+                'library — derive the map explicitly for those.)',
+                stacklevel=3)
+        dm.update(depol2=float(f32(d.depol2_per_pulse)),
+                  zx90=float(f32(d.zx90_amp)), zz90=float(f32(d.zz90_amp)),
+                  leak=float(f32(d.leak_per_pulse)),
+                  leak2=float(f32(d.leak2_per_pulse)),
+                  seep=float(f32(d.seep_per_pulse)),
+                  traj_seed=derive_seed(seed, TRAJ_WORD),
+                  static=d.statevec_static() + (model.g2 is not None,))
+    return dm
+
+
+def statevec_step_budget(cfg: InterpreterConfig, model: ReadoutPhysics,
+                         n_cores: int) -> InterpreterConfig:
+    """``cfg`` with its step budget scaled by the core count for a
+    statevec run with couplings: the discrete-event gate can serialize
+    cross-core pulse triggers, one core per step at worst."""
+    if model.device.kind == 'statevec' and model.device.couplings:
+        return replace(cfg, max_steps=cfg.max_steps * n_cores)
+    return cfg
+
+
+def _init_device(st: dict, kind: str, init_states) -> None:
+    """Set the device co-state from the initial qubit bits: the parity
+    counter at two quarter turns per excited qubit, the Bloch vector at
+    the pole, or the basis state (core 0 the most significant bit)."""
+    B, C = init_states.shape
+    if kind == 'parity':
+        st['qturns'] = 2 * init_states
+    elif kind == 'bloch':
+        zf = torch.zeros((B, C), dtype=torch.float32,
+                         device=init_states.device)
+        st['bloch'] = torch.stack(
+            [zf, zf, 1.0 - 2.0 * init_states.to(torch.float32)], dim=-1)
+    else:
+        weights = torch.tensor([1 << (C - 1 - c) for c in range(C)],
+                               dtype=torch.int32, device=init_states.device)
+        idx = (init_states * weights[None, :]).sum(-1)
+        st['psi'] = (idx[:, None] == torch.arange(
+            1 << C, device=init_states.device)[None, :]).to(torch.complex64)
+
+
 def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                       init_states=None, init_regs=None,
                       cfg: InterpreterConfig = None, tables: dict = None,
                       device=None, **kw) -> dict:
     """Execute ``shots`` shots with the measurement loop closed by DSP.
 
-    ``seed``: integer run seed (initial states and ADC noise derive from
-    it).  ``init_states``: optional ``[shots, n_cores]`` 0/1 initial qubit
+    ``seed``: integer run seed (initial states, ADC noise, measurement
+    uniforms and the statevec trajectory derive from it).
+    ``init_states``: optional ``[shots, n_cores]`` 0/1 initial qubit
     states (default: thermal at ``model.p1_init``).  ``init_regs``:
     optional ``[n_cores, 16]`` or ``[shots, n_cores, 16]`` register
     file.  ``tables``: optional :func:`prepare_physics_tables` output.
     ``device``: the torch device (default CUDA; raises without it).
 
     Returns the interpreter's final state plus ``meas_bits`` /
-    ``meas_bits_valid`` ``[shots, n_cores, max_meas]``, ``qturns`` and
-    ``epochs``, as tensors on ``device``."""
+    ``meas_bits_valid`` ``[shots, n_cores, max_meas]``, ``epochs`` and the
+    device co-state: ``qturns`` (parity); ``bloch`` ``[shots, n_cores,
+    3]`` (bloch) or ``psi`` ``[shots, 2^n_cores]`` and ``leaked``
+    (statevec), with ``meas_p1`` (pre-projection P(1) per slot) and
+    ``phys_t``; with ``classify3``, ``meas_class``.  Tensors on
+    ``device``."""
     device = torch_device(device)
+    # a caller-built cfg or max_steps counts as a sized budget; only the
+    # default one is scaled for the statevec event gate below
+    explicit_steps = 'max_steps' in kw or cfg is not None
     cfg = physics_config(cfg, model, **kw)
     cfg, strict = _fault_policy(cfg)
-    eng = check_supported(mp, cfg, device)
-    if eng == 'fused':
-        _fused_blockers(model, _static_meas_env_addrs(mp))
-    _check_model(model, eng)
-    soa, spc, interp, sync_part = _program_constants(mp, device)
+    _check_fabric(cfg, mp.n_cores)
     _env, freq_stack, spc_m, interp_m, w_auto = \
         _physics_tables(mp, model.meas_elem)
     W = int(model.window_samples or w_auto)
     C, M = mp.n_cores, cfg.max_meas
+    dm = _device_params(mp, model, seed, shots, M, device)
+    if not explicit_steps:
+        cfg = statevec_step_budget(cfg, model, C)
+    _check_model(model, W)
+    eng = check_supported(mp, cfg, device)
+    if eng == 'fused':
+        _fused_blockers(model, _static_meas_env_addrs(mp))
+    soa, spc, interp, sync_part = _program_constants(mp, device)
     if tables is None:
         tables = prepare_physics_tables(mp, model, device)
     elif tables.get('meta') != _tables_meta(model, W, mp):
@@ -467,6 +731,10 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                                   device=device)
 
     g0, g1 = _as_iq(model.g0, C, device), _as_iq(model.g1, C, device)
+    g2 = None if model.g2 is None else _as_iq(model.g2, C, device)
+    leak_bit = int(dm['static'][6]) if model.device.kind == 'statevec' \
+        else 1
+    iq3 = (g2, bool(model.classify3), leak_bit) if g2 is not None else None
     sigma = float(np.float32(model.sigma))
     inv_ring = float(np.float32(0.0 if model.ring_tau <= 0
                                 else 1.0 / model.ring_tau))
@@ -479,12 +747,17 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     fused = fused_readout(mp, model, tables) if eng == 'fused' else None
     span = _span_table(mp, cfg, device, fused=True) if eng == 'fused' \
         else None
+    cw = int(model.cw_horizon)
 
     B = init_states.shape[0]
     st = _init_state(B, C, cfg, init_regs, device)
-    st['qturns'] = 2 * init_states
+    _init_device(st, model.device.kind, init_states)
     bits = torch.zeros((B, C, M), dtype=torch.int32, device=device)
     valid = torch.zeros((B, C, M), dtype=torch.bool, device=device)
+    cls = torch.zeros((B, C, M), dtype=torch.int32, device=device) \
+        if model.classify3 else None
+    xi = _analytic_xi(seed, B, C, M, device) \
+        if model.resolve_mode == 'analytic' and sigma != 0 else None
     paused = torch.zeros((B,), dtype=torch.bool, device=device)
     slots = torch.arange(M, device=device)[None, None, :]
     # epoch bound: each epoch resolves at least one measurement and a
@@ -509,32 +782,45 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
             continue
         if eng == 'straightline':
             st = _exec_straightline(st, soa_np, spc, interp, bits, valid,
-                                    cfg)
+                                    cfg, dm=dm)
             steps += soa_np.shape[1]
         elif eng == 'block':
             # a fproc read pauses only in the boundary step, as in the
             # generic engine
             st, steps, paused = _exec_blocks(st, steps, paused, soa, spc,
                                              interp, sync_part, bits, valid,
-                                             cfg, traits)
+                                             cfg, traits, dm)
         else:
             st, steps, paused = _exec_loop(st, steps, paused, soa, spc,
                                            interp, sync_part, bits, valid,
-                                           cfg, traits)
-        sc, state_sel, slot, has_pending = \
-            _compact_pending_slot(st, valid, window_tables)
-        gs = torch.where(state_sel == 1, g1[None], g0[None])   # [B, C, 2]
-        acc_i, acc_q, energy = resolve_windows_fused(
-            sc, tables, gs[..., 0].contiguous(), gs[..., 1].contiguous(),
-            sigma, inv_ring, noise_seed, W, Lp,
-            ring=model.ring_tau > 0, epoch=ep, ck=ck)
-        new_bit = _discriminate_acc(acc_i, acc_q, energy, g0, g1)
-        bits, valid = _scatter_slot_bit(bits, valid, new_bit, slot,
-                                        has_pending)
+                                           cfg, traits, dm)
+        if model.resolve_mode == 'analytic':
+            bits, valid, cls = _resolve_analytic(
+                st, bits, valid, xi, window_tables, tables['env'],
+                (g0, g1, g2), sigma, W, cw, iq3, cls)
+        else:
+            sc, state_sel, slot, has_pending = \
+                _compact_pending_slot(st, valid, window_tables, cw)
+            gs = _channel(state_sel, g0[None], g1[None],
+                          None if g2 is None else g2[None])   # [B, C, 2]
+            acc_i, acc_q, energy = resolve_windows_fused(
+                sc, tables, gs[..., 0].contiguous(),
+                gs[..., 1].contiguous(), sigma, inv_ring, noise_seed, W, Lp,
+                ring=model.ring_tau > 0, epoch=ep, ck=ck,
+                rho=float(np.float32(model.noise_ar1)))
+            new_bit, new_cls = _acc_to_bit(acc_i, acc_q, energy, g0, g1,
+                                           iq3)
+            if new_cls is not None:
+                cls, _ = _scatter_slot_bit(cls, valid, new_cls, slot,
+                                           has_pending)
+            bits, valid = _scatter_slot_bit(bits, valid, new_bit, slot,
+                                            has_pending)
         paused = torch.zeros_like(paused)
         ep += 1
     out = _finalize(st, steps, cfg)
     out['meas_bits'] = bits
     out['meas_bits_valid'] = valid
     out['epochs'] = torch.tensor(ep, dtype=torch.int32, device=device)
+    if cls is not None:
+        out['meas_class'] = cls
     return _check_strict(out, strict)

@@ -24,6 +24,7 @@ source is not compiled by this package yet.
 from __future__ import annotations
 
 import warnings
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -32,6 +33,7 @@ from .hwconfig import FPGAConfig
 from .decoder import MachineProgram
 from .pipeline import compile_to_machine
 from .models.channels import make_channel_configs
+from .models.coupling import couplings_from_qchip
 from .models.default_qchip import make_default_qchip
 from .models.readout import make_generator, sample_meas_bits
 from .sim.interpreter import (ERR_PULSE_OVERFLOW, InterpreterConfig,
@@ -114,10 +116,18 @@ class Simulator:
                 raise ValueError(
                     'physics= resolves measurement bits in-sim; '
                     'meas_bits=/p1= cannot also be given')
-            from .sim.physics import run_physics_batch, physics_config
+            from .sim.physics import (physics_config, run_physics_batch,
+                                      statevec_step_budget)
             if physics.device.kind == 'statevec':
-                raise not_ported("the 'statevec' device (and its coupling "
-                                 'map, models/coupling.py)', 4)
+                if not physics.device.couplings:
+                    # derive the (core, freq-word) -> (target, kind)
+                    # coupling map from this program + gate library, so
+                    # CNOT/CZ calibrations entangle without manual wiring
+                    physics = replace(physics, device=replace(
+                        physics.device,
+                        couplings=couplings_from_qchip(mp, self.qchip)))
+                if 'max_steps' not in cfg_kw:
+                    cfg = statevec_step_budget(cfg, physics, mp.n_cores)
             if isinstance(key, torch.Generator):
                 raise ValueError('physics= takes an int seed as key=')
             out = dict(run_physics_batch(

@@ -11,10 +11,13 @@ its plain torch version on the same inputs (rtol 1e-5, atol 1e-5 *
 max|energy|: the kernel reads float64 prefix sums of the deterministic
 chain and sums the noise projection in its own order, the plain version
 sums chunk by chunk), on the program's tables and on seeded ones with
-four static rows and two or four frequencies, and the physics loop on
-the card against the same loop on the CPU (identical bits at
-sigma = 0).  The megastep kernels of
-``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
+four static rows and two or four frequencies; with AR(1) noise on the
+same streamed whites (rtol 1e-4, atol 1e-3 * max|energy|: the kernel's
+warp scan against the plain version's triangular product) and, on its
+own draws, the noise projection's variance against the closed form; and
+the physics loop on the card against the same loop on the CPU (identical
+bits at sigma = 0) for the parity, Bloch and statevec devices.  The
+megastep kernels of ``csrc/exec_span.cu`` are held exactly: K1 against the straight-line
 engine on the card, K3 against its plain version and against the
 generic engine, K1 block (``engine='pallas'`` on a looping program)
 against the block engine's plain bodies, and under the ``'lut'`` fabric
@@ -253,8 +256,12 @@ MULTI_F = {'multirow': 2, 'wide': 4}
 def _tables(card, program, kind, mode):
     """The program's resolve tables, or seeded multi-row ones."""
     if kind == 'program':
-        return prepare_physics_tables(program, ReadoutPhysics(
+        tables = prepare_physics_tables(program, ReadoutPhysics(
             resolve_mode=mode, resolve_chunk=256), card)
+        # 'persample' reads the static rows too; without them the kernel
+        # runs its full-table mode
+        return tables if mode == 'fused' \
+            else dict(tables, rows=tables['rows'][:0])
     from distributed_processor_tpu_torch.ops.resolve import \
         build_fused_tables
     from distributed_processor_tpu_torch.sim.physics import (
@@ -350,6 +357,169 @@ def test_physics_on_card_matches_cpu(card, program):
     for key in ('meas_bits', 'meas_bits_valid', 'n_pulses', 'err',
                 'fault', 'qturns', 'epochs', 'steps'):
         assert torch.equal(on_card[key].cpu(), on_cpu[key]), key
+
+
+def _ar1_against_plain(tables, B, rho, seed=5):
+    """K2 with AR(1) on streamed whites and initial states against the
+    plain version's triangular coloring of the same numbers: rtol 1e-4,
+    atol 1e-3 * max|energy| (a warp scan of affine maps, or the
+    sequential recursion, against a float32 triangular product per
+    chunk)."""
+    C, W, Lp = tables['env'].shape[0], tables['bas'].shape[3], \
+        tables['env'].shape[2]
+    sc, gs_i, gs_q = _inputs(tables, B, seed)
+    gen = torch.Generator(device=tables['env'].device)
+    gen.manual_seed(seed)
+    dev = tables['env'].device
+    white = 0.1 * torch.randn((2, C, B, W), generator=gen, device=dev)
+    init = 0.1 * torch.randn((2, C, B), generator=gen, device=dev)
+    args = (sc, tables, gs_i, gs_q, 0.1, 0.0, 3, W, Lp)
+    before = resolve_windows_fused.launches
+    got = resolve_windows_fused(*args, noise=white, noise0=init, rho=rho)
+    assert resolve_windows_fused.launches == before + 1
+    want = resolve_windows_reference(*args, noise=white, noise0=init,
+                                     rho=rho)
+    torch.cuda.synchronize()
+    scale = float(want[2].abs().max())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize('kind', ['program', 'wide', 'full'])
+@pytest.mark.parametrize('rho', [0.1, 0.9])
+@pytest.mark.parametrize('B', [1, 33, 1001])
+def test_k2_ar1_matches_plain_version(card, program, kind, rho, B):
+    """Ragged sample counts (0 to past W), rows mode from shared or
+    global memory, and the full-table kernel."""
+    if kind == 'full':
+        tables = _tables(card, program, 'multirow', 'persample')
+        assert tables['rows'].numel() == 0
+    else:
+        tables = _tables(card, program, kind, 'fused')
+    _ar1_against_plain(tables, B, rho)
+
+
+@pytest.mark.parametrize('kind', ['program', 'full'])
+def test_k2_ar1_philox_variance(card, program, kind):
+    """The kernel's own AR(1) draws: the variance of the noise
+    projection of one window, repeated over 20000 lanes, against
+    ``sigma^2 a^2 sum_{s,t} rho^|s-t| Re(z_s conj(z_t))`` within 5
+    standard errors."""
+    if kind == 'full':
+        tables = _tables(card, program, 'multirow', 'persample')
+    else:
+        tables = _tables(card, program, 'program', 'fused')
+    C, W, Lp = tables['env'].shape[0], tables['bas'].shape[3], \
+        tables['env'].shape[2]
+    B, rho, sigma = 20000, 0.7, 0.5
+    sc, gs_i, gs_q = _inputs(tables, 1, 2)
+    sc['n_samp'].fill_(min(W, 300))
+    sc = {k: v.expand(B, C, 1).contiguous() for k, v in sc.items()}
+    gs_i, gs_q = gs_i.expand(B, C).contiguous(), gs_q.expand(B, C).contiguous()
+    args = (sc, tables, gs_i, gs_q)
+    clean = resolve_windows_fused(*args, 0.0, 0.0, 0, W, Lp)
+    noisy = resolve_windows_fused(*args, sigma, 0.0, 11, W, Lp, rho=rho)
+    # the window's z from the plain chain at sigma = 0: one lane, unit
+    # response, each sample alone
+    from distributed_processor_tpu_torch.ops.resolve import \
+        _window_base
+    a = sc['amp'][0, :, 0].double().cpu()
+    n = int(sc['n_samp'][0, 0, 0])
+    s = torch.arange(n, device=card)
+    interp = tables['interps'].long()[:, None]
+    base = _window_base(sc['addr'][0, :, 0], tables['rows'], Lp).long()
+    k = (base[:, None] + s[None] // interp).clamp(max=Lp - 1)
+    env = tables['env'].double()
+    e = env[:, 0].gather(1, k) + 1j * env[:, 1].gather(1, k)
+    f = sc['f_idx'][0, :, 0].long()
+    bas = tables['bas'].double()[torch.arange(C, device=card), :, f, :n]
+    z = (e * (bas[:, 0] + 1j * bas[:, 1])).cpu().numpy()
+    lag = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    torch.cuda.synchronize()
+    for c in range(C):
+        var = sigma ** 2 * float(a[c]) ** 2 * np.real(
+            (rho ** lag * z[c][:, None] * np.conj(z[c][None, :])).sum())
+        for comp in (0, 1):
+            d = (noisy[comp] - clean[comp])[:, c].double().cpu().numpy()
+            assert abs(d.var(ddof=1) - var) \
+                < 5 * var * np.sqrt(2.0 / (B - 1)), (c, comp, d.var(), var)
+
+
+def _tie_lanes(out, u) -> int:
+    fired = np.arange(u.shape[-1])[None, None, :] \
+        < out['n_meas'].cpu().numpy()[..., None]
+    return int((fired & (np.abs(u - out['meas_p1'].cpu().numpy())
+                         < 1e-6)).sum())
+
+
+@pytest.fixture
+def shared_uniforms(monkeypatch):
+    """Every device's run reads the CPU generator's measurement uniforms,
+    moved to its device: the card draws its own from another generator,
+    so card = CPU needs one draw for both.  Returns the draw."""
+    from distributed_processor_tpu_torch.sim import physics as tphysics
+    draw = tphysics._meas_uniforms
+    monkeypatch.setattr(
+        tphysics, '_meas_uniforms', lambda seed, shots, C, M, device:
+        draw(seed, shots, C, M, 'cpu').to(device))
+    return draw
+
+
+def test_bloch_physics_on_card_matches_cpu(card, program, shared_uniforms):
+    """The straight-line engine with the Bloch device and K2, card = CPU
+    at sigma = 0 with the same initial states and measurement
+    uniforms."""
+    from distributed_processor_tpu_torch.sim.device import DeviceModel
+    B = 256
+    init = np.random.default_rng(4).integers(0, 2, (B, program.n_cores))
+    cfg = InterpreterConfig(max_steps=2 * program.n_instr + 64,
+                            max_pulses=program.max_pulses_per_core(1) + 4,
+                            max_meas=2, max_resets=2, record_pulses=False,
+                            straightline=None)
+    model = ReadoutPhysics(sigma=0.0, resolve_mode='fused',
+                           resolve_chunk=256, device=DeviceModel(
+                               'bloch', detuning_hz=50e3, t1_s=80e-6,
+                               t2_s=60e-6, depol_per_pulse=1e-3))
+    before = resolve_windows_fused.launches
+    on_card = run_physics_batch(program, model, 1, B, init_states=init,
+                                cfg=cfg, device=card)
+    assert resolve_windows_fused.launches - before \
+        == int(on_card['epochs'])
+    on_cpu = run_physics_batch(program, model, 1, B, init_states=init,
+                               cfg=cfg, device='cpu')
+    u = shared_uniforms(1, B, program.n_cores, 2, 'cpu').numpy()
+    assert _tie_lanes(on_cpu, u) == 0
+    for key in ('meas_bits', 'meas_bits_valid', 'n_pulses', 'err',
+                'fault', 'epochs', 'steps'):
+        assert torch.equal(on_card[key].cpu(), on_cpu[key]), key
+    for key in ('bloch', 'meas_p1'):
+        torch.testing.assert_close(on_card[key].cpu(), on_cpu[key],
+                                   rtol=0, atol=1e-5)
+
+
+def test_statevec_physics_on_card_matches_cpu(card, shared_uniforms):
+    """GHZ-3 on the generic engine with the statevec device and K2,
+    card = CPU at sigma = 0 with the same measurement uniforms."""
+    from distributed_processor_tpu_torch.models import (
+        couplings_from_qchip, ghz_program)
+    from distributed_processor_tpu_torch.sim.device import DeviceModel
+    B = 128
+    mp = compile_to_machine(ghz_program(['Q0', 'Q1', 'Q2']),
+                            make_default_qchip(3), n_qubits=3)
+    model = ReadoutPhysics(sigma=0.0, device=DeviceModel(
+        'statevec', couplings=couplings_from_qchip(mp,
+                                                   make_default_qchip(3))))
+    kw = dict(init_states=np.zeros((B, 3), np.int32), max_steps=4000,
+              max_pulses=64, max_meas=4)
+    on_card = run_physics_batch(mp, model, 2, B, device=card, **kw)
+    on_cpu = run_physics_batch(mp, model, 2, B, device='cpu', **kw)
+    for key in ('meas_bits', 'n_pulses', 'err', 'fault', 'leaked',
+                'epochs', 'steps'):
+        assert torch.equal(on_card[key].cpu(), on_cpu[key]), key
+    torch.testing.assert_close(on_card['psi'].abs().cpu() ** 2,
+                               on_cpu['psi'].abs() ** 2, rtol=0, atol=1e-5)
+    bits = on_card['meas_bits'][:, :, 0]
+    assert bool((bits == bits[:, :1]).all())
 
 
 # ---------------------------------------------------------------------------

@@ -149,16 +149,22 @@ def test_sweep_sums_its_batches(headline):
 
 
 def test_unported_models_raise(headline):
+    """The readout models and devices of queue 1 items 3 and 4 run now
+    (tests/test_torch_readout_models.py, test_torch_bloch.py and
+    test_torch_statevec.py hold them against the JAX package); a |2>
+    response without a leakage channel raises the JAX package's error,
+    and the sweep's checkpoint, span and mesh options still raise
+    naming their item."""
     _mp_j, mp_t, cfg, _init = headline
-    for kw in ({'resolve_mode': 'analytic'}, {'noise_ar1': 0.5},
-               {'cw_horizon': 16}, {'g2': 0.5 + 0.5j}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            run_physics_batch(mp_t, TPhysics(**kw), 0, 4, cfg=TCfg(**cfg),
-                              device='cpu')
     from distributed_processor_tpu_torch.sim.device import DeviceModel
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_physics_batch(mp_t, TPhysics(device=DeviceModel('bloch')), 0,
-                          4, cfg=TCfg(**cfg), device='cpu')
+    for kw in ({'resolve_mode': 'analytic'}, {'noise_ar1': 0.5},
+               {'cw_horizon': 16}, {'device': DeviceModel('bloch')}):
+        out = run_physics_batch(mp_t, TPhysics(**kw), 0, 4, cfg=TCfg(**cfg),
+                                device='cpu')
+        assert bool(out['meas_bits_valid'].all()), kw
+    with pytest.raises(ValueError, match='g2'):
+        run_physics_batch(mp_t, TPhysics(g2=0.5 + 0.5j), 0, 4,
+                          cfg=TCfg(**cfg), device='cpu')
     for kw in ({'checkpoint': 'x.npz'}, {'span': 2}, {'mesh': object()}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             run_physics_sweep(mp_t, TPhysics(), 8, 4, cfg=TCfg(**cfg),

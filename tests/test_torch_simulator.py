@@ -297,9 +297,12 @@ def test_unported_entries_name_the_roadmap(sim2):
         sim2.compile('qubit[1] q;')
     with pytest.raises(NotImplementedError, match='ROADMAP.*item 6'):
         sim2.run('qubit[1] q; reset q[0];', shots=8, p1=0.5)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 4'):
-        sim2.run(X90_READ, shots=2, physics=ReadoutPhysics(
-            device=DeviceModel('statevec')))
+    # the statevec device runs now (item 4), its coupling map derived
+    # from the program and the gate library
+    out = sim2.run(X90_READ, shots=2, physics=ReadoutPhysics(
+        sigma=0.0, device=DeviceModel('statevec')))
+    assert tuple(out['psi'].shape) == (2, 1 << out['_mp'].n_cores)
+    assert not bool(out['incomplete'])
 
 
 def test_simulator_defaults_to_cuda():
