@@ -76,10 +76,24 @@ Phases, in order (any failure exits nonzero):
    + K2, shot-exact parity; 2-qubit interleaved RB with leakage and
    IQ-level 3-class readout at 262144 shots), each with its steady
    batch's wall, epochs, K2 launches and device ms and the device's idle
-   share;
+   share; then the program-ensemble path (16 distinct random RB
+   sequences, 8 qubits, depth 12, as one ``simulate_multi_batch`` over
+   16 x 16384 = 262144 lanes of the generic engine, each program's view
+   equal to the program alone, the wall beside 16 sequential calls', and
+   ``run_multi_sweep`` over 2 batches equal to the sum of its batches);
+   the streaming-rounds path (``simulate_rounds`` at 32 rounds x 8192
+   shots on the repetition round and the surface cycle with their
+   decodes, one K1 span launch each under ``'pallas'`` and ``'auto'``,
+   equal to 32 sequential straight-line batches, the decode held to the
+   LUT oracles; the looped headline at 4 x 8192, one K1 block launch per
+   block-engine iteration, equal to 4 sequential block-engine batches;
+   each call's wall beside its sequential calls'); and the analysis
+   fits (T1, RB and Ramsey on the card = on the CPU, and
+   ``calibrate_readout`` at 262144 shots with fidelity > 0.99);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
-   three ``'lut'`` paths at a small batch;
+   three ``'lut'`` paths, ``simulate_rounds`` with the decode and
+   ``simulate_multi_batch`` at a small batch;
 5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
@@ -184,6 +198,19 @@ CAPTURE = dict(n_clks=65536, spc=16, n_pulses=64, env_len=1024)
 # 16-entry chain-matching LUT), 8 unrolled QEC rounds on 8 cores (block
 # mode), all at 262144 shots; the CUDA-vs-CPU check at a small batch
 LUT = dict(batch=262144, n_data=8, distance=5, rounds=8, cpu_batch=256)
+# program ensembles (bench.py's multi_sequence_rb at the headline's width):
+# 16 distinct random RB sequences x 16384 shots = 262144 lanes, a sweep of
+# 2 batches; the CUDA-vs-CPU check at a small batch
+MULTI = dict(n_seqs=16, shots=16384, sweep_batches=2, cpu_shots=64)
+# streaming rounds: 32 rounds x 8192 shots = 262144 lanes on the 'lut'
+# span workloads, the looped headline at 4 x 8192 (the loop path's 32768
+# lanes); the majority decode checked against the LUT walk on a seeded
+# sample of shots; the CUDA-vs-CPU check at a small batch
+ROUNDS = dict(rounds=32, shots=8192, loop_rounds=4, oracle_shots=1024,
+              cpu_shots=64)
+# readout calibration at the headline's channel responses g0, g1 with IQ
+# clouds of this sigma (a fidelity of Phi(|g1 - g0| / (2 sigma)) = 0.9986)
+CALIB = dict(shots=262144, sigma=0.3)
 # the integer operations of a LUT read beyond a row's SPAN_OPS_PER_INSTR
 # (csrc/exec_span.cu lut_read): per masked producer and slot, two
 # compares, an and and an add (the time-indexed count); per masked
@@ -2558,6 +2585,434 @@ def phase_statevec_path(env) -> int:
     return res['epochs']
 
 
+def _wall_median(fn, reps: int = 3) -> float:
+    """The median wall time in s of ``reps`` calls of ``fn``, each ended
+    by a device sync."""
+    walls = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[len(walls) // 2]
+
+
+def _busy(fn) -> tuple:
+    """``(wall s, device busy s, launches, megastep kernels' device s)``
+    of one profiled call of ``fn``: every CUDA kernel the profiler saw,
+    eager torch kernels included; the last counts K1's (names holding
+    ``exec_``)."""
+    wall, kernels = device_kernel_times(fn)
+    return (wall, sum(us for us, _n in kernels.values()) / 1e6,
+            sum(n for _us, n in kernels.values()),
+            sum(us for name, (us, _n) in kernels.items()
+                if 'exec_' in name) / 1e6)
+
+
+def _busy_note(b: tuple) -> str:
+    wall, dev, n, k1 = b
+    if n == 0:
+        return 'device time not measured (the profiler saw no kernel)'
+    return (f'{n} kernel launches, device busy {dev:.4f} s of a profiled '
+            f'{wall:.4f} s ({100 * dev / wall:.1f}%)'
+            + (f', K1 device {1e3 * k1:.4f} ms' if k1 else ''))
+
+
+def multi_ensemble(seed: int):
+    """The headline ensemble: ``MULTI['n_seqs']`` distinct random RB
+    sequences over 8 qubits at depth 12, each after active reset,
+    compiled by the port; returns ``(programs, stacked)``."""
+    from distributed_processor_tpu_torch import compile_to_machine
+    from distributed_processor_tpu_torch.decoder import \
+        stack_machine_programs
+    from distributed_processor_tpu_torch.models import (
+        active_reset, make_default_qchip, rb_ensemble)
+    n = HEADLINE['n_qubits']
+    qubits = [f'Q{i}' for i in range(n)]
+    qchip = make_default_qchip(n)
+    mps = [compile_to_machine(active_reset(qubits) + prog, qchip,
+                              n_qubits=n)
+           for prog in rb_ensemble(qubits, HEADLINE['depth'],
+                                   MULTI['n_seqs'], seed=seed)]
+    return mps, stack_machine_programs(mps)
+
+
+def multi_config(mmp):
+    """bench.py's ``cfg_multi``: the bucket's budget, no pulse records."""
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        InterpreterConfig
+    return InterpreterConfig(max_steps=2 * mmp.n_instr + 64,
+                             max_pulses=mmp.n_instr + 2, max_meas=2,
+                             max_resets=2, record_pulses=False)
+
+
+def phase_multi_path(env) -> None:
+    """The headline ensemble at full width: 16 distinct random RB
+    sequences (8 qubits, depth 12, after active reset) as one
+    ``simulate_multi_batch`` over 16 x 16384 = 262144 lanes on seeded
+    Bernoulli(0.5) bits, every program's view equal on every key to that
+    program alone through ``simulate_batch(engine='generic')``; its
+    steady wall beside the 16 sequential calls'; then ``run_multi_sweep``
+    over 2 batches, its integer statistics equal to the sum of the two
+    batches' ensemble runs on the same bits."""
+    import dataclasses
+    import torch
+    from distributed_processor_tpu_torch.parallel import (multi_batch_stats,
+                                                          run_multi_sweep)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        demux_multi_batch, simulate_batch, simulate_multi_batch)
+    from distributed_processor_tpu_torch.sim.physics import derive_seed
+    mps, mmp = multi_ensemble(seed=2026)
+    P, B, C = mmp.n_progs, MULTI['shots'], mmp.n_cores
+    cfg = multi_config(mmp)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(81)
+    bits = (torch.rand((P, B, C, 2), generator=gen, device=DEV) < 0.5) \
+        .to(torch.int32)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = simulate_multi_batch(mmp, bits, cfg=cfg, device=DEV)
+    sync()
+    t_first = time.perf_counter() - t0
+    counts = _launches()
+    check(_only_launched(counts), f'multi path launched hand kernels: '
+                                  f'{counts} (the generic engine has none)')
+    check(not bool(out['incomplete'].any()) and not bool(out['fault'].any())
+          and not bool(out['err'].any()),
+          'multi path: incomplete, faulted or errored lanes')
+    check(tuple(out['steps'].shape) == (P,) and tuple(out['n_pulses'].shape)
+          == (P, B, C), 'multi path outputs have the wrong shape')
+    for p, mp in enumerate(mps):
+        alone = simulate_batch(mp, bits[p], cfg=dataclasses.replace(
+            cfg, engine='generic'), device=DEV)
+        _max_abs_diff(demux_multi_batch(out, p), alone,
+                      f'multi path: program {p} vs alone')
+    print(f'multi path: {P} RB sequences (8 qubits, depth 12, bucket '
+          f'{mmp.n_instr} instructions) x {B} shots = {P * B} lanes in one '
+          f'simulate_multi_batch ({t_first:.3f} s first call), steps per '
+          f"program {out['steps'].tolist()}; every program's view equal on "
+          f'every key to the program alone on the generic engine; no err, '
+          f'fault or incomplete')
+    del out
+
+    def multi():
+        simulate_multi_batch(mmp, bits, cfg=cfg, device=DEV)
+
+    def sequential():
+        for p, mp in enumerate(mps):
+            simulate_batch(mp, bits[p], cfg=dataclasses.replace(
+                cfg, engine='generic'), device=DEV)
+    walls = {'one ensemble call': _wall_median(multi),
+             f'{P} sequential calls': _wall_median(sequential, reps=1)}
+    busy = {'one ensemble call': _busy(multi),
+            f'{P} sequential calls': _busy(sequential)}
+    print('multi path steady (the ensemble call: median of 3; the '
+          'sequential calls: one run; one profiled call each): '
+          + '; '.join(f'{k}: {w:.4f} s, {P * B / w:.1f} shots/s, '
+                      f'{_busy_note(busy[k])}' for k, w in walls.items())
+          + f' on {env["smi"]}')
+
+    # run_multi_sweep: 2 batches per program, against the sum of the two
+    # batches' ensemble runs on the sweep's own bits
+    n_b, seed = MULTI['sweep_batches'], 2027
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = run_multi_sweep(mmp, n_b * B, B, p1=0.5, seed=seed, cfg=cfg,
+                          device=DEV)
+    t_sweep = time.perf_counter() - t0
+    check(_only_launched(_launches()), 'multi sweep launched hand kernels')
+    acc = None
+    for i in range(n_b):
+        g = torch.Generator(device=DEV)
+        g.manual_seed(derive_seed(seed, i) >> 1)
+        b = (torch.rand((P, B, C, 2), generator=g, device=DEV) < 0.5) \
+            .to(torch.int32)
+        st = {k: v.cpu() for k, v in multi_batch_stats(
+            simulate_multi_batch(mmp, b, cfg=cfg, device=DEV)).items()}
+        acc = st if acc is None else {k: acc[k] + v for k, v in st.items()}
+    shots = n_b * B
+    check(res['shots'] == shots and res['incomplete_batches'] == 0
+          and res['engine'] == 'generic', f'multi sweep: {res}')
+    check(all(not v.any() for v in res['fault_shots'].values()),
+          'multi sweep faulted shots')
+    for key, num in (('mean_pulses', 'pulse_sum'), ('mean_qclk', 'qclk_sum'),
+                     ('err_rate', 'err_shots')):
+        check((res[key] == acc[num].numpy() / shots).all(),
+              f'multi sweep {key} differs from its batches')
+    check((res['err_shots'] == acc['err_shots'].numpy()).all(),
+          'multi sweep err_shots differs from its batches')
+    print(f'multi path sweep: run_multi_sweep {P} programs x {shots} shots '
+          f'in {n_b} batches, {t_sweep:.3f} s; integer statistics equal to '
+          f'the sum of the two batches; mean pulses per core (program 0) '
+          + json.dumps([round(float(x), 5) for x in res['mean_pulses'][0]])
+          + f' on {env["smi"]}')
+
+
+def _seq_rounds(mp, bits, cfg) -> dict:
+    """``R`` sequential ``simulate_batch`` calls on ``bits [R, B, C, M]``,
+    their outputs stacked on a leading round axis."""
+    import torch
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_batch
+    outs = [simulate_batch(mp, bits[r], cfg=cfg, device=DEV)
+            for r in range(bits.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def phase_rounds_path(env) -> dict:
+    """Streaming rounds at full width, R x B = 32 x 8192 = 262144 lanes:
+    the 8-core repetition round with the majority decode and the
+    distance-5 surface cycle (9 cores) with the chain-matching decode,
+    each through ``simulate_rounds`` with ``engine='pallas'`` and
+    ``'auto'`` (one K1 span launch for all lanes), equal on every key to
+    32 sequential straight-line batches; the decode against the injected
+    planes and the table oracles; then the looped headline at 4 x 8192
+    on ``engine='pallas'`` (one K1 block launch per block-engine
+    iteration), equal to 4 sequential block-engine batches.  Each call's
+    wall beside the R sequential K1 calls'.  Returns the launches of the
+    repetition round's pallas call (K1 span) and of the looped call (K1
+    block)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.models import qec
+    from distributed_processor_tpu_torch.ops.decode import (
+        majority_correction_np, majority_vote)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        simulate_batch, simulate_rounds)
+    R, B = ROUNDS['rounds'], ROUNDS['shots']
+    (rep_label, rep_mp, rep_cfg), (sc_label, sc_mp, sc_cfg) = lut_workloads()
+    d = LUT['distance']
+    workloads = ((rep_label, rep_mp, rep_cfg,
+                  qec.repetition_decode_spec(LUT['n_data'])),
+                 (sc_label, sc_mp, sc_cfg, qec.surface_decode_spec(d)))
+    res = {}
+    for label, mp, cfg, spec in workloads:
+        C = mp.n_cores
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(101 + C)
+        bits = torch.randint(0, 2, (R, B, C, cfg.max_meas), generator=gen,
+                             device=DEV, dtype=torch.int32)
+        outs = {}
+        for e in ('pallas', 'auto'):
+            run_cfg = dataclasses.replace(cfg, engine=e,
+                                          opcode_histogram=True)
+            _reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            outs[e] = simulate_rounds(mp, bits, cfg=run_cfg, decode=spec,
+                                      device=DEV)
+            sync()
+            dt = time.perf_counter() - t0
+            counts = _launches()
+            check(counts['exec_span'] == 1
+                  and _only_launched(counts, 'exec_span'),
+                  f'rounds path {label} ({e}): launches {counts}')
+            print(f"rounds path {label}: simulate_rounds(engine='{e}') "
+                  f'{R} rounds x {B} shots = {R * B} lanes, K1 span '
+                  f"launches {counts['exec_span']}, {dt:.4f} s (first call "
+                  f'of this engine)')
+            if e == 'pallas':
+                res[label] = counts['exec_span']
+        _max_abs_diff(outs['auto'], outs['pallas'],
+                      f"rounds path {label}: 'auto' vs 'pallas'")
+        out = outs.pop('pallas')
+        del outs
+        check(not bool(out['fault'].any()) and not bool(out['err'].any())
+              and not bool(out['incomplete'].any()),
+              f'rounds path {label}: faulted, errored or incomplete')
+        seq = _seq_rounds(mp, bits, dataclasses.replace(
+            cfg, engine='straightline', opcode_histogram=True))
+        _max_abs_diff({k: v for k, v in out.items()
+                       if k not in ('syndrome_hist', 'decoded')}, seq,
+                      f'rounds path {label}: rounds vs {R} sequential '
+                      f'straight-line batches')
+        del seq
+        hist = bits[:, :, list(spec.cores), spec.slot].permute(1, 0, 2)
+        check(torch.equal(out['syndrome_hist'], hist),
+              f'rounds path {label}: syndrome_hist is not the injected '
+              f'planes at the decode cores and slot')
+        voted = majority_vote(out['syndrome_hist']).cpu().numpy()
+        decoded = out['decoded'].cpu().numpy()
+        if spec.scheme == 'majority':
+            sample = np.random.default_rng(7).choice(B, ROUNDS['oracle_shots'],
+                                                     replace=False)
+            for b in sample:
+                check(np.array_equal(decoded[b],
+                                     majority_correction_np(voted[b])),
+                      f'rounds path {label}: shot {b} decoded differs from '
+                      f'the majority LUT')
+            what = (f"decoded = majority_correction_np of the round "
+                    f"majority on {len(sample)} sampled shots")
+        else:
+            lut = np.asarray(qec.chain_lut(d), np.int64)
+            addr = (voted.astype(np.int64) << np.arange(d - 1)).sum(1)
+            want = (lut[addr][:, None] >> np.arange(d)) & 1
+            check(np.array_equal(decoded, want),
+                  f'rounds path {label}: decoded differs from chain_lut')
+            what = f'decoded = the chain_lut({d}) entry on all {B} shots'
+        print(f'rounds path {label}: every key equal to {R} sequential '
+              f'straight-line batches; syndrome_hist = the injected planes; '
+              f'{what}')
+        del out
+
+        # the rounds call against R sequential K1 calls, steady
+        pal = dataclasses.replace(cfg, engine='pallas')
+
+        def rounds():
+            simulate_rounds(mp, bits, cfg=pal, decode=spec, device=DEV)
+
+        def sequential():
+            for r in range(R):
+                simulate_batch(mp, bits[r], cfg=pal, device=DEV)
+        _reset_launches()
+        sequential()
+        sync()
+        seq_launches = _launches()['exec_span']
+        w_rounds, w_seq = _wall_median(rounds), _wall_median(sequential)
+        print(f'rounds path {label} steady (median of 3): one '
+              f'simulate_rounds {w_rounds:.4f} s, 1 K1 launch, '
+              f'{_busy_note(_busy(rounds))}; {R} sequential '
+              f"simulate_batch(engine='pallas') {w_seq:.4f} s, "
+              f'{seq_launches} K1 launches, {_busy_note(_busy(sequential))}'
+              f' on {env["smi"]}')
+        del bits
+
+    # the looped headline: a looping program, K1 block per iteration
+    mp = loop_program()
+    R_l = ROUNDS['loop_rounds']
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(111)
+    bits = torch.randint(0, 2, (R_l, B, mp.n_cores, LOOP['max_meas']),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    cfg = loop_config(mp, engine='pallas', opcode_histogram=True)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = simulate_rounds(mp, bits, cfg=cfg, device=DEV)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = _launches()
+    iters = int(out['steps'].max())
+    check(counts['exec_blocks'] == iters > 0
+          and _only_launched(counts, 'exec_blocks'),
+          f'rounds path (looped): launches {counts}, {iters} iterations')
+    check(not bool(out['fault'].any()) and not bool(out['incomplete'].any())
+          and bool((out['n_meas'] == LOOP['max_meas']).all()),
+          'rounds path (looped): faulted or incomplete lanes')
+    seq = _seq_rounds(mp, bits, dataclasses.replace(cfg, engine='block'))
+    _max_abs_diff(out, seq, f'rounds path (looped): rounds vs {R_l} '
+                            f'sequential block-engine batches')
+    res['looped'] = counts['exec_blocks']
+    print(f"rounds path looped headline: simulate_rounds(engine='pallas') "
+          f'{R_l} rounds x {B} shots = {R_l * B} lanes in {dt:.4f} s (first '
+          f'call), {iters} block iterations, K1 block launches '
+          f"{counts['exec_blocks']}, no other kernel; steps per round "
+          f"{out['steps'].tolist()}; every key equal to {R_l} sequential "
+          f'block-engine batches')
+    del out, seq
+    pal = dataclasses.replace(cfg, opcode_histogram=False)
+
+    def rounds():
+        simulate_rounds(mp, bits, cfg=pal, device=DEV)
+
+    def sequential():
+        for r in range(R_l):
+            simulate_batch(mp, bits[r], cfg=pal, device=DEV)
+    _reset_launches()
+    sequential()
+    sync()
+    seq_launches = _launches()['exec_blocks']
+    w_rounds, w_seq = _wall_median(rounds), _wall_median(sequential)
+    print(f'rounds path looped steady (median of 3): one simulate_rounds '
+          f'{w_rounds:.4f} s, {iters} K1 block launches, '
+          f'{_busy_note(_busy(rounds))}; {R_l} sequential '
+          f"simulate_batch(engine='pallas') {w_seq:.4f} s, {seq_launches} K1 "
+          f'block launches, {_busy_note(_busy(sequential))} on '
+          f'{env["smi"]}')
+    return res
+
+
+def phase_analysis(env) -> None:
+    """The calibration user's fits on the card and on the CPU (T1, RB and
+    Ramsey on seeded synthetic curves): the parameters within the CPU
+    tests' tolerance of each other (rtol 1e-4, and 1e-4 of the amplitude
+    for a parameter near 0) and near the truth; then ``calibrate_readout``
+    at 262144 shots on the headline's readout responses, its fidelity
+    > 0.99 and within 5 standard errors of the closed form."""
+    import numpy as np
+    from distributed_processor_tpu_torch import analysis
+    from distributed_processor_tpu_torch.models.calibration import \
+        calibrate_readout
+    from distributed_processor_tpu_torch.models.readout import \
+        IQReadoutModel
+    rng = np.random.default_rng(0)
+    x = np.linspace(0, 200e-6, 30)
+    t1_y = 0.9 * np.exp(-x / 42e-6) + 0.05 + rng.normal(0, 0.01, x.shape)
+    depths = np.array([1, 2, 4, 8, 16, 32, 64, 128])
+    rb_y = 0.48 * 0.985 ** depths + 0.5 + rng.normal(0, 0.004, depths.shape)
+    t = np.linspace(0, 20e-6, 200)
+    ram_y = 0.45 * np.exp(-t / 8e-6) * np.cos(2 * np.pi * 350e3 * t) + 0.5 \
+        + rng.normal(0, 0.01, t.shape)
+    fits = (('T1', lambda dev: analysis.fit_t1(x, t1_y, device=dev)[1],
+             (0.9, 42e-6, 0.05)),
+            ('RB', lambda dev: analysis.fit_rb(depths, rb_y, device=dev)[2],
+             (0.48, 0.985, 0.5)),
+            ('Ramsey', lambda dev: analysis.fit_ramsey(t, ram_y,
+                                                       device=dev)[2],
+             (0.45, 8e-6, 350e3, 0.0, 0.5)))
+    notes = []
+    for label, fit, truth in fits:
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        card = np.asarray(fit(DEV))
+        sync()
+        dt = time.perf_counter() - t0
+        check(_only_launched(_launches()), f'{label} fit launched hand kernels')
+        cpu = np.asarray(fit('cpu'))
+        tol = 1e-4 * np.abs(cpu) + 1e-4 * abs(cpu[0])
+        check(np.all(np.abs(card - cpu) <= tol),
+              f'{label} fit: card {card.tolist()} vs CPU {cpu.tolist()}')
+        truth = np.asarray(truth)
+        check(np.all(np.abs(card - truth) <= 0.1 * np.abs(truth) + 0.05
+                     * abs(truth[0])),
+              f'{label} fit {card.tolist()} far from the truth '
+              f'{truth.tolist()}')
+        notes.append(f'{label} {dt:.3f} s, max |card - CPU| / |CPU| '
+                     f'{float(np.max(np.abs(card - cpu) / (np.abs(cpu) + abs(cpu[0])))):.2e}')
+    print('analysis fits on the card (first call each; 100 LM iterations): '
+          + '; '.join(notes) + ' — card = CPU within 1e-4')
+
+    from distributed_processor_tpu_torch.sim.physics import ReadoutPhysics
+    from math import erf, sqrt
+    phys = ReadoutPhysics()
+    C, S, sigma = HEADLINE['n_qubits'], CALIB['shots'], CALIB['sigma']
+    model = IQReadoutModel([phys.g0] * C, [phys.g1] * C, sigma)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    c0, c1, fid = calibrate_readout(model, 2026, S, device=DEV)
+    sync()
+    dt = time.perf_counter() - t0
+    check(_only_launched(_launches()),
+          'calibrate_readout launched hand kernels')
+    half = abs(complex(phys.g1) - complex(phys.g0)) / 2
+    want = 0.5 * (1 + erf(half / sigma / sqrt(2)))
+    se = sqrt(want * (1 - want) / (2 * S))
+    check(bool(np.all(fid > 0.99)), f'readout fidelity {fid.tolist()}')
+    check(bool(np.all(np.abs(fid - want) <= 5 * se)),
+          f'readout fidelity {fid.tolist()} vs the closed form {want:.5f}')
+    print(f'calibrate_readout: {S} shots x {C} channels on the card in '
+          f'{dt:.3f} s, centroids {c0[0].tolist()} / {c1[0].tolist()} '
+          f'(channel 0), fidelity {[round(float(f), 5) for f in fid]} '
+          f'(closed form {want:.5f}; g0 {phys.g0}, g1 {phys.g1}, sigma '
+          f'{sigma}) on {env["smi"]}')
+
+
 def device_kernel_times(fn) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only);
     returns its wall time in s and ``{kernel name: [device us, count]}``,
@@ -2679,6 +3134,32 @@ def phase_cuda_vs_cpu(mp):
                   "CUDA vs CPU, lut physics engine='fused'")
     print(f"CUDA vs CPU, lut physics (repetition round, engine='fused', "
           f'sigma=0), B={Bl}: every key identical')
+    # streaming rounds with the decode, and a program ensemble
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        simulate_multi_batch, simulate_rounds)
+    Br, R = ROUNDS['cpu_shots'], 4
+    for label, mp_l, cfg_l in lut_workloads():
+        spec = qec.repetition_decode_spec(n) if mp_l.n_cores == n \
+            else qec.surface_decode_spec(LUT['distance'])
+        mb = rng.integers(0, 2, (R, Br, mp_l.n_cores, cfg_l.max_meas))
+        cfg = dataclasses.replace(cfg_l, engine='pallas',
+                                  opcode_histogram=True)
+        outs = {d: simulate_rounds(mp_l, mb, cfg=cfg, decode=spec, device=d)
+                for d in (DEV, 'cpu')}
+        _max_abs_diff({k: v.cpu() for k, v in outs[DEV].items()},
+                      outs['cpu'], f'CUDA vs CPU, rounds {label}')
+        print(f"CUDA vs CPU, simulate_rounds(engine='pallas', decode) "
+              f'{label}, {R} x {Br}: every key identical')
+    mps, mmp = multi_ensemble(seed=7)
+    Bm = MULTI['cpu_shots']
+    mb = rng.integers(0, 2, (mmp.n_progs, Bm, mmp.n_cores, 2))
+    cfg = dataclasses.replace(multi_config(mmp), opcode_histogram=True)
+    outs = {d: simulate_multi_batch(mmp, mb, cfg=cfg, device=d)
+            for d in (DEV, 'cpu')}
+    _max_abs_diff({k: v.cpu() for k, v in outs[DEV].items()}, outs['cpu'],
+                  'CUDA vs CPU, simulate_multi_batch')
+    print(f'CUDA vs CPU, simulate_multi_batch {mmp.n_progs} programs x '
+          f'{Bm}: every key identical')
 
 
 def phase_sweep(mp, env):
@@ -2746,6 +3227,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_statevec_path, env)
     torch.cuda.empty_cache()
+    timed(phase_multi_path, env)
+    torch.cuda.empty_cache()
+    rounds = timed(phase_rounds_path, env)
+    torch.cuda.empty_cache()
+    timed(phase_analysis, env)
+    torch.cuda.empty_cache()
     counts = timed(phase_render_path, env)
     k4['launches'] = counts['render_shot']
     k5['launches'] = counts['demod_iq']
@@ -2766,6 +3253,10 @@ def main() -> int:
           f'{_device_note(lut_phys["dev_ms"])}, plain '
           f'{lut_phys["plain_ms"]:.3f}, bound {lut_phys["bound_ms"]:.4f}, '
           f'launches {lut_phys["launches"]} on {env["smi"]}')
+    print('rounds paths (launches in one simulate_rounds call): '
+          + '; '.join(f'{label}: {n}' for label, n in rounds.items())
+          + ' (K1 span on the loop-free rounds, K1 block on the looped '
+          'headline, one per block-engine iteration)')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'library_ms')

@@ -16,4 +16,7 @@ from .repetition import (repetition_round_machine_program, repetition_config,
                          correlated_noise_stage, independent_noise_stage,
                          majority_lut, corrected_counts)
 from .qec import (qec_config, qec_multiround_machine_program, chain_lut,
-                  surface_cycle_machine_program, surface_cycle_config)
+                  surface_cycle_machine_program, surface_cycle_config,
+                  repetition_decode_spec, surface_decode_spec)
+from .calibration import (fit_centroids, assignment_matrix,
+                          readout_fidelity, calibrate_readout)

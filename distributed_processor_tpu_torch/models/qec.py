@@ -11,11 +11,10 @@ Counterpart of the JAX package's ``models/qec.py`` (numpy only):
 * :func:`surface_cycle_machine_program` — the distance-d
   surface-code-cycle-shaped variant: d data cores + d-1 ancilla cores,
   ancillas measure the syndrome, data cores read their own correction
-  from a chain-matching LUT (:func:`chain_lut`).
-
-The decode specs of the rounds scan (``DecodeSpec``,
-``repetition_decode_spec``, ``surface_decode_spec``) come with
-``simulate_rounds`` (ROADMAP.md, queue 1, item 8).
+  from a chain-matching LUT (:func:`chain_lut`);
+* :func:`repetition_decode_spec`, :func:`surface_decode_spec` — the
+  :class:`..ops.decode.DecodeSpec` of each layout, for the in-loop
+  decode of :func:`..sim.interpreter.simulate_rounds`.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import numpy as np
 
 from .. import isa
 from ..decoder import machine_program_from_cmds
-from ..ops.decode import chain_matching_np
+from ..ops.decode import DecodeSpec, chain_matching_np
 from ..sim.interpreter import InterpreterConfig
 from .repetition import (majority_lut, _lut_fabric_kwargs,  # noqa: F401
                          repetition_config,
@@ -152,3 +151,17 @@ def surface_cycle_config(distance: int, **kw) -> InterpreterConfig:
                     lut_table=chain_lut(distance))
     defaults.update(kw)
     return InterpreterConfig(**defaults)
+
+
+def repetition_decode_spec(n_data: int, slot: int = 0) -> DecodeSpec:
+    """Decode spec for the repetition-round programs: every data
+    core's per-round readout, majority-decoded."""
+    return DecodeSpec('majority', tuple(range(n_data)), slot)
+
+
+def surface_decode_spec(distance: int, slot: int = 0) -> DecodeSpec:
+    """Decode spec for :func:`surface_cycle_machine_program`: the
+    ancilla cores' syndrome stream, chain-matching-decoded into a
+    data-qubit correction."""
+    return DecodeSpec('matching',
+                      tuple(range(distance, 2 * distance - 1)), slot)

@@ -1,13 +1,16 @@
-"""Per-batch statistics of physics-closed runs.
+"""Per-batch statistics of physics-closed runs and program ensembles.
 
 Counterpart of :func:`physics_batch_stats` in the JAX package's
-``parallel/sweep.py``; the mesh-sharded executors are ported later
+``parallel/sweep.py`` and of the per-program reduction of its
+``run_multi_sweep``; the mesh-sharded executors are ported later
 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from ..sim.interpreter import fault_shot_counts
+import torch
+
+from ..sim.interpreter import FAULT_CODES, fault_shot_counts
 
 
 def physics_batch_stats(out: dict) -> dict:
@@ -27,4 +30,22 @@ def physics_batch_stats(out: dict) -> dict:
         clean_shots=clean.sum(),
         err_shots=errored.sum(),
         fault_shots=fault_shot_counts(out['fault']),
+    )
+
+
+def multi_batch_stats(out: dict) -> dict:
+    """The per-program reductions of a
+    :func:`..sim.interpreter.simulate_multi_batch` result (leaves
+    ``[P, B, ...]``): pulse sums ``[P, C]``, errored shots ``[P]``, qclk
+    sums ``[P, C]``, per-code faulted shots ``[P, n_codes]`` and the
+    incomplete flag ``[P]`` as 0/1."""
+    bits = torch.tensor([bit for _, bit in FAULT_CODES], dtype=torch.int32,
+                        device=out['fault'].device)
+    faulted = ((out['fault'][..., None] & bits) != 0).any(dim=-2)
+    return dict(
+        pulse_sum=out['n_pulses'].sum(1),
+        err_shots=(out['err'] != 0).any(dim=-1).sum(1),
+        qclk_sum=out['qclk'].sum(1),
+        fault_shots=faulted.sum(1),
+        incomplete=out['incomplete'].to(torch.int32),
     )

@@ -22,6 +22,14 @@ tensors shaped ``[n_shots, n_cores, ...]``.
   version of the megastep kernel's block mode, K1 block
   (``engine='pallas'`` on a looping program).
 * :func:`simulate` runs one shot: the batch entry at a batch of one.
+* :func:`simulate_multi_batch` runs an ensemble of P programs x B shots
+  as one generic-engine pass over ``P x B`` lanes, each lane fetching
+  from its own program's rows; :func:`simulate_rounds` runs R
+  independent rounds as ``R x B`` lanes of the resolved engine (one K1
+  span launch on a loop-free program), with the in-loop decode of
+  :mod:`..ops.decode`.  Both report ``steps``, ``incomplete`` and
+  ``op_hist`` per program or round, as the JAX package's vmap and scan
+  do (:func:`_exec_loop`'s ``group_steps``).
 * :func:`resolve_engine` is the JAX package's ladder; ``'auto'`` picks
   the K1 kernel (span or block mode) on a CUDA device where the JAX
   package picks its Pallas kernel on a TPU.
@@ -53,6 +61,8 @@ import numpy as np
 import torch
 
 from .. import isa
+from ..decoder import MultiMachineProgram, stack_machine_programs
+from ..ops.decode import as_decode_spec, decode_history
 from ..ops.exec_span import (block_table, exec_blocks, exec_span,
                              lut_min_read, span_table)
 from ..ops.waveform import PHASE_BITS
@@ -581,9 +591,18 @@ def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
     _check_fabric(cfg, mp.n_cores)
     if cfg.trace:
         raise not_ported('trace=True', 12)
-    if cfg.rounds != 1:
-        raise not_ported(f'rounds={cfg.rounds}', 8)
     return eng
+
+
+def _check_single_round(cfg: InterpreterConfig) -> None:
+    """The single-round entry points execute exactly one round per
+    dispatch; a streaming config (``rounds > 1``) reaching them would
+    silently serve one round of an R-round request — reject typed."""
+    if cfg.rounds != 1:
+        raise ValueError(
+            f'cfg.rounds={cfg.rounds} is a streaming round count; the '
+            f'single-round entry points execute one round per dispatch '
+            f'— run via simulate_rounds (or clear rounds)')
 
 
 def program_traits(mp) -> tuple:
@@ -1182,14 +1201,20 @@ def _lut_serve(st: dict, meas_bits, meas_valid, req,
 
 
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
-          cfg: InterpreterConfig, traits, dm=None, step_i: int = 0) -> dict:
+          cfg: InterpreterConfig, traits, dm=None, step_i: int = 0,
+          prog=None) -> dict:
     """One instruction step of every live (shot, core) lane — the JAX
     ``_step``.  ``dm``: the device-model parameters of a bloch or
     statevec physics run (:func:`..sim.physics.run_physics_batch`);
     ``step_i``: the run's step index, which keys the statevec
-    trajectory's uniforms."""
+    trajectory's uniforms.
+
+    ``soa`` is one program ``[C, N, F]`` with ``sync_part [C]``, or an
+    ensemble ``[P, C, N, F]`` (:func:`simulate_multi_batch`) with each
+    lane's program index ``prog [B]`` and its program's participants
+    ``sync_part [B, C]``."""
     B, C = st['pc'].shape
-    N = soa.shape[1]
+    N = soa.shape[-2]
     dev = st['pc'].device
     time, offset, regs = st['time'], st['offset'], st['regs']
     kinds = traits[0]
@@ -1204,7 +1229,11 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     # ---- program fetch: one row of the instruction table per lane ----
     core_idx = torch.arange(C, device=dev)[None, :]
     pc_idx = st['pc'].clamp(0, N - 1).long()
-    fetched = soa[core_idx, pc_idx]                           # [B, C, F]
+    if prog is None:
+        fetched = soa[core_idx, pc_idx]                       # [B, C, F]
+    else:
+        fetched = soa[prog[:, None], core_idx, pc_idx]
+    sync_part = sync_part if sync_part.ndim == 2 else sync_part[None, :]
     g = lambda f: fetched[..., _F[f]]
     kind = g('kind')
     live = ~st['done']
@@ -1232,7 +1261,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
                               torch.where(live, time, INT32_MAX))
         at_sync_g = live & (kind == isa.K_SYNC)
         if has_sync:
-            f_part = torch.where(sync_part[None, :], fr_gate, -INT32_MAX) \
+            f_part = torch.where(sync_part, fr_gate, -INT32_MAX) \
                 .amax(-1, keepdim=True)
             fr_gate = torch.where(at_sync_g, torch.maximum(fr_gate, f_part),
                                   fr_gate)
@@ -1320,12 +1349,12 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     # ---- sync barrier (reference: ctrl.v:510-552 + qclk reset) ---------
     if has_sync:
         at_sync = live & (kind == isa.K_SYNC)
-        live_part = sync_part[None, :] & ~st['done']
+        live_part = sync_part & ~st['done']
         sync_ready = at_sync.any(-1) & (~live_part | at_sync).all(-1)
         release = torch.where(at_sync, time, -INT32_MAX).amax(
             -1, keepdim=True) + QCLK_RST_DELAY                     # [B, 1]
         sync_adv = at_sync & sync_ready[:, None]
-        sync_err = sync_ready & (sync_part[None, :] & st['done']).any(-1)
+        sync_err = sync_ready & (sync_part & st['done']).any(-1)
 
     # ---- stall mask ----------------------------------------------------
     stalled = is_fproc & ~f_ready
@@ -1348,7 +1377,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
                     np.asarray(cfg.lut_mask, dtype=bool), device=dev)
         for _ in range(C if (has_sync or inherit) else 0):
             if has_sync:
-                f_part = torch.where(sync_part[None, :], fr, -INT32_MAX) \
+                f_part = torch.where(sync_part, fr, -INT32_MAX) \
                     .amax(-1, keepdim=True)
                 fr = torch.where(at_sync_g, torch.maximum(fr, f_part), fr)
             if inherit:
@@ -1559,24 +1588,39 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
 
 def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
                meas_bits, meas_valid, cfg: InterpreterConfig, traits,
-               dm=None):
+               dm=None, prog=None, group_steps=None):
     """Step until every shot is done or, in physics mode, paused waiting
     for a measurement bit the epoch resolver has not produced yet.
     ``steps`` is the step count so far (the budget is shared across
     physics epochs; it is also each step's index); ``dm``: the device
-    parameters of a bloch or statevec run.  Returns ``(st, steps,
-    paused)``."""
+    parameters of a bloch or statevec run; ``prog``: each lane's program
+    in an ensemble (:func:`_step`).  Returns ``(st, steps, paused)``.
+
+    ``group_steps``: a ``[G]`` int32 tensor over G equal contiguous lane
+    groups (the programs of an ensemble, the rounds of a stream), which
+    gains, each step, one for every group with an unsettled shot: the
+    step count each group's own loop would have reached (a settled shot
+    is left unchanged by further steps)."""
     while steps < cfg.max_steps:
         settled = st['done'].all(-1)
         if cfg.physics:
             settled = settled | paused
         if bool(settled.all()):
             break
+        if group_steps is not None:
+            _count_group_step(group_steps, settled)
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
-                                meas_valid, cfg, traits, dm, steps)
+                                meas_valid, cfg, traits, dm, steps, prog)
         st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
         steps += 1
     return st, steps, paused
+
+
+def _count_group_step(group_steps, settled) -> None:
+    """Add one to ``group_steps [G]`` for each group of ``settled [B]``
+    (G equal contiguous lane groups) that has an unsettled shot."""
+    G = group_steps.shape[0]
+    group_steps += (~settled.view(G, -1).all(-1)).to(torch.int32)
 
 
 def _quiesce(st: dict, st2: dict, stall_sync, paused, cfg):
@@ -1621,7 +1665,7 @@ def _block_ids(pc, bid_tab):
 
 def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
                  meas_bits, meas_valid, cfg: InterpreterConfig, traits,
-                 dm=None, kernel: bool = False):
+                 dm=None, kernel: bool = False, group_steps=None):
     """The block-compiled engine — the JAX ``_exec_blocks``, with
     :func:`_exec_loop`'s calling shape: returns ``(st, steps, paused)``.
 
@@ -1643,7 +1687,8 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     ``dm``: the device parameters of a bloch run.  ``kernel``: run the
     bodies with the K1 block kernel (:func:`..ops.exec_span.exec_blocks`;
     ``engine='pallas'``, never in physics mode), else with their plain
-    version :func:`_apply_blocks`."""
+    version :func:`_apply_blocks`.  ``group_steps``: per-group iteration
+    counts, as in :func:`_exec_loop`."""
     soa_np = soa.cpu().numpy()
     table = block_table(soa_np, *_block_plan(soa_np), spc, interp, cfg)
     run_bodies = exec_blocks if kernel \
@@ -1655,6 +1700,8 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
             settled = settled | paused
         if bool(settled.all()):
             break
+        if group_steps is not None:
+            _count_group_step(group_steps, settled)
         # (1) boundary step, undone for cores parked at a block start
         sup = _block_ids(st['pc'], table.bid) >= 0
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
@@ -2071,19 +2118,33 @@ def _fused_discriminate(fused: dict, energy, state_bit):
     return (proj > 0).to(torch.int32)
 
 
-def _finalize(st: dict, steps: int, cfg: InterpreterConfig) -> dict:
+def _finalize(st: dict, steps, cfg: InterpreterConfig,
+              groups: int = None) -> dict:
+    """The run's outputs from its final carry.  ``groups``: G equal
+    contiguous lane groups (:func:`_run_injected`) — every leaf gains a
+    leading group axis, and ``steps`` (an int, or the ``[G]`` counts of
+    :func:`_exec_loop`), ``incomplete`` and ``op_hist`` are per group."""
     dev = st['pc'].device
     if cfg.record_pulses:
         rec = st.pop('rec')
         st.update({'rec_' + n: rec[:, :, i, :].contiguous()
                    for i, n in enumerate(_REC_FIELDS)})
-    if 'op_hist' in st:
-        st['op_hist'] = st['op_hist'].sum((0, 1), dtype=torch.int32)
     st['qclk'] = st['time'] - st['offset']
-    st['steps'] = torch.tensor(steps, dtype=torch.int32, device=dev)
-    st['incomplete'] = ~st['done'].all()
     # a lane still live after every loop returned ran out of budget
     st['fault'] = st['fault'] | _bit(~st['done'], FAULT_BUDGET_EXHAUSTED)
+    if groups is None:
+        if 'op_hist' in st:
+            st['op_hist'] = st['op_hist'].sum((0, 1), dtype=torch.int32)
+        st['steps'] = torch.tensor(steps, dtype=torch.int32, device=dev)
+        st['incomplete'] = ~st['done'].all()
+        return st
+    G = groups
+    st = {k: v.reshape(G, -1, *v.shape[1:]) for k, v in st.items()}
+    if 'op_hist' in st:
+        st['op_hist'] = st['op_hist'].sum((1, 2), dtype=torch.int32)
+    st['steps'] = steps if torch.is_tensor(steps) \
+        else torch.full((G,), steps, dtype=torch.int32, device=dev)
+    st['incomplete'] = ~st['done'].reshape(G, -1).all(-1)
     return st
 
 
@@ -2115,6 +2176,56 @@ def _pad_meas(meas_bits: torch.Tensor, max_meas: int) -> torch.Tensor:
     return meas_bits
 
 
+def _run_injected(mp, eng: str, meas_bits, init_regs,
+                  cfg: InterpreterConfig, device, groups: int = None) -> dict:
+    """Run ``mp`` on the resolved engine ``eng`` over the lanes of
+    injected bits ``meas_bits [L, C, max_meas]`` (every bit valid from
+    the start); ``init_regs``: ``None``, ``[C, 16]`` or ``[L, C, 16]``.
+    ``mp`` may be a :class:`..decoder.MultiMachineProgram` of P programs
+    on the generic engine, its lanes program-major (``L = P x B``).
+    ``groups``: as in :func:`_finalize`."""
+    if eng == 'fused':
+        raise ValueError(
+            "engine='fused' demodulates measurement windows in-kernel; "
+            'the injected-bits entry points have no window — run via '
+            'sim.physics.run_physics_batch')
+    soa, spc, interp, sync_part = _program_constants(mp, device)
+    L = meas_bits.shape[0]
+    prog = None
+    if soa.ndim == 4:
+        # an ensemble: lane l runs program l // B, fetched from the shared
+        # [P, C, N, F] table
+        prog = torch.arange(soa.shape[0], device=device) \
+            .repeat_interleave(L // soa.shape[0])
+        sync_part = sync_part[prog]
+    st = _init_state(L, mp.n_cores, cfg, init_regs, device)
+    meas_valid = torch.ones(meas_bits.shape, dtype=torch.bool, device=device)
+    group_steps = None if groups is None \
+        else torch.zeros((groups,), dtype=torch.int32, device=device)
+    # a looping program on 'pallas': the block engine with K1 block as
+    # its bodies
+    kernel_blocks = eng == 'pallas' and _pallas_mode(mp, cfg) == 'block'
+    if eng in ('generic', 'block') or kernel_blocks:
+        paused = torch.zeros((L,), dtype=torch.bool, device=device)
+        loop = functools.partial(_exec_loop, prog=prog) if eng == 'generic' \
+            else functools.partial(_exec_blocks, kernel=kernel_blocks)
+        st, steps, _ = loop(st, 0, paused, soa, spc, interp, sync_part,
+                            meas_bits, meas_valid, cfg, program_traits(mp),
+                            group_steps=group_steps)
+        if group_steps is not None:
+            steps = group_steps
+    else:
+        # one pass retires every lane: every injected bit is valid
+        if eng == 'straightline':
+            st = _exec_straightline(st, _soa_np(mp), spc, interp, meas_bits,
+                                    meas_valid, cfg)
+        else:   # 'pallas', span mode: the K1 kernel
+            st = exec_span(st, _span_table(mp, cfg, device), meas_bits, cfg)
+        steps = mp.n_instr
+    st.pop('phys_wait', None)
+    return _finalize(st, steps, cfg, groups)
+
+
 def simulate_batch(mp, meas_bits, init_regs=None,
                    cfg: InterpreterConfig = None, device=None,
                    **kw) -> dict:
@@ -2130,38 +2241,13 @@ def simulate_batch(mp, meas_bits, init_regs=None,
     and ``incomplete``."""
     device = torch_device(device)
     cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
+    _check_single_round(cfg)
     eng = check_supported(mp, cfg, device)
-    if eng == 'fused':
-        raise ValueError(
-            "engine='fused' demodulates measurement windows in-kernel; "
-            'the injected-bits entry points have no window — run via '
-            'sim.physics.run_physics_batch')
     cfg, strict = _fault_policy(cfg)
-    soa, spc, interp, sync_part = _program_constants(mp, device)
     meas_bits = _pad_meas(torch.as_tensor(meas_bits, dtype=torch.int32,
                                           device=device), cfg.max_meas)
-    B = meas_bits.shape[0]
-    st = _init_state(B, mp.n_cores, cfg, init_regs, device)
-    meas_valid = torch.ones(meas_bits.shape, dtype=torch.bool, device=device)
-    # a looping program on 'pallas': the block engine with K1 block as
-    # its bodies
-    kernel_blocks = eng == 'pallas' and _pallas_mode(mp, cfg) == 'block'
-    if eng in ('generic', 'block') or kernel_blocks:
-        paused = torch.zeros((B,), dtype=torch.bool, device=device)
-        loop = _exec_loop if eng == 'generic' else functools.partial(
-            _exec_blocks, kernel=kernel_blocks)
-        st, steps, _ = loop(st, 0, paused, soa, spc, interp, sync_part,
-                            meas_bits, meas_valid, cfg, program_traits(mp))
-    else:
-        # one pass retires every lane: every injected bit is valid
-        if eng == 'straightline':
-            st = _exec_straightline(st, _soa_np(mp), spc, interp, meas_bits,
-                                    meas_valid, cfg)
-        else:   # 'pallas', span mode: the K1 kernel
-            st = exec_span(st, _span_table(mp, cfg, device), meas_bits, cfg)
-        steps = mp.n_instr
-    st.pop('phys_wait', None)
-    return _check_strict(_finalize(st, steps, cfg), strict)
+    return _check_strict(_run_injected(mp, eng, meas_bits, init_regs, cfg,
+                                       device), strict)
 
 
 # outputs of a batch run that carry no shot axis
@@ -2187,3 +2273,175 @@ def simulate(mp, meas_bits=None, init_regs=None,
     out = simulate_batch(mp, meas_bits[None], init_regs=init_regs, cfg=cfg,
                          device=device)
     return {k: (v if k in _UNBATCHED_KEYS else v[0]) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Program ensembles and streaming rounds: both fold their leading axis
+# (programs, rounds) into the lanes of one engine call.
+
+
+def ensemble_config(mmp, cfg: InterpreterConfig = None,
+                    **kw) -> InterpreterConfig:
+    """``cfg`` with ``kw`` applied; without ``cfg``, the budget derives
+    from the ensemble's bucket shape (``max_steps = 2 * n_instr + 64``,
+    ``max_pulses = n_instr + 2``) unless ``kw`` sets it."""
+    if cfg is not None:
+        return replace(cfg, **kw)
+    kw.setdefault('max_steps', 2 * mmp.n_instr + 64)
+    kw.setdefault('max_pulses', mmp.n_instr + 2)
+    return InterpreterConfig(**kw)
+
+
+def simulate_multi_batch(mps, meas_bits, init_regs=None,
+                         cfg: InterpreterConfig = None, pad_to: int = None,
+                         device=None, **kw) -> dict:
+    """Execute P programs x B shots as one generic-engine pass over
+    ``P x B`` lanes, each lane fetching from its own program's rows of
+    the stacked ``[P, C, N, F]`` table.
+
+    ``mps``: a list of :class:`..decoder.MachineProgram` (stacked here
+    with shape-bucketed DONE padding, :func:`..decoder.
+    stack_machine_programs`) or a ``MultiMachineProgram``.
+    ``meas_bits``: ``[n_progs, n_shots, n_cores, n_meas]``, or ``[n_shots,
+    n_cores, n_meas]`` broadcast to every program.  ``init_regs``:
+    ``None``, ``[n_cores, 16]`` (shared), ``[n_progs, n_cores, 16]`` (per
+    program) or ``[n_progs, n_shots, n_cores, 16]``.  ``device``: the
+    torch device (default CUDA).
+
+    When ``cfg`` is omitted the budget derives from the bucket shape
+    (``max_steps = 2 * n_instr + 64``, ``max_pulses = n_instr + 2``), as
+    in the JAX package.  Returns the :func:`simulate_batch` outputs with
+    a leading program axis on every leaf; ``steps``, ``incomplete`` and
+    ``op_hist`` are each program's own (``[n_progs]``, ``[n_progs]``,
+    ``[n_progs, K]``).  The generic engine only, as in the JAX package:
+    the other engines raise."""
+    device = torch_device(device)
+    mmp = mps if isinstance(mps, MultiMachineProgram) \
+        else stack_machine_programs(mps, pad_to=pad_to)
+    cfg = ensemble_config(mmp, cfg, **kw)
+    if cfg.straightline or cfg.engine in ('straightline', 'block',
+                                          'pallas', 'fused'):
+        raise ValueError(
+            'simulate_multi_batch runs the generic engine only: the '
+            'straight-line, block, and pallas executors key their '
+            'caches on program content, the per-sequence compile this '
+            'path amortizes away')
+    _check_single_round(cfg)
+    cfg = replace(cfg, straightline=False, engine=None)
+    eng = check_supported(mmp, cfg, device)
+    cfg, strict = _fault_policy(cfg)
+    P, C = mmp.n_progs, mmp.n_cores
+    meas_bits = _pad_meas(torch.as_tensor(meas_bits, dtype=torch.int32,
+                                          device=device), cfg.max_meas)
+    if meas_bits.ndim == 3:
+        meas_bits = meas_bits[None].expand(P, *meas_bits.shape)
+    if meas_bits.ndim != 4 or meas_bits.shape[0] != P \
+            or meas_bits.shape[2] != C:
+        raise ValueError(
+            f'meas_bits must be [n_progs={P}, n_shots, n_cores={C}, '
+            f'n_meas]; got {tuple(meas_bits.shape)}')
+    B = meas_bits.shape[1]
+    if init_regs is not None:
+        init_regs = torch.as_tensor(init_regs, dtype=torch.int32,
+                                    device=device)
+        if init_regs.ndim == 3:          # [P, C, R] per program
+            if init_regs.shape[0] != P:
+                raise ValueError(
+                    f'3-D init_regs must be [n_progs={P}, n_cores, '
+                    f'n_regs] (per-shot registers need the full 4-D '
+                    f'form); got {tuple(init_regs.shape)}')
+            init_regs = init_regs[:, None].expand(P, B, C, isa.N_REGS)
+        if init_regs.ndim == 4:          # [P, B, C, R]
+            init_regs = init_regs.reshape(P * B, C, isa.N_REGS)
+    out = _run_injected(mmp, eng, meas_bits.reshape(P * B, C, -1),
+                        init_regs, cfg, device, groups=P)
+    return _check_strict(out, strict)
+
+
+# per-program scalars of the simulate_multi_batch result: every other
+# leaf carries a shot axis after the program axis is sliced away
+_MULTI_SCALAR_KEYS = ('steps', 'incomplete', 'op_hist')
+
+
+def demux_multi_batch(out: dict, prog: int, n_shots: int = None) -> dict:
+    """Per-program view of a :func:`simulate_multi_batch` result: program
+    ``prog`` sliced off the leading axis of every leaf, the
+    :func:`simulate_batch` schema (``steps``/``incomplete`` scalars
+    again).  ``n_shots`` also trims the shot axis to the first
+    ``n_shots`` lanes; ``op_hist``, summed over the program's lanes, is
+    passed through whole."""
+    res = {}
+    for k, v in out.items():
+        vi = v[prog]
+        if n_shots is not None and k not in _MULTI_SCALAR_KEYS:
+            vi = vi[:n_shots]
+        res[k] = vi
+    return res
+
+
+def simulate_rounds(mp, meas_bits, init_regs=None,
+                    cfg: InterpreterConfig = None, device=None,
+                    decode=None, **kw) -> dict:
+    """Execute R syndrome rounds of one program in one engine call.
+
+    ``meas_bits``: ``[rounds, n_shots, n_cores, n_meas]``.  Each round
+    runs from a fresh initial state with its own injected bits, exactly
+    what R sequential :func:`simulate_batch` calls compute; the rounds
+    are independent, so they run as ``R x B`` lanes of the resolved
+    engine (the engine ladder of :func:`simulate_batch`; ``'fused'``
+    raises): one K1 span launch on a loop-free program with
+    ``engine='pallas'`` or ``'auto'`` on the card, one K1 block launch
+    per block-engine iteration on a looping one.
+
+    Returns the :func:`simulate_batch` outputs with a leading round axis
+    on every leaf (``steps`` and ``incomplete`` ``[rounds]``, ``op_hist``
+    ``[rounds, K]``).  ``decode`` (a :class:`..ops.decode.DecodeSpec`,
+    tuple or dict) adds ``syndrome_hist [n_shots, rounds, K]`` (the named
+    cores' injected bits at the named slot) and ``decoded`` (the
+    scheme's correction).  ``cfg.rounds`` may pre-declare the round
+    count; it must then match the round axis.  ``init_regs`` is shared
+    across rounds (``[n_cores, 16]`` or ``[n_shots, n_cores, 16]``)."""
+    device = torch_device(device)
+    cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
+    cfg, strict = _fault_policy(cfg)
+    meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32, device=device)
+    if meas_bits.ndim != 4 or meas_bits.shape[2] != mp.n_cores:
+        raise ValueError(
+            f'meas_bits must be [rounds, n_shots, n_cores='
+            f'{mp.n_cores}, n_meas]; got {tuple(meas_bits.shape)}')
+    R = int(meas_bits.shape[0])
+    if R < 1:
+        raise ValueError('meas_bits must carry >= 1 round')
+    if cfg.rounds != 1 and cfg.rounds != R:
+        raise ValueError(
+            f'cfg.rounds={cfg.rounds} contradicts the meas_bits round '
+            f'axis {R}')
+    cfg = replace(cfg, rounds=R)
+    if decode is not None:
+        decode = as_decode_spec(decode)
+        bad = [c for c in decode.cores if not 0 <= c < mp.n_cores]
+        if bad:
+            raise ValueError(
+                f'decode.cores {bad} out of range for n_cores='
+                f'{mp.n_cores}')
+        if not 0 <= decode.slot < cfg.max_meas:
+            raise ValueError(
+                f'decode.slot={decode.slot} out of range for '
+                f'max_meas={cfg.max_meas}')
+    eng = check_supported(mp, cfg, device)
+    meas_bits = _pad_meas(meas_bits, cfg.max_meas)
+    B, C = meas_bits.shape[1], mp.n_cores
+    if init_regs is not None:
+        init_regs = torch.as_tensor(init_regs, dtype=torch.int32,
+                                    device=device)
+        if init_regs.ndim == 3:          # [B, C, R] -> every round's lanes
+            init_regs = init_regs[None].expand(R, *init_regs.shape) \
+                .reshape(R * B, C, isa.N_REGS)
+    out = _run_injected(mp, eng, meas_bits.reshape(R * B, C, -1), init_regs,
+                        cfg, device, groups=R)
+    if decode is not None:
+        hist = meas_bits[:, :, list(decode.cores), decode.slot] \
+            .permute(1, 0, 2).contiguous()
+        out['syndrome_hist'] = hist
+        out['decoded'] = decode_history(hist, decode.scheme)
+    return _check_strict(out, strict)

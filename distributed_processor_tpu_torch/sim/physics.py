@@ -552,6 +552,37 @@ def prepare_physics_tables(mp, model: ReadoutPhysics, device=None) -> dict:
     return tabs
 
 
+def _validate_tables(mp, model: ReadoutPhysics, tables: dict, W: int) -> None:
+    """Check prebuilt tables were built for THIS program and model: the
+    build parameters (``'meta'``) and, where the resolver reads them, the
+    static envelope rows (``'rows'``).  A stale row list makes a window
+    whose address is missing from it read row 0, the wrong envelope.
+    The JAX package checks the rows in ``'fused'`` mode; here
+    ``'persample'`` reads them too, so both modes check them."""
+    if tables.get('meta') != _tables_meta(model, W, mp):
+        raise ValueError(
+            f"prebuilt tables were built for {tables.get('meta')}, but "
+            f'this program/model needs {_tables_meta(model, W, mp)} — '
+            f'rebuild with prepare_physics_tables(mp, model)')
+    if model.resolve_mode in ('fused', 'persample'):
+        rows = _static_meas_env_addrs(mp)
+        want = [] if rows is None else list(rows)
+        have = tables['rows'].tolist() if 'rows' in tables else None
+        if have != want:
+            raise ValueError(
+                f'prebuilt tables were built for envelope addresses '
+                f'{have}, but this program/model needs {want} — '
+                f'rebuild with prepare_physics_tables(mp, model)')
+
+
+def validate_physics_tables(mp, model: ReadoutPhysics, tables: dict) -> None:
+    """Validate prebuilt tables against ``(mp, model)``: the check
+    :func:`run_physics_batch` makes on every ``tables=`` it is given,
+    for a caller that caches :func:`prepare_physics_tables` output."""
+    W = int(model.window_samples or _physics_tables(mp, model.meas_elem)[4])
+    _validate_tables(mp, model, tables, W)
+
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -711,11 +742,8 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     soa, spc, interp, sync_part = _program_constants(mp, device)
     if tables is None:
         tables = prepare_physics_tables(mp, model, device)
-    elif tables.get('meta') != _tables_meta(model, W, mp):
-        raise ValueError(
-            f"prebuilt tables were built for {tables.get('meta')}, but "
-            f'this program/model needs {_tables_meta(model, W, mp)} — '
-            f'rebuild with prepare_physics_tables(mp, model)')
+    else:
+        _validate_tables(mp, model, tables, W)
     Lp = tables['env'].shape[2]
     ck = fused_chunk(model.resolve_chunk, W)
 

@@ -254,10 +254,14 @@ def test_engine_ladder_on_a_loop(looped, monkeypatch):
 def test_unported_features_still_raise(looped):
     mp_t = _to_port(looped)
     bits = np.zeros((2, mp_t.n_cores, 6), np.int32)
-    for kw in (dict(engine='block', rounds=2), dict(engine='auto',
-                                                   cores_axis='cores')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_simulate_batch(mp_t, bits, device='cpu', **kw)
+    # a streaming round count is refused by the single-round entry, as
+    # in the JAX package (rounds run via simulate_rounds)
+    with pytest.raises(ValueError, match='single-round'):
+        torch_simulate_batch(mp_t, bits, device='cpu', engine='block',
+                             rounds=2)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        torch_simulate_batch(mp_t, bits, device='cpu', engine='auto',
+                             cores_axis='cores')
     with pytest.raises(ValueError, match='trace'):
         torch_simulate_batch(mp_t, bits, device='cpu', engine='block',
                              trace=True)

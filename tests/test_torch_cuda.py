@@ -24,7 +24,10 @@ against the block engine's plain bodies, and under the ``'lut'`` fabric
 K1 span (tile and one thread per lane, on random LUT programs at 3, 5
 and 9 cores and batches that cut tiles and blocks raggedly), K1 block
 (multi-round QEC) and K3 (the compiled repetition round at 3 and 9
-qubits) against theirs.  The waveform kernel
+qubits) against theirs; ``simulate_rounds`` (one K1 span launch for all
+R x B lanes, and one K1 block launch per iteration on a looping
+program) and ``simulate_multi_batch`` against the same calls on the
+CPU.  The waveform kernel
 ``csrc/waveform.cu`` (one launch renders every trace of a shot) is held
 against its plain version to atol 1e-5 (the same arithmetic;
 ``sincosf`` against ``sin`` and ``cos``), the
@@ -1614,3 +1617,77 @@ def test_lut_rejects_mismatched_tables(card):
     with pytest.raises(ValueError, match='fabric'):
         exec_span(_init_state(8, 3, sticky, None, card),
                   _span_table(mp, cfg, card), bits, sticky)
+
+
+# ---------------------------------------------------------------------------
+# streaming rounds (K1 span / K1 block over R x B lanes) and ensembles
+
+
+def test_rounds_span_matches_cpu(card):
+    """``simulate_rounds(engine='pallas')`` on the 4-core repetition round
+    with the decode: one K1 span launch for all R x B lanes, every key
+    identical to the same call on the CPU (the plain version)."""
+    from distributed_processor_tpu_torch.models import qec
+    from distributed_processor_tpu_torch.ops.exec_span import (exec_blocks,
+                                                               exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_rounds
+    mp = qec.qec_round_machine_program(4)
+    cfg = dataclasses.replace(qec.qec_config(4, opcode_histogram=True),
+                              engine='pallas')
+    mb = np.random.default_rng(40).integers(0, 2, (6, 1001, 4, cfg.max_meas))
+    spec = qec.repetition_decode_spec(4)
+    before, blocks = exec_span.launches, exec_blocks.launches
+    got = simulate_rounds(mp, mb, cfg=cfg, decode=spec, device=card)
+    assert exec_span.launches == before + 1
+    assert exec_blocks.launches == blocks
+    want = simulate_rounds(mp, mb, cfg=cfg, decode=spec, device='cpu')
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+
+
+def test_rounds_blocks_match_cpu(card):
+    """``simulate_rounds(engine='pallas')`` on a looping program: one K1
+    block launch per block-engine iteration (the slowest round's
+    ``steps``), every key identical to the CPU's."""
+    from distributed_processor_tpu_torch.ops.exec_span import (exec_blocks,
+                                                               exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_rounds
+    mp = looped_program()
+    kw = dict(mp.static_bounds(), max_meas=8, max_resets=2,
+              opcode_histogram=True, engine='pallas')
+    mb = np.random.default_rng(41).integers(0, 2, (3, 700, mp.n_cores, 8))
+    before, span = exec_blocks.launches, exec_span.launches
+    got = simulate_rounds(mp, mb, cfg=InterpreterConfig(**kw), device=card)
+    assert exec_blocks.launches - before == int(got['steps'].max()) > 0
+    assert exec_span.launches == span
+    want = simulate_rounds(mp, mb, cfg=InterpreterConfig(**kw),
+                           device='cpu')
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+
+
+def test_multi_batch_matches_cpu(card):
+    """``simulate_multi_batch`` of four RB programs (two depths, so one is
+    DONE-padded): the card's generic pass equal to the CPU's on every
+    key, no kernel launched."""
+    from distributed_processor_tpu_torch.models import rb_ensemble
+    from distributed_processor_tpu_torch.ops.exec_span import (exec_blocks,
+                                                               exec_span)
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_multi_batch
+    qubits = ['Q0', 'Q1', 'Q2']
+    qchip = make_default_qchip(3)
+    mps = [compile_to_machine(active_reset(qubits) + p, qchip, n_qubits=3)
+           for depth in (2, 5)
+           for p in rb_ensemble(qubits, depth, 2, seed=depth)]
+    bits = np.random.default_rng(42).integers(0, 2, (4, 513, 3, 2))
+    kw = dict(max_meas=2, max_resets=2, opcode_histogram=True)
+    launches = (exec_span.launches, exec_blocks.launches)
+    got = simulate_multi_batch(mps, bits, device=card, **kw)
+    assert (exec_span.launches, exec_blocks.launches) == launches
+    want = simulate_multi_batch(mps, bits, device='cpu', **kw)
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+    assert not bool(got['incomplete'].any())

@@ -58,7 +58,11 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/ops/fabric.py',
                  'distributed_processor_tpu_torch/ops/decode.py',
                  'distributed_processor_tpu_torch/models/repetition.py',
-                 'distributed_processor_tpu_torch/models/qec.py'):
+                 'distributed_processor_tpu_torch/models/qec.py',
+                 'distributed_processor_tpu_torch/analysis.py',
+                 'distributed_processor_tpu_torch/models/calibration.py',
+                 'distributed_processor_tpu_torch/parallel/param_sweep.py',
+                 'distributed_processor_tpu_torch/sim/oracle.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
         assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
@@ -106,6 +110,15 @@ def test_entry_points_default_to_cuda():
         simulate_batch(mp, np.zeros((4, 1, 1), np.int32))
     with pytest.raises(RuntimeError, match='CUDA'):
         run_physics_sweep(mp, ReadoutPhysics(), 8, 4)
+    from distributed_processor_tpu_torch.parallel import run_multi_sweep
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        simulate_multi_batch, simulate_rounds)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        simulate_multi_batch([mp], np.zeros((4, 1, 1), np.int32))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        simulate_rounds(mp, np.zeros((2, 4, 1, 1), np.int32))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        run_multi_sweep([mp], 8, 4)
     from distributed_processor_tpu_torch.ops.fabric import MeasLUT
     with pytest.raises(RuntimeError, match='CUDA'):
         MeasLUT((True,), (0, 1))

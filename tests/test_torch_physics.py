@@ -23,7 +23,9 @@ import distributed_processor_tpu.pipeline as jpipe
 import distributed_processor_tpu.models as jmodels
 from distributed_processor_tpu.sim.interpreter import InterpreterConfig as JCfg
 from distributed_processor_tpu.sim.physics import (
-    ReadoutPhysics as JPhysics, run_physics_batch as jax_run)
+    ReadoutPhysics as JPhysics, run_physics_batch as jax_run,
+    prepare_physics_tables as jax_prepare,
+    validate_physics_tables as jax_validate)
 from distributed_processor_tpu.parallel.sweep import \
     physics_batch_stats as jax_stats
 
@@ -32,7 +34,8 @@ from distributed_processor_tpu_torch.decoder import (
 from distributed_processor_tpu_torch.sim.interpreter import \
     InterpreterConfig as TCfg
 from distributed_processor_tpu_torch.sim.physics import (
-    ReadoutPhysics as TPhysics, physics_from_dict, run_physics_batch)
+    ReadoutPhysics as TPhysics, physics_from_dict, prepare_physics_tables,
+    run_physics_batch, validate_physics_tables)
 from distributed_processor_tpu_torch.parallel import (
     physics_batch_stats, run_physics_sweep)
 
@@ -169,3 +172,50 @@ def test_unported_models_raise(headline):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             run_physics_sweep(mp_t, TPhysics(), 8, 4, cfg=TCfg(**cfg),
                               device='cpu', **kw)
+
+
+@pytest.fixture(scope='module')
+def stale_rows_pair():
+    """Program A reads Q0 and Q1 (envelope rows ``(0,)``); program B is
+    X90 on Q0 and Q1, CNOT(Q0, Q1), then the two reads (rows ``(0,
+    192)``), on the two-qubit default qchip."""
+    qchip = jmodels.make_default_qchip(2)
+    reads = [{'name': 'read', 'qubit': ['Q0']},
+             {'name': 'read', 'qubit': ['Q1']}]
+    gates = [{'name': 'X90', 'qubit': ['Q0']}, {'name': 'X90', 'qubit': ['Q1']},
+             {'name': 'CNOT', 'qubit': ['Q0', 'Q1']}]
+    a_j = jpipe.compile_to_machine(reads, qchip, n_qubits=2)
+    b_j = jpipe.compile_to_machine(gates + reads, qchip, n_qubits=2)
+    port = lambda mp: machine_program_from_arrays(
+        machine_program_to_arrays(mp))
+    return a_j, b_j, port(a_j), port(b_j)
+
+
+@pytest.mark.parametrize('mode', ['fused', 'persample'])
+def test_stale_rows_tables_raise(stale_rows_pair, mode):
+    """Tables built for program A and handed to program B: the envelope
+    rows differ, so the run and ``validate_physics_tables`` raise the JAX
+    package's ``ValueError`` (the port's ``'persample'`` reads the rows
+    too, so it checks them where the JAX package's reads the full table
+    and runs); tables built for B itself pass."""
+    a_j, b_j, a_t, b_t = stale_rows_pair
+    kw = dict(sigma=0, resolve_chunk=256, resolve_mode=mode)
+    jm, tm = JPhysics(**kw), TPhysics(**kw)
+    msg = r'built for envelope addresses \[0\], but this program/model ' \
+        r'needs \[0, 192\]'
+    tables_j = jax_prepare(a_j, jm)
+    if mode == 'fused':
+        with pytest.raises(ValueError, match=msg):
+            jax_run(b_j, jm, 0, 4, tables=tables_j)
+        with pytest.raises(ValueError, match=msg):
+            jax_validate(b_j, jm, tables_j)
+    tables_t = prepare_physics_tables(a_t, tm, device='cpu')
+    with pytest.raises(ValueError, match=msg):
+        run_physics_batch(b_t, tm, 0, 4, tables=tables_t, device='cpu')
+    with pytest.raises(ValueError, match=msg):
+        validate_physics_tables(b_t, tm, tables_t)
+    validate_physics_tables(a_t, tm, tables_t)
+    own = prepare_physics_tables(b_t, tm, device='cpu')
+    validate_physics_tables(b_t, tm, own)
+    out = run_physics_batch(b_t, tm, 0, 4, tables=own, device='cpu')
+    assert bool(out['meas_bits_valid'][:, :, 0].all())     # one read a core
