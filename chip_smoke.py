@@ -94,7 +94,23 @@ Phases, in order (any failure exits nonzero):
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths, ``simulate_rounds`` with the decode and
    ``simulate_multi_batch`` at a small batch;
-5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots).
+5. a 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots) at span 1
+   and span 4 (identical sums), and resumed from a 2-batch checkpoint
+   (identical to the uninterrupted sweep);
+6. the mesh paths at world size 1 (a one-rank NCCL group), each with
+   its launches: ``run_physics_sweep(mesh=)`` (K2), ``sweep_stat_sums``
+   with ``engine='pallas'`` (K1 span), ``sharded_demod`` (K5) and
+   ``sharded_cores_simulate(engine='block')`` at cores = 1 (K1 block),
+   each equal to its single-device run;
+7. two ranks sharing the card over gloo, each this script run again in
+   its rank mode (``--rank R --world 2 --init URL --out DIR``): the
+   8-core ``lut`` repetition round at 262144 shots on a cores mesh of 2
+   (its first call, then a steady one), and the headline sweep at
+   dp = 2, both equal to the single-process runs.
+
+``python3 chip_smoke.py --ranks N`` builds the kernels and runs only
+phase 7 on N ranks: a card per rank over NCCL on a host with N cards,
+else gloo on shared cards.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -235,6 +251,9 @@ STATEVEC = dict(ghz_qubits=8, ghz_batch=131072, rb_batch=262144, rb_depth=4,
 # stated tolerances of the two new kernels against their plain versions
 K4_ATOL = 1e-5
 K5_RTOL, K5_ATOL = 2e-5, 2e-4
+# the multi-rank phase: two processes sharing the card (gloo), the
+# repetition round's seed, and the deadline of both ranks together
+MESH = dict(ranks=2, seed=71, timeout=400)
 # the torch device the phases run on (a CPU rehearsal sets 'cpu')
 DEV = 'cuda'
 
@@ -3162,22 +3181,331 @@ def phase_cuda_vs_cpu(mp):
           f'{Bm}: every key identical')
 
 
+def _sweep_keys(a: dict, b: dict, what: str) -> None:
+    """Two sweep results equal on every key, arrays bit for bit."""
+    import numpy as np
+    check(set(a) == set(b), f'{what}: keys {sorted(set(a) ^ set(b))}')
+    for k in a:
+        same = a[k] == b[k] if isinstance(a[k], (dict, str, int, float)) \
+            else np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        check(bool(same), f'{what}: {k} differs: {a[k]} vs {b[k]}')
+
+
 def phase_sweep(mp, env):
-    import torch
+    """The 1M-shot sweep (``run_physics_sweep``, 4 x 262144 shots) at
+    ``span=1`` and ``span=4`` (identical sums, both walls), then stopped
+    by a checkpoint after 2 batches and resumed to 4: equal to the
+    uninterrupted sweep on every key."""
+    import tempfile
     from distributed_processor_tpu_torch.parallel import run_physics_sweep
     n, B = HEADLINE['sweep_batches'], HEADLINE['batch']
+
+    def sweep(total, **kw):
+        return run_physics_sweep(mp, headline_model(), total, B, seed=2026,
+                                 cfg=headline_config(mp), device=DEV, **kw)
+
+    walls, res = {}, {}
+    for span in (1, 4):
+        sync()
+        t0 = time.perf_counter()
+        res[span] = sweep(n * B, span=span)
+        sync()
+        walls[span] = time.perf_counter() - t0
+    r = res[1]
+    check(r['incomplete_batches'] == 0 and r['shots'] == n * B,
+          f'sweep incomplete: {r}')
+    check(not any(r['fault_shots'].values()), f'sweep faults: {r}')
+    _sweep_keys(res[1], res[4], 'sweep span 4 vs span 1')
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f'{tmp}/sweep.npz'
+        sweep(2 * B, checkpoint=ck)
+        sync()
+        t0 = time.perf_counter()
+        resumed = sweep(n * B, checkpoint=ck)
+        sync()
+        t_resume = time.perf_counter() - t0
+    _sweep_keys(res[1], resumed, 'sweep resumed after 2 batches')
+    print(f'sweep: {n * B} shots in {walls[1]:.3f} s at span 1 = '
+          f'{n * B / walls[1]:.1f} shots/s, {walls[4]:.3f} s at span 4 '
+          f'(identical sums), resumed from a 2-batch checkpoint in '
+          f'{t_resume:.3f} s (identical to the uninterrupted sweep) on '
+          f'{env["smi"]}; meas1_rate '
+          + json.dumps([round(float(x), 5) for x in r['meas1_rate']])
+          + f', survival00 {r["survival00_rate"]:.5f}')
+
+
+def phase_mesh_path(mp, loop_mp, env) -> dict:
+    """The mesh paths at world size 1 (a one-rank NCCL group), each
+    driven with every launch count set to 0 just before it and read just
+    after: ``run_physics_sweep(mesh=)`` on the headline at 4 x 262144
+    (K2 per epoch; equal to the single-device batches at the shard seeds
+    ``derive_seed(seed, i, 0)``), ``sweep_stat_sums`` with
+    ``engine='pallas'`` (one K1 span launch; equal to the straight-line
+    engine), ``sharded_demod`` on ``[262144, 1024] @ [1024, 8]`` (one K5
+    launch; within K5's tolerance of the plain product) and
+    ``sharded_cores_simulate(engine='block')`` on the looped headline at
+    cores = 1 (K1 block bodies; every key equal to the block engine's
+    plain bodies).  Returns the launches of each."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.ops.demod import demod_iq_reference
+    from distributed_processor_tpu_torch.parallel import (
+        make_cores_mesh, make_mesh, physics_batch_stats, run_physics_sweep,
+        sharded_cores_simulate, sharded_demod, sweep_stat_sums)
+    from distributed_processor_tpu_torch.sim.interpreter import simulate_batch
+    from distributed_processor_tpu_torch.sim.physics import (
+        derive_seed, run_physics_batch)
+    n, B, seed = HEADLINE['sweep_batches'], HEADLINE['batch'], 2026
+    mesh = make_mesh(device=DEV)
+    model, cfg = headline_model(), headline_config(mp)
+    launches = {}
+
+    _reset_launches()
     sync()
     t0 = time.perf_counter()
-    res = run_physics_sweep(mp, headline_model(), n * B, B, seed=2026,
-                            cfg=headline_config(mp), device=DEV)
-    dt = time.perf_counter() - t0
-    check(res['incomplete_batches'] == 0 and res['shots'] == n * B,
-          f'sweep incomplete: {res}')
-    check(not any(res['fault_shots'].values()), f'sweep faults: {res}')
-    print(f'sweep: {n * B} shots in {dt:.3f} s = {n * B / dt:.1f} shots/s '
-          f'on {env["smi"]}; meas1_rate '
-          + json.dumps([round(float(x), 5) for x in res['meas1_rate']])
-          + f', survival00 {res["survival00_rate"]:.5f}')
+    res = run_physics_sweep(mp, model, n * B, B, seed=seed, cfg=cfg,
+                            mesh=mesh, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _launches()
+    launches['K2'] = counts['resolve_windows']
+    check(launches['K2'] > 0 and _only_launched(counts, 'resolve_windows'),
+          f'mesh sweep launches: {counts}')
+    acc = None
+    for i in range(n):
+        st = physics_batch_stats(run_physics_batch(
+            mp, model, derive_seed(seed, i, 0), B, cfg=cfg, device=DEV))
+        st = {k: v.cpu().numpy() for k, v in st.items()}
+        acc = st if acc is None else {k: acc[k] + v for k, v in st.items()}
+    check(np.array_equal(res['mean_pulses'], acc['pulse_sum'] / (n * B))
+          and np.array_equal(res['meas1_rate'], acc['meas1_sum'] / (n * B))
+          and res['clean_shots'] == int(acc['clean_shots'])
+          and res['err_shots'] == int(acc['err_shots'])
+          and list(res['fault_shots'].values())
+          == acc['fault_shots'].tolist(),
+          'mesh sweep differs from the single-device batches at its seeds')
+    print(f'mesh path, run_physics_sweep(mesh=make_mesh()) at {n} x {B}: '
+          f'{wall:.3f} s, K2 launches {launches["K2"]}, equal to the '
+          f'single-device batches at derive_seed(seed, i, 0) on '
+          f'{env["smi"]}')
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(81)
+    bits = torch.randint(0, 2, (B, mp.n_cores, cfg.max_meas), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    _reset_launches()
+    got = sweep_stat_sums(mp, bits, mesh, cfg=headline_config(
+        mp, engine='pallas'), device=DEV)
+    sync()
+    counts = _launches()
+    launches['K1 span'] = counts['exec_span']
+    check(counts['exec_span'] == 1 and _only_launched(counts, 'exec_span'),
+          f'mesh sweep_stat_sums (pallas) launches: {counts}')
+    out = simulate_batch(mp, bits, cfg=headline_config(
+        mp, engine='straightline'), device=DEV)
+    check(got['pulse_sum'].tolist() == out['n_pulses'].sum(0).tolist()
+          and got['qclk_sum'].tolist() == out['qclk'].sum(0).tolist()
+          and int(got['err_shots']) == int((out['err'] != 0).any(1).sum()),
+          'mesh sweep_stat_sums (K1 span) differs from the straight-line '
+          'engine')
+
+    gen.manual_seed(82)
+    adc = torch.randn((B, 1024), generator=gen, device=DEV)
+    w = torch.randn((1024, 8), generator=gen, device=DEV)
+    _reset_launches()
+    iq = sharded_demod(adc, w, mesh, device=DEV)
+    sync()
+    counts = _launches()
+    launches['K5'] = counts['demod_iq']
+    check(counts['demod_iq'] == 1 and _only_launched(counts, 'demod_iq'),
+          f'mesh sharded_demod launches: {counts}')
+    plain = demod_iq_reference(adc, w)
+    err = float((iq - plain).abs().max())
+    check(bool(torch.allclose(iq, plain, rtol=K5_RTOL, atol=K5_ATOL)),
+          f'mesh sharded_demod differs from the plain product by {err}')
+
+    cmesh = make_cores_mesh(device=DEV)
+    lcfg = loop_config(loop_mp, engine='block')
+    lbits = loop_bits(loop_mp, LOOP['batch'], seed=83)
+    _reset_launches()
+    got = sharded_cores_simulate(loop_mp, lbits, cmesh, cfg=lcfg, device=DEV)
+    sync()
+    counts = _launches()
+    launches['K1 block'] = counts['exec_blocks']
+    check(counts['exec_blocks'] > 0 and _only_launched(counts, 'exec_blocks'),
+          f'mesh sharded_cores_simulate (block) launches: {counts}')
+    want = simulate_batch(loop_mp, lbits, cfg=lcfg, device=DEV)
+    check(set(want) - set(got) == {'steps', 'incomplete'}
+          and all(torch.equal(got[k], want[k]) for k in got),
+          'mesh sharded_cores_simulate (block) differs from the block '
+          'engine')
+    print(f'mesh path launches at world size 1: run_physics_sweep K2 '
+          f'{launches["K2"]}; sweep_stat_sums(engine=\'pallas\') K1 span '
+          f'{launches["K1 span"]}; sharded_demod K5 {launches["K5"]} '
+          f'(max |err| {err:.3e} against the plain product); '
+          f"sharded_cores_simulate(engine='block') at cores=1, "
+          f'{LOOP["batch"]} lanes, K1 block {launches["K1 block"]} (every '
+          f'key equal to the block engine) on {env["smi"]}')
+    return launches
+
+
+def phase_multi_rank(mp, env, world: int = None) -> None:
+    """``world`` ranks (default ``MESH['ranks']``), each this script in
+    its rank mode (:func:`rank_main`): a card per rank over NCCL where
+    the host has enough cards, else ranks sharing the card over gloo
+    (NCCL refuses two ranks on one device).  They run the 8-core ``lut``
+    repetition round at 262144 shots on a cores mesh of ``world`` (8 /
+    ``world`` cores per rank) and the headline ``run_physics_sweep`` at
+    dp = ``world``.  The round's shard of each rank must equal the
+    single-process generic engine on every key, the sweep the
+    single-process batches at its shard seeds ``derive_seed(seed, i,
+    r)``; a rank that fails or passes its deadline fails the phase and
+    kills its peers."""
+    import os
+    import tempfile
+    from distributed_processor_tpu_torch.parallel import physics_batch_stats
+    from distributed_processor_tpu_torch.sim.physics import (
+        derive_seed, run_physics_batch)
+    world = world or MESH['ranks']
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--rank', str(r),
+             '--world', str(world), '--init', f'file://{tmp}/pg',
+             '--out', tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        errs = [''] * world
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    _, errs[r] = p.communicate(timeout=max(
+                        1.0, MESH['timeout'] - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    fail(f'multi-rank: rank {r} passed its '
+                         f'{MESH["timeout"]} s deadline')
+                check(p.returncode == 0, f'multi-rank: rank {r} exited '
+                                         f'{p.returncode}:\n{errs[r][-3000:]}')
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        outs = []
+        for r in range(world):
+            with open(f'{tmp}/rank{r}.json') as f:
+                outs.append(json.load(f))
+    n, B, seed = HEADLINE['sweep_batches'], HEADLINE['batch'], 2026
+    model, cfg = headline_model(), headline_config(mp)
+    acc = None
+    for i in range(n):
+        for r in range(world):
+            st = physics_batch_stats(run_physics_batch(
+                mp, model, derive_seed(seed, i, r), B // world, cfg=cfg,
+                device=DEV))
+            st = {k: v.cpu().numpy() for k, v in st.items()}
+            acc = st if acc is None else {k: acc[k] + v
+                                          for k, v in st.items()}
+    want = dict(mean_pulses=(acc['pulse_sum'] / (n * B)).tolist(),
+                meas1_rate=(acc['meas1_sum'] / (n * B)).tolist(),
+                clean_shots=int(acc['clean_shots']),
+                err_shots=int(acc['err_shots']),
+                fault_shots=acc['fault_shots'].tolist(),
+                survival00_rate=float(acc['allzero_sum']
+                                      / acc['clean_shots']))
+    for r, o in enumerate(outs):
+        c = o['cores']
+        check(not c['mismatched'], f'multi-rank: rank {r} cores shard '
+                                   f'differs on {c["mismatched"]}')
+        got = {k: o['sweep'][k] for k in want}
+        check(got == want, f'multi-rank: rank {r} dp=2 sweep {got} differs '
+                           f'from the single-process batches {want}')
+    c = outs[0]['cores']
+    cards = len({o['card'] for o in outs})
+    print(f'multi-rank, {world} {outs[0]["backend"]} ranks on {cards} '
+          f'card(s), {env["smi"]} (all ranks: {wall:.1f} s with '
+          f'start-up): lut repetition round ({c["n_cores"]} cores, '
+          f'{c["n_cores"] // world} per rank) at {c["shots"]} shots on '
+          f'cores={world}: steady '
+          + ' / '.join(f'{o["cores"]["wall"]:.3f}' for o in outs)
+          + ' s per rank (first call, with the communicators\' set-up: '
+          + ' / '.join(f'{o["cores"]["first"]:.3f}' for o in outs)
+          + f' s), {c["gathers"]} gathers in the batch '
+          f'({c["steps"]} steps), {c["bytes"] / 1e6:.1f} MB gathered per '
+          f'rank, every key of each shard equal to the single-process '
+          f'generic engine; headline run_physics_sweep at dp={world} '
+          f'({n} x {B}): '
+          + ' / '.join(f'{o["sweep"]["wall"]:.3f}' for o in outs)
+          + f' s per rank, every key equal to the single-process batches at '
+          f'derive_seed(seed, i, r)')
+
+
+def rank_main(rank: int, world: int, init: str, out: str) -> int:
+    """One rank of :func:`phase_multi_rank`: joins the group (NCCL with
+    a card of its own when the host has a card per rank, else gloo on a
+    shared card), runs the cores-sharded round and the dp-sharded sweep,
+    checks its round shard against the single-process generic engine,
+    and writes its numbers to ``out/rank<rank>.json``."""
+    import dataclasses
+    import torch
+    from distributed_processor_tpu_torch.parallel import (
+        initialize_multihost, make_cores_mesh, make_mesh, run_physics_sweep,
+        sharded_cores_simulate)
+    from distributed_processor_tpu_torch.parallel.mesh import gather_cat
+    from distributed_processor_tpu_torch.sim.interpreter import simulate_batch
+    n_cards = torch.cuda.device_count()
+    torch.cuda.set_device(rank % n_cards)
+    backend = 'nccl' if world <= n_cards else 'gloo'
+    initialize_multihost(init, num_processes=world, process_id=rank,
+                         backend=backend)
+    _label, mp, cfg = lut_workloads()[0]
+    cfg = dataclasses.replace(cfg, engine=None)
+    C, B = mp.n_cores, LUT['batch']
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(MESH['seed'])
+    bits = torch.randint(0, 2, (B, C, cfg.max_meas), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    mesh = make_cores_mesh(n_cores=world, device=DEV)
+    walls = []
+    for _ in range(2):
+        # the first call pays the communicators' set-up; the second is
+        # the steady one
+        calls, nbytes = gather_cat.calls, gather_cat.bytes
+        sync()
+        t0 = time.perf_counter()
+        shard = sharded_cores_simulate(mp, bits, mesh, cfg=cfg, device=DEV)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    gathers, gbytes = gather_cat.calls - calls, gather_cat.bytes - nbytes
+    ref = simulate_batch(mp, bits, cfg=dataclasses.replace(
+        cfg, engine='generic'), device=DEV)
+    own = slice(rank * C // world, (rank + 1) * C // world)
+    mismatched = sorted(k for k in shard
+                        if not torch.equal(shard[k], ref[k][:, own]))
+    res = {'backend': backend, 'card': torch.cuda.current_device(),
+           'cores': dict(first=walls[0], wall=walls[1], gathers=gathers,
+                         bytes=gbytes,
+                         mismatched=mismatched, n_cores=C, shots=B,
+                         steps=int(ref['steps']))}
+    del shard, ref, bits
+    mp_h = headline_program()
+    n, Bh = HEADLINE['sweep_batches'], HEADLINE['batch']
+    sync()
+    t0 = time.perf_counter()
+    r = run_physics_sweep(mp_h, headline_model(), n * Bh, Bh, seed=2026,
+                          cfg=headline_config(mp_h),
+                          mesh=make_mesh(n_dp=world, device=DEV), device=DEV)
+    sync()
+    res['sweep'] = dict(
+        wall=time.perf_counter() - t0, mean_pulses=r['mean_pulses'].tolist(),
+        meas1_rate=r['meas1_rate'].tolist(), clean_shots=r['clean_shots'],
+        err_shots=r['err_shots'],
+        fault_shots=list(r['fault_shots'].values()),
+        survival00_rate=r['survival00_rate'])
+    with open(f'{out}/rank{rank}.json', 'w') as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def timed(fn, *args):
@@ -3188,7 +3516,8 @@ def timed(fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3196,6 +3525,24 @@ def main() -> int:
     # the port must be importable from here (a bare copy of this script
     # fails at this import)
     import distributed_processor_tpu_torch  # noqa: F401
+    if argv:
+        # --ranks N: only the multi-rank phase, on N ranks (a card each
+        # where the host has N cards); --rank ...: one rank of it,
+        # started by this script itself
+        ap = argparse.ArgumentParser()
+        for arg in ('--ranks', '--rank', '--world'):
+            ap.add_argument(arg, type=int)
+        for arg in ('--init', '--out'):
+            ap.add_argument(arg)
+        a = ap.parse_args(argv)
+        if a.ranks is None:
+            return rank_main(a.rank, a.world, a.init, a.out)
+        env = timed(phase_environment)
+        timed(phase_multi_rank, headline_program(), env, a.ranks)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
     t_start = time.perf_counter()
     env = timed(phase_environment)
     mp = headline_program()
@@ -3239,6 +3586,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)
+    torch.cuda.empty_cache()
+    timed(phase_mesh_path, mp, loop_mp, env)
+    torch.cuda.empty_cache()
+    timed(phase_multi_rank, mp, env)
+    # the one-rank group of phase_mesh_path
+    torch.distributed.destroy_process_group()
     print(f'[all phases: {time.perf_counter() - t_start:.1f} s]')
     print('lut paths (ms; events / device; launches on the path): '
           + '; '.join(f'K1 span, {label}: {r["ms"]:.4f} / '
@@ -3270,4 +3623,4 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

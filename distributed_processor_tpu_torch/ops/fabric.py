@@ -79,11 +79,15 @@ class MeasLUT:
         entry = self.table[addr.long()]
         return (entry[..., None] >> self._bit_shifts) & 1
 
-    def sharded_call(self, bits, axis_name, axis: int = -1):
-        """The call for bits sharded over a mesh axis: needs the cores
-        mesh, which the port does not have yet."""
-        from ..sim.interpreter import not_ported
-        raise not_ported('MeasLUT.sharded_call (the cores mesh)', 9)
+    def sharded_call(self, bits, group, axis: int = -1):
+        """``__call__`` for bits sharded over the ranks of a mesh axis
+        (``group``: ``mesh.get_group('cores')``): all-gathers every
+        rank's slice of the core axis ``axis`` (in rank order, the
+        mesh-axis order, so the concatenation is the replicated layout),
+        then runs the ordinary table gather.  Returns the FULL-width
+        output on every rank — callers slice out their own cores."""
+        from ..parallel.mesh import gather_cat
+        return self(gather_cat(self._int(bits), group, axis))
 
     def timed_call(self, bit_planes, time_planes, n_meas, read_time):
         """Time-indexed LUT read — the semantics the engines serve.

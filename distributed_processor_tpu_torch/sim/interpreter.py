@@ -30,6 +30,12 @@ tensors shaped ``[n_shots, n_cores, ...]``.
   :mod:`..ops.decode`.  Both report ``steps``, ``incomplete`` and
   ``op_hist`` per program or round, as the JAX package's vmap and scan
   do (:func:`_exec_loop`'s ``group_steps``).
+* A run sharded over a cores mesh (:mod:`..parallel.sweep`) hands the
+  generic and block engines its rank's shard (``cores``): the lanes of
+  the rank's own cores, with the fabric's and the sync barrier's reads
+  of other cores through one all-gather per step (:func:`_step`) and the
+  settle test over every rank.  The single-device entry points refuse a
+  set ``cores_axis``.
 * :func:`resolve_engine` is the JAX package's ladder; ``'auto'`` picks
   the K1 kernel (span or block mode) on a CUDA device where the JAX
   package picks its Pallas kernel on a TPU.
@@ -512,10 +518,20 @@ def resolve_engine(mp, cfg: InterpreterConfig, device=None) -> str:
     with the reason when the program is ineligible; ``'auto'`` picks
     ``'pallas'`` on a CUDA device where eligible under the same size
     caps as the rung it subsumes, then ``'straightline'``, then
-    ``'block'``, else ``'generic'``.  ``cores_axis`` is not ported."""
+    ``'block'``, else ``'generic'``.  A set ``cfg.cores_axis`` (a run
+    sharded over a cores mesh, :mod:`..parallel.sweep`) resolves to
+    ``'generic'``, or ``'block'`` when forced, and raises with the
+    blocker of :func:`cores_ineligible` otherwise."""
     eng = cfg.engine
     if cfg.cores_axis is not None:
-        raise not_ported('cores_axis', 9)
+        # the cross-rank fabric lives in the generic step, which is also
+        # the block engine's boundary step; 'auto' stays on 'generic'
+        reason = cores_ineligible(mp, cfg)
+        if reason:
+            raise ValueError(f'cores_axis={cfg.cores_axis!r} but the '
+                             f'program/config is ineligible for '
+                             f'sharded-cores execution: {reason}')
+        return 'block' if eng == 'block' else 'generic'
     if eng is None:
         return 'straightline' if use_straightline(mp, cfg) else 'generic'
     if eng == 'generic':
@@ -560,6 +576,48 @@ def resolve_engine(mp, cfg: InterpreterConfig, device=None) -> str:
             return 'block'
         return 'generic'
     raise ValueError(f'unknown engine {eng!r}; one of {ENGINES} or None')
+
+
+def cores_ineligible(mp, cfg: InterpreterConfig) -> str:
+    """Why ``(mp, cfg)`` cannot run sharded over a cores mesh
+    (``cfg.cores_axis``) — ``None`` when it can.  The JAX package's
+    rules: the sharded step is the generic engine's, reading other
+    cores' words through one all-gather per step; ``engine='block'``
+    runs its boundary step so and its bodies on the rank's own cores.
+    Blocked: physics mode, the span-specialized engines, straight-line
+    execution and trace mode."""
+    if cfg.physics:
+        return ('physics mode (the epoch resolver pauses host-side '
+                'between epochs and draws global-shape noise streams)')
+    if cfg.engine == 'block':
+        reason = block_ineligible(mp, cfg)
+        if reason:
+            return (f"engine='block' under cores_axis but the program "
+                    f'is block-ineligible: {reason}')
+    elif cfg.engine not in (None, 'auto', 'generic'):
+        return (f'engine={cfg.engine!r} (the span-specialized engines '
+                f'trace per-program bodies with no collective fabric — '
+                f'the generic step and the block engine read through '
+                f'the cores-axis gathers)')
+    if cfg.straightline:
+        return ('straightline=True (emitted straight-line execution '
+                'has no collective fabric)')
+    if cfg.trace:
+        return ('trace mode assembles the full-core-axis per-step '
+                'trace on one device')
+    return None
+
+
+def _check_no_cores_axis(cfg: InterpreterConfig) -> None:
+    """The single-device entry points run no collectives, so a set
+    ``cores_axis`` is refused at the front door, as in the JAX
+    package."""
+    if cfg.cores_axis is not None:
+        raise ValueError(
+            f'cores_axis={cfg.cores_axis!r} names a shard_map mesh '
+            f'axis the single-device entry points cannot bind — run '
+            f'via parallel.sweep.sharded_cores_simulate (or clear '
+            f'cores_axis for single-device execution)')
 
 
 def _pallas_mode(mp, cfg: InterpreterConfig) -> str:
@@ -1141,11 +1199,15 @@ def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
     ), state_bit, cofire_err
 
 
-def _lut_select(st: dict, meas_bits, meas_valid, req,
-                cfg: InterpreterConfig):
+def _lut_select(pv: dict, meas_bits, meas_valid, req,
+                cfg: InterpreterConfig, core0: int = 0):
     """The ``'lut'`` fabric's time-indexed read (reference:
     hdl/fproc_lut.sv + meas_lut.sv) for every (shot, reader core) lane at
-    its request time ``req [B, C]``: per masked producer the newest bit
+    its request time ``req [B, C]``, from the producers' words ``pv``
+    (``n_meas``, ``meas_time``, ``meas_avail`` over every core of the
+    program, ``[B, Cp, ...]``, with ``meas_bits`` and ``meas_valid``;
+    the readers are cores ``core0 .. core0 + C - 1`` of them): per
+    masked producer the newest bit
     PRODUCED strictly before the request, slot ``max(#{m < n_meas :
     meas_time[m] < req}, 1) - 1`` (:meth:`..ops.fabric.MeasLUT.
     timed_call`); the masked bits form the table address, LSB = the
@@ -1155,21 +1217,22 @@ def _lut_select(st: dict, meas_bits, meas_valid, req,
     time (the latest selected ``meas_avail`` over the mask, unwritten
     read as 0, and 0 from each unmasked core)."""
     B, C = req.shape
+    Cp = pv['n_meas'].shape[1]
     dev = req.device
     lmask_np = np.asarray(cfg.lut_mask, dtype=bool)
-    shifts = np.zeros(C, dtype=np.int64)
+    shifts = np.zeros(Cp, dtype=np.int64)
     shifts[lmask_np] = np.arange(int(lmask_np.sum()))
     lmask = torch.as_tensor(lmask_np, device=dev)
     M = cfg.max_meas
     rec = torch.arange(M, device=dev)[None, None, :] \
-        < st['n_meas'][:, :, None]                               # [B, Cp, M]
-    early = rec[:, None] & (st['meas_time'][:, None]
+        < pv['n_meas'][:, :, None]                               # [B, Cp, M]
+    early = rec[:, None] & (pv['meas_time'][:, None]
                             < req[:, :, None, None])             # [B,C,Cp,M]
     slot = (early.sum(-1, dtype=torch.int32) - 1).clamp(min=0)   # [B, C, Cp]
-    pick = lambda plane: plane[:, None].expand(B, C, C, M).gather(
+    pick = lambda plane: plane[:, None].expand(B, C, Cp, M).gather(
         -1, slot.long()[..., None])[..., 0]                      # [B, C, Cp]
-    avail = pick(torch.where(st['meas_avail'] == INT32_MAX, 0,
-                             st['meas_avail']))
+    avail = pick(torch.where(pv['meas_avail'] == INT32_MAX, 0,
+                             pv['meas_avail']))
     valid = torch.where(lmask, pick(meas_valid), True).all(-1)
     t_lut = torch.where(lmask, avail, 0).amax(-1)
     weight = torch.as_tensor(lmask_np.astype(np.int64) << shifts, device=dev)
@@ -1179,30 +1242,33 @@ def _lut_select(st: dict, meas_bits, meas_valid, req,
     T = table.shape[0]
     entry = torch.where((addr >= 0) & (addr < T),
                         table[addr.clamp(0, T - 1).long()], 0)
-    core = torch.arange(C, dtype=torch.int32, device=dev).clamp(max=31)
+    core = (core0 + torch.arange(C, dtype=torch.int32, device=dev)) \
+        .clamp(max=31)
     return (entry >> core) & 1, valid, t_lut
 
 
-def _lut_serve(st: dict, meas_bits, meas_valid, req,
-               cfg: InterpreterConfig):
+def _lut_serve(pv: dict, meas_bits, meas_valid, req,
+               cfg: InterpreterConfig, core0: int = 0):
     """The generic engine's LUT read (``func_id >= 1``): the time-indexed
     select of :func:`_lut_select`, served once it is causal — every
     masked producer has recorded a measurement and is done or has
     simulated to the request — and its bits are valid (else, causal but
     invalid, the physics pause).  Returns ``(ready, data, t_ready,
-    phys)`` ``[B, C]``."""
-    data, valid, t_lut = _lut_select(st, meas_bits, meas_valid, req, cfg)
+    phys)`` ``[B, C]``; ``pv`` also carries the producers' ``done`` and
+    ``time``."""
+    data, valid, t_lut = _lut_select(pv, meas_bits, meas_valid, req, cfg,
+                                     core0)
     lmask = torch.as_tensor(np.asarray(cfg.lut_mask, dtype=bool),
                             device=req.device)
-    ok = (st['n_meas'] >= 1)[:, None, :] & (
-        st['done'][:, None, :] | (st['time'][:, None, :] >= req[..., None]))
+    ok = (pv['n_meas'] >= 1)[:, None, :] & (
+        pv['done'][:, None, :] | (pv['time'][:, None, :] >= req[..., None]))
     causal = torch.where(lmask, ok, True).all(-1)
     return causal & valid, data, torch.maximum(req, t_lut), causal & ~valid
 
 
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
           cfg: InterpreterConfig, traits, dm=None, step_i: int = 0,
-          prog=None) -> dict:
+          prog=None, cores=None) -> dict:
     """One instruction step of every live (shot, core) lane — the JAX
     ``_step``.  ``dm``: the device-model parameters of a bloch or
     statevec physics run (:func:`..sim.physics.run_physics_batch`);
@@ -1212,7 +1278,17 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     ``soa`` is one program ``[C, N, F]`` with ``sync_part [C]``, or an
     ensemble ``[P, C, N, F]`` (:func:`simulate_multi_batch`) with each
     lane's program index ``prog [B]`` and its program's participants
-    ``sync_part [B, C]``."""
+    ``sync_part [B, C]``.
+
+    ``cores``: this rank's shard of a run sharded over a cores mesh
+    (:class:`..parallel.sweep.CoresShard`): the lanes are the rank's own
+    cores, ``soa``/``spc``/``interp`` their rows, ``sync_part`` and the
+    shard's bits and valid flags full-width.  What the fabric and the
+    sync barrier read from other cores comes from one all-gather per
+    step (the JAX ``_gat`` layer), so every rank sees the full-width
+    words a single-device run computes.  Every rank makes the same
+    collective calls: what is gathered depends on the program's traits
+    and ``cfg`` alone."""
     B, C = st['pc'].shape
     N = soa.shape[-2]
     dev = st['pc'].device
@@ -1246,6 +1322,28 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
                       g('imm')) if any_in0_reg else g('imm')
     qclk = time - offset
     is_fproc = (kind == isa.K_ALU_FPROC) | (kind == isa.K_JUMP_FPROC)
+    at_sync = live & (kind == isa.K_SYNC) if has_sync else None
+
+    # ---- producer views: the words the fabric and the sync barrier read
+    # from other cores, full-width over the program's cores (``cores``
+    # sharded: gathered from every rank; ``core0`` places this rank's
+    # lanes on the full core axis) ---------------------------------------
+    pv = dict(time=time, done=st['done'], at_sync=at_sync,
+              n_meas=st['n_meas'], meas_avail=st['meas_avail'],
+              meas_time=st.get('meas_time'))
+    P_bits, P_valid, core0 = meas_bits, meas_valid, 0
+    if cores is not None:
+        words = []
+        if any_fproc or has_sync:
+            words += ['time', 'done']
+        if has_sync:
+            words.append('at_sync')
+        if any_fproc:
+            words += ['n_meas', 'meas_avail']
+            if cfg.fabric == 'lut':
+                words.append('meas_time')
+        pv = cores.gather_words({k: pv[k] for k in words})
+        P_bits, P_valid, core0 = cores.bits, cores.valid, cores.core0
 
     # ---- discrete-event gate, stage A (statevec + couplings only) ------
     # Each core's frontier lower-bounds the trigger time of anything it
@@ -1277,20 +1375,21 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     f_tready = req
     if any_fproc:
         M = cfg.max_meas
-        fid_bad = fid >= C
+        CF = pv['done'].shape[1]                      # the program's cores
+        fid_bad = fid >= CF
         # func_id 0 reads the core's own channel under the 'lut' fabric
-        prod = fid.clamp(0, C - 1).long() if cfg.fabric != 'lut' \
-            else torch.arange(C, device=dev).expand(B, C)     # [B, C]
-        sel = lambda arr: arr.gather(1, prod)                 # [B,C]->[B,C]
+        prod = fid.clamp(0, CF - 1).long() if cfg.fabric != 'lut' \
+            else (core0 + torch.arange(C, device=dev)).expand(B, C)
+        sel = lambda arr: arr.gather(1, prod)               # [B,CF]->[B,C]
         prod_m = prod.unsqueeze(-1).expand(B, C, M)
-        sel_m = lambda arr: arr.gather(1, prod_m)             # [B,C,M]
-        mavail_p = sel_m(st['meas_avail'])
-        bits_p = sel_m(meas_bits)
-        valid_p = sel_m(meas_valid)
+        sel_m = lambda arr: arr.gather(1, prod_m)           # [B,C,M]
+        mavail_p = sel_m(pv['meas_avail'])
+        bits_p = sel_m(P_bits)
+        valid_p = sel_m(P_valid)
         if cfg.fabric == 'sticky':
             # bit latched at read time; the producer must have simulated
             # past `req`
-            f_time_ok = sel(st['done']) | (sel(time) >= req)
+            f_time_ok = sel(pv['done']) | (sel(pv['time']) >= req)
             if pt_gate:
                 # under the event gate the latched snapshot is final once
                 # the producer's frontier passes the request: anything it
@@ -1312,7 +1411,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             # first measurement completing after the request
             fresh = (mavail_p > req[..., None]) & (
                 torch.arange(M, device=dev)[None, None, :]
-                < sel(st['n_meas'])[..., None])
+                < sel(pv['n_meas'])[..., None])
             exists = fresh.any(-1)
             j = fresh.to(i32).argmax(-1)
             sel_valid = _take(valid_p, j)
@@ -1321,12 +1420,12 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             f_data = torch.where(ready, _take(bits_p, j), 0)
             f_tready = torch.where(
                 ready, torch.maximum(req, _take(mavail_p, j)), req)
-            f_deadlock = ~exists & sel(st['done'])
+            f_deadlock = ~exists & sel(pv['done'])
             f_ready = ready | f_deadlock
         if cfg.fabric == 'lut':
             fid_bad = zeros_b
             l_ready, l_data, l_tready, l_phys = _lut_serve(
-                st, meas_bits, meas_valid, req, cfg)
+                pv, P_bits, P_valid, req, cfg, core0)
             is_own = fid == 0
             f_ready = torch.where(is_own, f_ready, l_ready)
             f_data = torch.where(is_own, f_data, l_data)
@@ -1346,15 +1445,16 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         in1 = torch.where(is_fproc, f_data, in1)
     alu_res = _alu_vec(g('alu_op'), in0, in1)
 
-    # ---- sync barrier (reference: ctrl.v:510-552 + qclk reset) ---------
+    # ---- sync barrier (reference: ctrl.v:510-552 + qclk reset), over
+    # the program's full core axis -----------------------------------------
     if has_sync:
-        at_sync = live & (kind == isa.K_SYNC)
-        live_part = sync_part & ~st['done']
-        sync_ready = at_sync.any(-1) & (~live_part | at_sync).all(-1)
-        release = torch.where(at_sync, time, -INT32_MAX).amax(
+        P_at, P_done = pv['at_sync'], pv['done']
+        live_part = sync_part & ~P_done
+        sync_ready = P_at.any(-1) & (~live_part | P_at).all(-1)
+        release = torch.where(P_at, pv['time'], -INT32_MAX).amax(
             -1, keepdim=True) + QCLK_RST_DELAY                     # [B, 1]
         sync_adv = at_sync & sync_ready[:, None]
-        sync_err = sync_ready & (sync_part & st['done']).any(-1)
+        sync_err = sync_ready & (sync_part & P_done).any(-1)
 
     # ---- stall mask ----------------------------------------------------
     stalled = is_fproc & ~f_ready
@@ -1588,7 +1688,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
 
 def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
                meas_bits, meas_valid, cfg: InterpreterConfig, traits,
-               dm=None, prog=None, group_steps=None):
+               dm=None, prog=None, group_steps=None, cores=None):
     """Step until every shot is done or, in physics mode, paused waiting
     for a measurement bit the epoch resolver has not produced yet.
     ``steps`` is the step count so far (the budget is shared across
@@ -1600,9 +1700,15 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     groups (the programs of an ensemble, the rounds of a stream), which
     gains, each step, one for every group with an unsettled shot: the
     step count each group's own loop would have reached (a settled shot
-    is left unchanged by further steps)."""
+    is left unchanged by further steps).
+
+    ``cores``: the rank's shard of a cores-sharded run (:func:`_step`).
+    The settle test and quiescence are then taken over the program's
+    full core axis, so every rank of the cores axis reads the same
+    predicate and takes the same number of steps, as its collectives
+    need."""
     while steps < cfg.max_steps:
-        settled = st['done'].all(-1)
+        settled = _all_cores(st['done'], cores)
         if cfg.physics:
             settled = settled | paused
         if bool(settled.all()):
@@ -1610,10 +1716,18 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         if group_steps is not None:
             _count_group_step(group_steps, settled)
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
-                                meas_valid, cfg, traits, dm, steps, prog)
-        st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
+                                meas_valid, cfg, traits, dm, steps, prog,
+                                cores)
+        st, paused = _quiesce(st, st2, stall_sync, paused, cfg, cores)
         steps += 1
     return st, steps, paused
+
+
+def _all_cores(mask, cores=None):
+    """``all()`` over the program's full core axis of a ``[B, C]`` mask:
+    over the ranks of the cores axis too when sharded (``cores``)."""
+    per_shot = mask.all(-1)
+    return per_shot if cores is None else cores.all_ranks(per_shot)
 
 
 def _count_group_step(group_steps, settled) -> None:
@@ -1623,15 +1737,17 @@ def _count_group_step(group_steps, settled) -> None:
     group_steps += (~settled.view(G, -1).all(-1)).to(torch.int32)
 
 
-def _quiesce(st: dict, st2: dict, stall_sync, paused, cfg):
+def _quiesce(st: dict, st2: dict, stall_sync, paused, cfg, cores=None):
     """End of one engine iteration from ``st`` to ``st2``: a shot in
     which no live core changed state is paused for the resolver (physics
     mode, a core awaiting an unresolved bit) or deadlocked — its undone
     cores are halted with ``ERR_FPROC_DEADLOCK`` and the fault of what
-    they stall on (``stall_sync``: a sync barrier).  Returns
-    ``(st2, paused)``."""
-    same = ((st2['pc'] == st['pc']) & (st2['time'] == st['time'])
-            & (st2['done'] == st['done'])).all(-1)                # [B]
+    they stall on (``stall_sync``: a sync barrier).  Quiescence is over
+    the full core axis (``cores``: :func:`_all_cores`): a shard whose
+    lanes froze must not halt while a core on another rank runs.
+    Returns ``(st2, paused)``."""
+    same = _all_cores((st2['pc'] == st['pc']) & (st2['time'] == st['time'])
+                      & (st2['done'] == st['done']), cores)       # [B]
     if cfg.physics:
         # quiescent with a core awaiting an unresolved bit = pause for
         # the resolver; quiescent without one is a deadlock
@@ -1665,7 +1781,8 @@ def _block_ids(pc, bid_tab):
 
 def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
                  meas_bits, meas_valid, cfg: InterpreterConfig, traits,
-                 dm=None, kernel: bool = False, group_steps=None):
+                 dm=None, kernel: bool = False, group_steps=None,
+                 cores=None):
     """The block-compiled engine — the JAX ``_exec_blocks``, with
     :func:`_exec_loop`'s calling shape: returns ``(st, steps, paused)``.
 
@@ -1688,14 +1805,19 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
     bodies with the K1 block kernel (:func:`..ops.exec_span.exec_blocks`;
     ``engine='pallas'``, never in physics mode), else with their plain
     version :func:`_apply_blocks`.  ``group_steps``: per-group iteration
-    counts, as in :func:`_exec_loop`."""
+    counts, as in :func:`_exec_loop`.  ``cores``: the rank's shard of a
+    cores-sharded run: the boundary step is the gathered generic step
+    (:func:`_step`), the settle test and quiescence span every rank,
+    and the bodies run on the rank's own cores from the full program's
+    block plan (``cores.plan``) sliced to them."""
     soa_np = soa.cpu().numpy()
-    table = block_table(soa_np, *_block_plan(soa_np), spc, interp, cfg)
+    plan = _block_plan(soa_np) if cores is None else cores.plan
+    table = block_table(soa_np, *plan, spc, interp, cfg)
     run_bodies = exec_blocks if kernel \
         else functools.partial(_apply_blocks, dm=dm)
     B, C = st['pc'].shape
     while steps < cfg.max_steps:
-        settled = st['done'].all(-1)
+        settled = _all_cores(st['done'], cores)
         if cfg.physics:
             settled = settled | paused
         if bool(settled.all()):
@@ -1705,14 +1827,15 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         # (1) boundary step, undone for cores parked at a block start
         sup = _block_ids(st['pc'], table.bid) >= 0
         st2, stall_sync = _step(st, soa, spc, interp, sync_part, meas_bits,
-                                meas_valid, cfg, traits, dm, steps)
+                                meas_valid, cfg, traits, dm, steps,
+                                cores=cores)
         stall_sync = stall_sync & ~sup
         st2 = {k: torch.where(sup.view(B, C, *(1,) * (v.ndim - 2)), st[k], v)
                for k, v in st2.items()}
         # (2) one superinstruction per core at a block start (the kernel
         # updates st2's fresh tensors in place)
         st2 = run_bodies(st2, table, cfg)
-        st, paused = _quiesce(st, st2, stall_sync, paused, cfg)
+        st, paused = _quiesce(st, st2, stall_sync, paused, cfg, cores)
         steps += 1
     return st, steps, paused
 
@@ -2177,19 +2300,28 @@ def _pad_meas(meas_bits: torch.Tensor, max_meas: int) -> torch.Tensor:
 
 
 def _run_injected(mp, eng: str, meas_bits, init_regs,
-                  cfg: InterpreterConfig, device, groups: int = None) -> dict:
+                  cfg: InterpreterConfig, device, groups: int = None,
+                  cores=None) -> dict:
     """Run ``mp`` on the resolved engine ``eng`` over the lanes of
     injected bits ``meas_bits [L, C, max_meas]`` (every bit valid from
     the start); ``init_regs``: ``None``, ``[C, 16]`` or ``[L, C, 16]``.
     ``mp`` may be a :class:`..decoder.MultiMachineProgram` of P programs
     on the generic engine, its lanes program-major (``L = P x B``).
-    ``groups``: as in :func:`_finalize`."""
+    ``groups``: as in :func:`_finalize`.  ``cores``: this rank's shard of
+    a cores-sharded run (generic or block engine): ``meas_bits`` and
+    ``init_regs`` hold the rank's own cores, and the engine runs their
+    rows of the program (:func:`_step`)."""
     if eng == 'fused':
         raise ValueError(
             "engine='fused' demodulates measurement windows in-kernel; "
             'the injected-bits entry points have no window — run via '
             'sim.physics.run_physics_batch')
     soa, spc, interp, sync_part = _program_constants(mp, device)
+    C = mp.n_cores
+    if cores is not None:
+        own = slice(cores.core0, cores.core0 + meas_bits.shape[1])
+        soa, spc, interp = soa[own], spc[own], interp[own]
+        C = soa.shape[0]
     L = meas_bits.shape[0]
     prog = None
     if soa.ndim == 4:
@@ -2198,20 +2330,21 @@ def _run_injected(mp, eng: str, meas_bits, init_regs,
         prog = torch.arange(soa.shape[0], device=device) \
             .repeat_interleave(L // soa.shape[0])
         sync_part = sync_part[prog]
-    st = _init_state(L, mp.n_cores, cfg, init_regs, device)
+    st = _init_state(L, C, cfg, init_regs, device)
     meas_valid = torch.ones(meas_bits.shape, dtype=torch.bool, device=device)
     group_steps = None if groups is None \
         else torch.zeros((groups,), dtype=torch.int32, device=device)
     # a looping program on 'pallas': the block engine with K1 block as
-    # its bodies
-    kernel_blocks = eng == 'pallas' and _pallas_mode(mp, cfg) == 'block'
+    # its bodies; a cores-sharded block run takes K1 block for its bodies
+    kernel_blocks = (eng == 'pallas' and _pallas_mode(mp, cfg) == 'block') \
+        or (eng == 'block' and cores is not None)
     if eng in ('generic', 'block') or kernel_blocks:
         paused = torch.zeros((L,), dtype=torch.bool, device=device)
         loop = functools.partial(_exec_loop, prog=prog) if eng == 'generic' \
             else functools.partial(_exec_blocks, kernel=kernel_blocks)
         st, steps, _ = loop(st, 0, paused, soa, spc, interp, sync_part,
                             meas_bits, meas_valid, cfg, program_traits(mp),
-                            group_steps=group_steps)
+                            group_steps=group_steps, cores=cores)
         if group_steps is not None:
             steps = group_steps
     else:
@@ -2242,6 +2375,7 @@ def simulate_batch(mp, meas_bits, init_regs=None,
     device = torch_device(device)
     cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
     _check_single_round(cfg)
+    _check_no_cores_axis(cfg)
     eng = check_supported(mp, cfg, device)
     cfg, strict = _fault_policy(cfg)
     meas_bits = _pad_meas(torch.as_tensor(meas_bits, dtype=torch.int32,
@@ -2327,6 +2461,7 @@ def simulate_multi_batch(mps, meas_bits, init_regs=None,
             'caches on program content, the per-sequence compile this '
             'path amortizes away')
     _check_single_round(cfg)
+    _check_no_cores_axis(cfg)
     cfg = replace(cfg, straightline=False, engine=None)
     eng = check_supported(mmp, cfg, device)
     cfg, strict = _fault_policy(cfg)
@@ -2403,6 +2538,7 @@ def simulate_rounds(mp, meas_bits, init_regs=None,
     across rounds (``[n_cores, 16]`` or ``[n_shots, n_cores, 16]``)."""
     device = torch_device(device)
     cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
+    _check_no_cores_axis(cfg)
     cfg, strict = _fault_policy(cfg)
     meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32, device=device)
     if meas_bits.ndim != 4 or meas_bits.shape[2] != mp.n_cores:
@@ -2445,3 +2581,21 @@ def simulate_rounds(mp, meas_bits, init_regs=None,
         out['syndrome_hist'] = hist
         out['decoded'] = decode_history(hist, decode.scheme)
     return _check_strict(out, strict)
+
+
+def make_span_runner(step):
+    """Wrap a per-batch statistics step (``i -> dict of int64 sums`` on
+    the device, batch ``i``'s run) into a span runner: ``run_span(start,
+    span)`` runs batches ``start .. start + span - 1`` and folds their
+    sums in an on-device carry, so the host fetches once per span (the
+    JAX ``make_span_runner``, whose ``lax.scan`` takes the batch key from
+    the index as the step here takes its seed).  Integer addition is
+    associative, so any span equals the per-batch loop bit for bit."""
+    def run_span(start: int, span: int) -> dict:
+        carry = None
+        for i in range(start, start + span):
+            stats = step(i)
+            carry = stats if carry is None \
+                else {k: carry[k] + v for k, v in stats.items()}
+        return carry
+    return run_span

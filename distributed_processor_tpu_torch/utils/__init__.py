@@ -1,2 +1,3 @@
 from .patterns import match_pattern, format_pattern
 from .safe_eval import eval_numeric
+from .results import save_results, load_results, SweepAccumulator

@@ -259,7 +259,10 @@ def test_unported_features_still_raise(looped):
     with pytest.raises(ValueError, match='single-round'):
         torch_simulate_batch(mp_t, bits, device='cpu', engine='block',
                              rounds=2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # a set cores_axis is refused by the single-device entry with the
+    # JAX package's ValueError (the cores mesh runs it:
+    # tests/test_torch_cores_mesh.py)
+    with pytest.raises(ValueError, match='sharded_cores_simulate'):
         torch_simulate_batch(mp_t, bits, device='cpu', engine='auto',
                              cores_axis='cores')
     with pytest.raises(ValueError, match='trace'):

@@ -1691,3 +1691,96 @@ def test_multi_batch_matches_cpu(card):
     torch.cuda.synchronize()
     _assert_same(got, want)
     assert not bool(got['incomplete'].any())
+
+
+# ---------------------------------------------------------------------------
+# The mesh paths at world size 1 on the card (a one-rank NCCL group):
+# each equal to the same work on the CPU, every key.
+
+
+def _card_mesh(card, cores: bool = False):
+    from distributed_processor_tpu_torch.parallel import (make_cores_mesh,
+                                                          make_mesh)
+    return make_cores_mesh(device=card) if cores else make_mesh(device=card)
+
+
+def test_mesh_stat_sums_pallas_match_cpu(card, program):
+    """``sweep_stat_sums`` with ``engine='pallas'`` on a one-rank mesh:
+    one K1 span launch, the sums equal the CPU's single-device run."""
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.parallel import sweep_stat_sums
+    cfg = _span_cfg(program, record_pulses=False)
+    bits = np.random.default_rng(50).integers(
+        0, 2, (4099, program.n_cores, cfg.max_meas)).astype(np.int32)
+    before = exec_span.launches
+    got = sweep_stat_sums(program, bits, _card_mesh(card),
+                          cfg=dataclasses.replace(cfg, engine='pallas'),
+                          device=card)
+    assert exec_span.launches == before + 1
+    out = simulate_batch(program, bits, cfg=cfg, device='cpu')
+    assert got['pulse_sum'].tolist() == out['n_pulses'].sum(0).tolist()
+    assert got['qclk_sum'].tolist() == out['qclk'].sum(0).tolist()
+    assert int(got['err_shots']) == int((out['err'] != 0).any(1).sum())
+
+
+def test_mesh_cores_block_matches_cpu(card):
+    """``sharded_cores_simulate(engine='block')`` on a one-rank cores
+    mesh: one K1 block launch per block-engine iteration, every key
+    equal to the CPU's generic engine."""
+    from distributed_processor_tpu_torch.ops.exec_span import exec_blocks
+    from distributed_processor_tpu_torch.parallel import \
+        sharded_cores_simulate
+    mp = looped_program()
+    kw = dict(mp.static_bounds(), max_meas=8, max_resets=2)
+    bits = np.random.default_rng(51).integers(0, 2, (777, mp.n_cores, 8))
+    before = exec_blocks.launches
+    got = sharded_cores_simulate(mp, bits, _card_mesh(card, cores=True),
+                                 cfg=InterpreterConfig(engine='block', **kw),
+                                 device=card)
+    assert exec_blocks.launches > before
+    want = simulate_batch(mp, bits, cfg=InterpreterConfig(engine='generic',
+                                                          **kw),
+                          device='cpu')
+    for k in ('steps', 'incomplete'):
+        want.pop(k)
+    _assert_same(got, want)
+
+
+def test_mesh_physics_and_demod_match_cpu(card, program):
+    """The one-rank dp mesh's physics sweep at sigma = 0 and p1_init = 1
+    (deterministic: card = CPU), K3's sharded sums at sigma = 0, and
+    ``sharded_demod`` (K5) against the plain product on the CPU."""
+    from distributed_processor_tpu_torch.ops.demod import (
+        demod_iq, demod_iq_reference)
+    from distributed_processor_tpu_torch.parallel import (
+        run_physics_sweep, sharded_demod, sharded_physics_stat_sums)
+    model = ReadoutPhysics(sigma=0.0, p1_init=1.0)
+    kw = dict(max_steps=4 * program.n_instr + 64, max_pulses=32, max_meas=4)
+    mesh = _card_mesh(card)
+    got = run_physics_sweep(program, model, 3 * 1024, 1024, seed=1,
+                            mesh=mesh, span=2, device=card, **kw)
+    want = run_physics_sweep(program, model, 3 * 1024, 1024, seed=1,
+                             device='cpu', **kw)
+    for k in ('mean_pulses', 'meas1_rate', 'clean_shots', 'err_shots',
+              'fault_shots', 'survival00_rate'):
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]), err_msg=k)
+    quiet = ReadoutPhysics(sigma=0.0, p1_init=0.0)
+    fused = sharded_physics_stat_sums(program, quiet, 2, 1024, mesh,
+                                      engine='fused', device=card, **kw)
+    from distributed_processor_tpu_torch.parallel import physics_batch_stats
+    from distributed_processor_tpu_torch.sim.physics import derive_seed
+    plain = physics_batch_stats(run_physics_batch(
+        program, quiet, derive_seed(2, 0), 1024, engine='fused',
+        device='cpu', **kw))
+    for k in plain:
+        assert fused[k].tolist() == plain[k].tolist(), k
+    adc = torch.randn((4096, 1024), generator=torch.Generator().manual_seed(
+        3)).to(card)
+    w = torch.randn((1024, 8), generator=torch.Generator().manual_seed(4))
+    before = demod_iq.launches
+    acc = sharded_demod(adc, w, mesh, device=card)
+    assert demod_iq.launches == before + 1
+    torch.testing.assert_close(acc.cpu(), demod_iq_reference(adc.cpu(), w),
+                               rtol=2e-5, atol=2e-4)
+

@@ -19,7 +19,10 @@ FORBIDDEN = ('jax', 'jaxlib', 'distributed_processor_tpu')
 
 
 def _sources():
-    paths = [os.path.join(ROOT, 'chip_smoke.py')]
+    # the multi-rank tests' worker runs in processes of its own, which
+    # must not load JAX either
+    paths = [os.path.join(ROOT, 'chip_smoke.py'),
+             os.path.join(ROOT, 'tests', 'test_torch_spmd_worker.py')]
     for dirpath, _dirs, files in os.walk(PORT):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith('.py')]
@@ -62,7 +65,12 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/analysis.py',
                  'distributed_processor_tpu_torch/models/calibration.py',
                  'distributed_processor_tpu_torch/parallel/param_sweep.py',
-                 'distributed_processor_tpu_torch/sim/oracle.py'):
+                 'distributed_processor_tpu_torch/sim/oracle.py',
+                 'distributed_processor_tpu_torch/parallel/sweep.py',
+                 'distributed_processor_tpu_torch/parallel/mesh.py',
+                 'distributed_processor_tpu_torch/parallel/multihost.py',
+                 'distributed_processor_tpu_torch/utils/results.py',
+                 'tests/test_torch_spmd_worker.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
         assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
@@ -122,6 +130,28 @@ def test_entry_points_default_to_cuda():
     from distributed_processor_tpu_torch.ops.fabric import MeasLUT
     with pytest.raises(RuntimeError, match='CUDA'):
         MeasLUT((True,), (0, 1))
+    # the mesh constructors and the sharded entry points
+    from distributed_processor_tpu_torch import parallel
+    for make in (parallel.make_mesh, parallel.make_cores_mesh,
+                 parallel.make_global_mesh, parallel.host_local_mesh):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make()
+    bits = np.zeros((4, 1, 1), np.int32)
+    for fn, args in (('sharded_simulate', (mp, bits)),
+                     ('sweep_stat_sums', (mp, bits)),
+                     ('sweep_stats', (mp, bits)),
+                     ('sharded_multi_stats', ([mp], bits[None])),
+                     ('sharded_physics_stat_sums', (mp, ReadoutPhysics(), 0,
+                                                    4)),
+                     ('sharded_physics_stats', (mp, ReadoutPhysics(), 0, 4)),
+                     ('sharded_demod', (np.zeros((4, 2)), np.zeros((2, 2)))),
+                     ('sharded_cores_simulate', (mp, bits)),
+                     ('sharded_cores_stat_sums', (mp, bits)),
+                     ('sharded_cores_stats', (mp, bits)),
+                     ('sharded_cores_rounds', (mp, bits[None])),
+                     ('run_cores_sweep', (mp, 8, 4))):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            getattr(parallel, fn)(*args, mesh=None)
     # the explicit CPU device runs
     out = simulate_batch(mp, np.zeros((4, 1, 1), np.int32), device='cpu')
     assert bool(out['done'].all())

@@ -227,7 +227,8 @@ def test_read_of_finished_producer(fabric):
 
 
 def test_engine_selection():
-    mp = _to_port(_random_program(np.random.default_rng(1)))
+    mp_j = _random_program(np.random.default_rng(1))
+    mp = _to_port(mp_j)
     meas = np.zeros((2, mp.n_cores, 2), np.int32)
     ref = torch_simulate_batch(mp, meas, device='cpu')
     for kw in ({}, {'engine': 'generic'}, {'engine': 'auto'},
@@ -238,9 +239,14 @@ def test_engine_selection():
         for key in ref:
             if key != 'steps':
                 assert torch.equal(out[key], ref[key]), (kw, key)
-    for kw in ({'trace': True}, {'cores_axis': 'cores'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            torch_simulate_batch(mp, meas, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        torch_simulate_batch(mp, meas, device='cpu', trace=True)
+    # a set cores_axis: the JAX package's ValueError, message and all
+    with pytest.raises(ValueError, match='sharded_cores_simulate') as e_t:
+        torch_simulate_batch(mp, meas, device='cpu', cores_axis='cores')
+    with pytest.raises(ValueError) as e_j:
+        jax_simulate_batch(mp_j, meas, cores_axis='cores')
+    assert str(e_t.value) == str(e_j.value)
     # the fused engine closes the physics loop: not on injected bits
     with pytest.raises(ValueError, match='fused'):
         torch_simulate_batch(mp, meas, device='cpu', engine='fused')

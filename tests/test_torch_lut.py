@@ -46,6 +46,7 @@ from distributed_processor_tpu.simulator import Simulator as JSimulator
 from distributed_processor_tpu_torch import Simulator as TSimulator
 from distributed_processor_tpu_torch.hwconfig import FPGAConfig as TFPGA
 from distributed_processor_tpu_torch.ops.fabric import MeasLUT as TLUT
+from distributed_processor_tpu_torch.parallel import make_cores_mesh
 from distributed_processor_tpu_torch.sim import interpreter as torch_interp
 from distributed_processor_tpu_torch.sim.interpreter import (
     InterpreterConfig as TCfg, simulate_batch as torch_simulate_batch)
@@ -136,8 +137,13 @@ def test_meas_lut_from_fpga_config_matches_jax():
     np.testing.assert_array_equal(lt(pats).numpy(), np.asarray(lj(pats)))
     with pytest.raises(ValueError, match='no meas LUT'):
         TLUT.from_fpga_config(TFPGA(), device='cpu')
-    with pytest.raises(NotImplementedError, match='item 9'):
-        lt.sharded_call(pats, 'cores')
+    # sharded_call over a one-rank cores axis: the gather is the identity
+    # and the output is the replicated table gather's, as in the JAX
+    # package (tests/test_torch_cores_mesh.py shards it over 2 and 4)
+    mesh = make_cores_mesh(device='cpu')
+    np.testing.assert_array_equal(
+        lt.sharded_call(pats, mesh.get_group('cores')).numpy(),
+        np.asarray(lj(pats)))
 
 
 def test_interpreter_config_threads_hwconfig_lut():

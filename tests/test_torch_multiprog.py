@@ -373,10 +373,51 @@ def test_run_multi_sweep_sums_its_batches(mixed):
     np.testing.assert_allclose(res['mean_qclk'], acc['qclk_sum'].numpy() / 32)
 
 
-@pytest.mark.parametrize('kw', [{'checkpoint': 'x.npz'}, {'span': 2},
-                                {'mesh': object()}],
-                         ids=['checkpoint', 'span', 'mesh'])
-def test_run_multi_sweep_unported_options_raise(mixed, kw):
+@pytest.mark.parametrize('option', ['checkpoint', 'span', 'mesh'])
+def test_run_multi_sweep_unported_options_raise(mixed, option, tmp_path):
+    """The sweep options behave as the JAX package's: a sweep resumed
+    from a 2-batch checkpoint, and a spanned sweep, equal the
+    uninterrupted per-batch sweep exactly; on a one-rank dp mesh, batch
+    ``i`` draws its bits from ``derive_seed(seed, i, 0)`` (dp row 0)."""
+    from distributed_processor_tpu_torch.parallel import make_mesh
+    from distributed_processor_tpu_torch.sim.physics import derive_seed
     _, mps_t = mixed
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_multi_sweep(mps_t, 8, 4, device='cpu', **kw)
+    kw = dict(max_meas=2, max_resets=2)
+    base = run_multi_sweep(mps_t, 16, 4, seed=21, device='cpu', **kw)
+    if option == 'checkpoint':
+        ck = str(tmp_path / 'x.npz')
+        run_multi_sweep(mps_t, 8, 4, seed=21, checkpoint=ck, device='cpu',
+                        **kw)
+        res = run_multi_sweep(mps_t, 16, 4, seed=21, checkpoint=ck,
+                              device='cpu', **kw)
+    elif option == 'span':
+        res = run_multi_sweep(mps_t, 16, 4, seed=21, span=3, device='cpu',
+                              **kw)
+    else:
+        res = run_multi_sweep(mps_t, 16, 4, seed=21, device='cpu',
+                              mesh=make_mesh(device='cpu'), **kw)
+        mmp = stack_machine_programs(mps_t)
+        cfg = TCfg(**_bucket_kw(mmp, record_pulses=False))
+        acc = None
+        for i in range(4):
+            gen = torch.Generator()
+            gen.manual_seed(derive_seed(21, i, 0) >> 1)
+            bits = (torch.rand((3, 4, mmp.n_cores, 2), generator=gen)
+                    < 0.5).to(torch.int32)
+            st = multi_batch_stats(simulate_multi_batch(
+                mmp, bits, cfg=cfg, device='cpu'))
+            acc = st if acc is None else {k: acc[k] + v
+                                          for k, v in st.items()}
+        base = dict(base, err_shots=acc['err_shots'].numpy(),
+                    mean_pulses=acc['pulse_sum'].numpy() / 16,
+                    err_rate=acc['err_shots'].numpy() / 16,
+                    mean_qclk=acc['qclk_sum'].numpy() / 16,
+                    fault_shots={name: v for name, v in zip(
+                        res['fault_shots'], acc['fault_shots'].numpy().T)})
+    assert set(res) == set(base)
+    for k in base:
+        if k == 'fault_shots':
+            for name in base[k]:
+                np.testing.assert_array_equal(res[k][name], base[k][name])
+        else:
+            np.testing.assert_array_equal(res[k], base[k], err_msg=k)

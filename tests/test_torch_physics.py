@@ -151,13 +151,15 @@ def test_sweep_sums_its_batches(headline):
     assert 0.0 <= res['survival00_rate'] <= 1.0
 
 
-def test_unported_models_raise(headline):
+def test_unported_models_raise(headline, tmp_path):
     """The readout models and devices of queue 1 items 3 and 4 run now
     (tests/test_torch_readout_models.py, test_torch_bloch.py and
     test_torch_statevec.py hold them against the JAX package); a |2>
-    response without a leakage channel raises the JAX package's error,
-    and the sweep's checkpoint, span and mesh options still raise
-    naming their item."""
+    response without a leakage channel raises the JAX package's error.
+    The sweep's checkpoint, span and mesh options run as the JAX
+    package's: a resumed and a spanned sweep equal the per-batch sweep,
+    and a one-rank dp mesh runs batch ``i`` at ``derive_seed(seed, i,
+    0)``."""
     _mp_j, mp_t, cfg, _init = headline
     from distributed_processor_tpu_torch.sim.device import DeviceModel
     for kw in ({'resolve_mode': 'analytic'}, {'noise_ar1': 0.5},
@@ -168,10 +170,36 @@ def test_unported_models_raise(headline):
     with pytest.raises(ValueError, match='g2'):
         run_physics_batch(mp_t, TPhysics(g2=0.5 + 0.5j), 0, 4,
                           cfg=TCfg(**cfg), device='cpu')
-    for kw in ({'checkpoint': 'x.npz'}, {'span': 2}, {'mesh': object()}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            run_physics_sweep(mp_t, TPhysics(), 8, 4, cfg=TCfg(**cfg),
-                              device='cpu', **kw)
+    from distributed_processor_tpu_torch.parallel import make_mesh
+    from distributed_processor_tpu_torch.sim.physics import derive_seed
+    model = TPhysics(sigma=0.05, p1_init=0.3)
+    run = lambda **kw: run_physics_sweep(mp_t, model, 12, 4, seed=4,
+                                         cfg=TCfg(**cfg), device='cpu', **kw)
+    base = run()
+    ck = str(tmp_path / 'x.npz')
+    run_physics_sweep(mp_t, model, 4, 4, seed=4, cfg=TCfg(**cfg),
+                      device='cpu', checkpoint=ck)
+    meshed = run(mesh=make_mesh(device='cpu'))
+    acc = None
+    for i in range(3):
+        out = run_physics_batch(mp_t, model, derive_seed(4, i, 0), 4,
+                                cfg=TCfg(**cfg), device='cpu')
+        st = physics_batch_stats(out)
+        acc = st if acc is None else {k: acc[k] + v for k, v in st.items()}
+    for res in (run(checkpoint=ck), run(span=2), meshed):
+        for k in ('mean_pulses', 'meas1_rate', 'survival00_rate',
+                  'clean_shots', 'err_shots', 'fault_shots'):
+            want = base[k] if res is not meshed else {
+                'mean_pulses': acc['pulse_sum'].numpy() / 12,
+                'meas1_rate': acc['meas1_sum'].numpy() / 12,
+                'survival00_rate': float(acc['allzero_sum']
+                                         / acc['clean_shots']),
+                'clean_shots': int(acc['clean_shots']),
+                'err_shots': int(acc['err_shots']),
+                'fault_shots': dict(zip(res['fault_shots'],
+                                        acc['fault_shots'].tolist()))}[k]
+            np.testing.assert_array_equal(np.asarray(res[k]),
+                                          np.asarray(want), err_msg=k)
 
 
 @pytest.fixture(scope='module')

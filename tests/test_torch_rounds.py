@@ -400,8 +400,14 @@ def test_rejections_match_jax(case):
 
 
 def test_rounds_cores_axis_not_ported():
-    _mp_j, mp_t, kw, _spec = _rep(3)
+    """A set ``cores_axis`` is refused by the single-device rounds entry
+    with the JAX package's ValueError (the cores mesh runs rounds through
+    ``parallel.sharded_cores_rounds``, tests/test_torch_cores_mesh.py)."""
+    mp_j, mp_t, kw, _spec = _rep(3)
     mb = np.zeros((2, 3, 3, kw['max_meas']), np.int32)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='sharded_cores_simulate') as e_t:
         simulate_rounds(mp_t, mb, cfg=TCfg(**kw), cores_axis='cores',
                         device='cpu')
+    with pytest.raises(ValueError) as e_j:
+        jax_rounds(mp_j, mb, cfg=JCfg(**kw), cores_axis='cores')
+    assert str(e_t.value) == str(e_j.value)
