@@ -89,7 +89,18 @@ Phases, in order (any failure exits nonzero):
    block-engine iteration, equal to 4 sequential block-engine batches;
    each call's wall beside its sequential calls'); and the analysis
    fits (T1, RB and Ramsey on the card = on the CPU, and
-   ``calibrate_readout`` at 262144 shots with fidelity > 0.99);
+   ``calibrate_readout`` at 262144 shots with fidelity > 0.99); then
+   the OpenQASM 3 front door (the headline as QASM text through
+   ``Simulator.compile`` and ``cached_compile_to_machine`` — a cold miss,
+   a warm hit, a disk hit — with their host milliseconds, then
+   ``run_physics_batch`` at 262144 shots: sigma = 0.05 with K2 once per
+   epoch, sigma = 0 on ``engine='fused'`` in one K3 launch; card = CPU at
+   sigma = 0, every key equal to the dict headline's run where the bytes
+   are equal), differentiable physics (``grad_loss`` of each knob card =
+   CPU to rtol 1e-5, one ``grad_loss_batch`` of 4096 candidates per knob
+   timed beside sequential calls) and trace mode (the headline with
+   ``trace=True`` at 4096 shots on the generic engine, every key card =
+   CPU, one shot through ``write_vcd``);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths, ``simulate_rounds`` with the decode and
@@ -287,6 +298,40 @@ def headline_source() -> list:
     qubits = [f'Q{i}' for i in range(HEADLINE['n_qubits'])]
     return active_reset(qubits) + rb_program(qubits, HEADLINE['depth'],
                                              seed=1234)
+
+
+def qasm_headline_source(n_qubits: int, depth: int, seed: int) -> str:
+    """The headline as OpenQASM 3 text: ``reset q[i];`` for the active
+    reset, then ``rb_program(qubits, depth, seed=seed)`` with its X90s
+    as ``sx`` and its virtual Zs as ``rz``, its delay and barrier over
+    the register, and the reads as ``c[i] = measure q[i];``.  The delay
+    is written in microseconds, in which its duration is exact (500 ns
+    gives ``500 * 1e-9``, one ulp off the dict program's ``5e-07``, and
+    another clock count)."""
+    from distributed_processor_tpu_torch.models import rb_program
+    qubits = [f'Q{i}' for i in range(n_qubits)]
+    lines = ['OPENQASM 3;', f'qubit[{n_qubits}] q;', f'bit[{n_qubits}] c;']
+    lines += [f'reset q[{i}];' for i in range(n_qubits)]
+    for ins in rb_program(qubits, depth, seed=seed):
+        name = ins['name']
+        i = int(ins['qubit'][0][1:]) if len(ins.get('qubit', ())) == 1 \
+            else None
+        if name == 'delay':
+            us = ins['t'] * 1e6
+            check(us * 1e-6 == ins['t'], f'delay {ins["t"]} is not exact in us')
+            lines.append(f'delay[{us!r}us] q;')
+        elif name == 'barrier':
+            lines.append('barrier q;')
+        elif name == 'X90':
+            lines.append(f'sx q[{i}];')
+        elif name == 'virtual_z':
+            lines.append(f'rz({ins["phase"]!r}) q[{i}];')
+        elif name == 'read':
+            lines.append(f'c[{i}] = measure q[{i}];')
+        else:
+            fail(f'the RB program has an instruction {name!r} the QASM '
+                 f'headline does not write')
+    return '\n'.join(lines) + '\n'
 
 
 def headline_program():
@@ -3089,6 +3134,253 @@ def profile_batch(fn, label: str):
         print(f'  {us / 1e3:10.3f} ms  {count:6d}x  {name}')
 
 
+def _host_ms(fn) -> tuple:
+    """``(fn(), host milliseconds)``."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _same_every_key(a: dict, b: dict, what: str) -> None:
+    """Two result dicts on any devices: every tensor key equal (the
+    facade's ``_mp``/``_cfg`` entries aside)."""
+    _max_abs_diff({k: v.cpu() for k, v in a.items() if not k.startswith('_')},
+                  {k: v.cpu() for k, v in b.items() if not k.startswith('_')},
+                  what)
+
+
+def phase_qasm_path(mp, env) -> None:
+    """The OpenQASM 3 front door on the card: the headline as QASM text
+    (:func:`qasm_headline_source`) through ``Simulator.compile`` and
+    through ``cached_compile_to_machine`` (a cold miss, a warm hit, a disk
+    hit from a fresh cache over the same directory), then
+    ``run_physics_batch`` at the headline's batch: sigma = 0.05 on the
+    straight-line engine with K2 once per epoch, sigma = 0 on
+    ``engine='fused'`` in one K3 launch; then card = CPU at sigma = 0
+    with explicit initial states, and, where the QASM program's bytes are
+    the dict headline's (``mp``), every key equal to the dict headline's
+    run."""
+    import tempfile
+    import numpy as np
+    from distributed_processor_tpu_torch import Simulator
+    from distributed_processor_tpu_torch.compilecache import (
+        CompileCache, machine_program_bytes)
+    from distributed_processor_tpu_torch.models import make_default_qchip
+    from distributed_processor_tpu_torch.parallel import physics_batch_stats
+    from distributed_processor_tpu_torch.pipeline import \
+        cached_compile_to_machine
+    from distributed_processor_tpu_torch.sim.physics import run_physics_batch
+    n, B = HEADLINE['n_qubits'], HEADLINE['batch']
+    src = qasm_headline_source(n, HEADLINE['depth'], 1234)
+    mp_q, compile_ms = _host_ms(
+        lambda: Simulator(n_qubits=n, device=DEV).compile(src))
+    same_bytes = machine_program_bytes(mp_q) == machine_program_bytes(mp)
+    print(f'qasm path: {len(src)} characters of OpenQASM 3 ({n} qubits, '
+          f'depth {HEADLINE["depth"]}), Simulator.compile {compile_ms:.2f} '
+          f'ms on the host, {mp_q.n_instr} instructions per core; bytes '
+          f'{"equal to" if same_bytes else "differ from"} the dict '
+          f'headline\'s')
+    qchip = make_default_qchip(n)
+    want = machine_program_bytes(mp_q)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = CompileCache(cache_dir=tmp)
+        times = {}
+        for label, c, stat in (('cold miss', cache, 'misses'),
+                               ('warm hit', cache, 'hits'),
+                               ('disk hit', CompileCache(cache_dir=tmp),
+                                'disk_hits')):
+            before = c.stats()[stat]
+            got, times[label] = _host_ms(lambda: cached_compile_to_machine(
+                src, qchip, n_qubits=n, cache=c))
+            check(c.stats()[stat] == before + 1,
+                  f'cached compile, {label}: {c.stats()}')
+            check(machine_program_bytes(got) == want,
+                  f'cached compile, {label}: bytes differ from '
+                  f'Simulator.compile')
+    print('qasm path: cached_compile_to_machine host ms: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in times.items()))
+    for label, model, cfg, kernel in (
+            ('sigma=0.05, engine=None', headline_model(),
+             headline_config(mp_q), 'resolve_windows'),
+            ("sigma=0, engine='fused'", headline_model(sigma=0.0),
+             headline_config(mp_q, engine='fused'), 'exec_span_fused')):
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = run_physics_batch(mp_q, model, 2040, B, cfg=cfg, device=DEV)
+        stats = {k: v.cpu().numpy().tolist()
+                 for k, v in physics_batch_stats(res).items()}
+        sync()
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        epochs = int(res['epochs'])
+        want_launches = epochs if kernel == 'resolve_windows' else 1
+        check(counts[kernel] == want_launches
+              and _only_launched(counts, kernel),
+              f'qasm path {label}: launches {counts} in {epochs} epochs')
+        check(not bool(res['incomplete']) and sum(stats['fault_shots']) == 0
+              and stats['err_shots'] == 0
+              and bool(res['meas_bits_valid'].all()),
+              f'qasm path {label}: faults, errors or unresolved slots: '
+              f'{stats}')
+        print(f'qasm path: run_physics_batch({label}) {B} shots in '
+              f'{dt:.4f} s (wall, sync included), epochs {epochs}, '
+              f'{kernel} launches {counts[kernel]} on {env["smi"]}')
+    Bc = 256
+    init = np.random.default_rng(12).integers(0, 2, (Bc, mp_q.n_cores))
+    model, cfg = headline_model(sigma=0.0), headline_config(mp_q)
+    card = run_physics_batch(mp_q, model, 13, Bc, init_states=init, cfg=cfg,
+                             device=DEV)
+    _same_every_key(card, run_physics_batch(mp_q, model, 13, Bc,
+                                            init_states=init, cfg=cfg,
+                                            device='cpu'),
+                    'qasm path, card vs CPU at sigma=0')
+    if same_bytes:
+        _same_every_key(card, run_physics_batch(mp, model, 13, Bc,
+                                                init_states=init, cfg=cfg,
+                                                device=DEV),
+                        'qasm path vs the dict headline at sigma=0')
+    print(f'qasm path: card = CPU at sigma=0, B={Bc}: every key identical'
+          + ('; every key equal to the dict headline\'s run'
+             if same_bytes else ''))
+
+
+# the grad phase's losses: tests/test_calib.py's specs, a probe point and
+# the range of the candidate population of one batched call, per knob
+GRAD = dict(specs=(('amplitude', dict(knob='amplitude', x90_amp=0.48), 0.45,
+                    (0.2, 0.8)),
+                   ('drag', dict(knob='drag', drag_delta=-30e6), 0.6,
+                    (0.1, 1.9)),
+                   ('readout_window', dict(knob='readout_window',
+                                           window_edge=8.0), 160.0,
+                    (16.0, 400.0))),
+            candidates=4096, seq_calls=64, rtol=1e-5)
+
+
+def phase_grad(env) -> None:
+    """Differentiable physics on the card: ``grad_loss`` of each knob
+    equal to the CPU's to rtol 1e-5; one ``grad_loss_batch`` of 4096
+    candidates per knob in one call, timed beside sequential
+    ``grad_loss`` calls and held to the CPU's per-candidate values."""
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.sim.grad import (
+        LossSpec, PARAM_NAME, grad_loss, grad_loss_batch)
+    rtol = GRAD['rtol']
+
+    def close(a, b, what):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(np.allclose(a, b, rtol=rtol, atol=0.0),
+              f'grad: {what}: card {a} vs CPU {b}')
+
+    for knob, kw, x, (lo, hi) in GRAD['specs']:
+        spec, name = LossSpec(**kw), PARAM_NAME[kw['knob']]
+        loss, grads = grad_loss({name: x}, spec, device=DEV)
+        loss_c, grads_c = grad_loss({name: x}, spec, device='cpu')
+        check(loss.device.type == DEV and grads[name].device.type == DEV,
+              'grad_loss did not run on the card')
+        close(float(loss), float(loss_c), f'{knob} loss')
+        close(float(grads[name]), float(grads_c[name]), f'{knob} gradient')
+        vals = np.linspace(lo, hi, GRAD['candidates'], dtype=np.float32)
+        grad_loss_batch({name: vals}, spec, device=DEV)      # warm-up
+        sync()
+        t0 = time.perf_counter()
+        b_loss, b_grads = grad_loss_batch({name: vals}, spec, device=DEV)
+        sync()
+        batch_s = time.perf_counter() - t0
+        check(tuple(b_loss.shape) == (len(vals),)
+              and bool(torch.isfinite(b_loss).all())
+              and bool(torch.isfinite(b_grads[name]).all()),
+              f'grad_loss_batch {knob}: shape or non-finite values')
+        idx = np.linspace(0, len(vals) - 1, 8).astype(int)
+        for i in idx:
+            lc, gc = grad_loss({name: vals[i]}, spec, device='cpu')
+            close(float(b_loss[i]), float(lc), f'{knob} batch loss [{i}]')
+            close(float(b_grads[name][i]), float(gc[name]),
+                  f'{knob} batch gradient [{i}]')
+        sync()
+        t0 = time.perf_counter()
+        for v in vals[:GRAD['seq_calls']]:
+            grad_loss({name: v}, spec, device=DEV)
+        sync()
+        seq_ms = 1e3 * (time.perf_counter() - t0) / GRAD['seq_calls']
+        busy = _busy(lambda: grad_loss_batch({name: vals}, spec, device=DEV))
+        print(f'grad {knob}: grad_loss card = CPU (rtol {rtol}); '
+              f'grad_loss_batch of {len(vals)} candidates in one call '
+              f'{1e3 * batch_s:.3f} ms, sequential grad_loss {seq_ms:.3f} '
+              f'ms per call ({GRAD["seq_calls"]} calls), {_busy_note(busy)} '
+              f'on {env["smi"]}')
+
+
+# trace mode's run: the headline physics-closed at sigma = 0 with explicit
+# initial states, on the generic engine (which trace mode forces), with
+# the pulse records the VCD export reads; [B, 8, max_steps] traces grow
+# with B, so a debugging batch
+TRACE = dict(batch=4096, vcd_shot=3)
+
+
+def phase_trace(mp, env) -> None:
+    """``trace=True`` on the card: the headline at sigma = 0 with
+    explicit initial states, every key (the per-step ``trace_pc``,
+    ``trace_time``, ``trace_off`` included) equal to the CPU's run, and
+    one shot written by ``write_vcd`` (the same bytes from the card's
+    result as from the CPU's)."""
+    import os
+    import tempfile
+    import numpy as np
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        resolve_engine
+    from distributed_processor_tpu_torch.sim.physics import (
+        physics_config, run_physics_batch)
+    from distributed_processor_tpu_torch.utils.vcd import write_vcd
+    B = TRACE['batch']
+    init = np.random.default_rng(14).integers(0, 2, (B, mp.n_cores))
+    model = headline_model(sigma=0.0)
+    cfg = headline_config(mp, trace=True, record_pulses=True)
+    eng = resolve_engine(mp, physics_config(cfg, model), DEV)
+    check(eng == 'generic', f'trace mode resolved to {eng!r}')
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    card = run_physics_batch(mp, model, 15, B, init_states=init, cfg=cfg,
+                             device=DEV)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = _launches()
+    check(_only_launched(counts, 'resolve_windows'),
+          f'trace path launched a megastep kernel: {counts}')
+    steps = int(card['steps'])
+    check(tuple(card['trace_pc'].shape) == (B, mp.n_cores, cfg.max_steps)
+          and not bool(card['incomplete']),
+          f"trace path: traces {tuple(card['trace_pc'].shape)}, "
+          f"incomplete {bool(card['incomplete'])}")
+    t0 = time.perf_counter()
+    cpu = run_physics_batch(mp, model, 15, B, init_states=init, cfg=cfg,
+                            device='cpu')
+    cpu_s = time.perf_counter() - t0
+    _same_every_key(card, cpu, 'trace path, card vs CPU')
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f'{d}.vcd') for d in ('card', 'cpu')]
+        events = [write_vcd(p, res, shot=TRACE['vcd_shot'],
+                            core_labels=list(mp.core_inds))
+                  for p, res in zip(paths, (card, cpu))]
+        blobs = []
+        for p in paths:
+            with open(p, 'rb') as f:
+                blobs.append(f.read())
+    check(events[0] == events[1] > 0 and blobs[0] == blobs[1],
+          f'trace path: VCD of the card run differs from the CPU run\'s '
+          f'({events})')
+    print(f'trace path: run_physics_batch(trace=True, sigma=0) {B} shots '
+          f'on the generic engine in {dt:.3f} s (first call; CPU {cpu_s:.3f} '
+          f's), {steps} steps over {int(card["epochs"])} epochs, K2 '
+          f'launches {counts["resolve_windows"]}, traces '
+          f'{tuple(card["trace_pc"].shape)}; every key card = CPU; '
+          f'write_vcd(shot={TRACE["vcd_shot"]}): {events[0]} events, '
+          f'{len(blobs[0])} bytes, identical from both devices, on '
+          f'{env["smi"]}')
+
+
 def phase_cuda_vs_cpu(mp):
     """Each path on the card against the same path on the CPU (the plain
     versions there), at sigma = 0 with explicit initial states."""
@@ -3583,6 +3875,11 @@ def main(argv: list) -> int:
     counts = timed(phase_render_path, env)
     k4['launches'] = counts['render_shot']
     k5['launches'] = counts['demod_iq']
+    torch.cuda.empty_cache()
+    timed(phase_qasm_path, mp, env)
+    torch.cuda.empty_cache()
+    timed(phase_grad, env)
+    timed(phase_trace, mp, env)
     torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)

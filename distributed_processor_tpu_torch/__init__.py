@@ -26,8 +26,16 @@ compile stack.  Layers, named as in the JAX package:
 * :mod:`.models.readout` — sampled measurement bits and IQ clouds;
   :mod:`.models.repetition`, :mod:`.models.qec` — the QEC workloads on
   the ``'lut'`` fabric
-* :mod:`.simulator` — the ``Simulator`` facade: compile, run, render
-  waveforms, demodulate
+* :mod:`.frontend` — the OpenQASM 3 front end (text -> dict program);
+  :mod:`.compilecache` — the content-addressed compile cache behind
+  :func:`~.pipeline.cached_compile_to_machine`; :mod:`.integrity` — the
+  content digests the cache's store checks
+* :mod:`.simulator` — the ``Simulator`` facade: compile (dict program or
+  OpenQASM 3 text), run, render waveforms, demodulate
+* :mod:`.sim.grad` — differentiable calibration losses on torch autograd
+* :mod:`.obs`, :mod:`.utils.profiling` — the metrics registry and its
+  counters, the profiler wrappers; :mod:`.utils.vcd` — a ``trace=True``
+  run as a VCD file
 * :mod:`.parallel` — per-batch statistics and the single-device sweep
 
 Entry points (``Simulator``, ``simulate``, ``simulate_batch``,
@@ -38,6 +46,7 @@ Entry points (``Simulator``, ``simulate``, ``simulate_batch``,
 __version__ = '0.1.0'
 
 from . import isa
+from . import compilecache
 from .hwconfig import FPGAConfig, load_channel_configs
 from .elements import TPUElementConfig
 from .qchip import QChip

@@ -49,3 +49,23 @@ def compile_to_machine(program, qchip, channel_configs=None,
     return decode_assembled_program(assembled, channel_configs, pad_to=pad_to,
                                     reg_maps=asm.register_maps)
 
+
+def cached_compile_to_machine(program, qchip, channel_configs=None,
+                              fpga_config: FPGAConfig = None,
+                              compiler_flags: CompilerFlags = None,
+                              n_qubits: int = 8, pad_to: int = None,
+                              element_cls=TPUElementConfig,
+                              cache=None) -> MachineProgram:
+    """:func:`compile_to_machine` through the content-addressed compile
+    cache (process-wide default, or an explicit :class:`CompileCache`).
+    Accepts OpenQASM 3 text as well as dict-instruction programs; a warm
+    hit for identical source + calibration costs a dict lookup.
+    """
+    from .compilecache import default_cache
+    if cache is None:
+        cache = default_cache()
+    mp, _status, _key = cache.get_or_compile(
+        program, qchip, channel_configs=channel_configs,
+        fpga_config=fpga_config, compiler_flags=compiler_flags,
+        n_qubits=n_qubits, pad_to=pad_to, element_cls=element_cls)
+    return mp

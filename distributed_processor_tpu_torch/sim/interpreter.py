@@ -54,8 +54,10 @@ the generic engine only, behind the discrete-event gate of
 :func:`_step`) — and the ``'sticky'``, ``'fresh'`` and ``'lut'`` fabrics
 (the last: the time-indexed syndrome LUT of hdl/fproc_lut.sv +
 meas_lut.sv, over a ``meas_time`` plane of production clocks).
-Everything else raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it.
+``trace=True`` records every step's pc, time and qclk origin per lane
+(``trace_pc``, ``trace_time``, ``trace_off`` ``[B, C, max_steps]``) on
+the generic engine, which the ladder forces for it, as in the JAX
+package; :func:`..utils.vcd.write_vcd` writes one shot as a VCD file.
 """
 
 from __future__ import annotations
@@ -129,13 +131,6 @@ class FaultError(RuntimeError):
         parts = [f'{name}={int(n)}'
                  for (name, _), n in zip(FAULT_CODES, self.counts) if n]
         super().__init__('faulted shots: ' + (', '.join(parts) or 'none'))
-
-
-def not_ported(what: str, item: int):
-    """The error for a feature a later slice of the port brings."""
-    return NotImplementedError(
-        f'{what} is not ported to the torch package yet '
-        f'(ROADMAP.md, queue 1, item {item})')
 
 
 def torch_device(device=None) -> torch.device:
@@ -643,12 +638,10 @@ def _check_fabric(cfg: InterpreterConfig, n_cores: int) -> None:
 
 
 def check_supported(mp, cfg: InterpreterConfig, device=None) -> str:
-    """Resolve the engine of a run on ``device`` and raise for what this
-    slice of the port leaves out; returns the engine."""
+    """Resolve the engine of a run on ``device`` and check its fabric;
+    returns the engine."""
     eng = resolve_engine(mp, cfg, device)
     _check_fabric(cfg, mp.n_cores)
-    if cfg.trace:
-        raise not_ported('trace=True', 12)
     return eng
 
 
@@ -734,6 +727,11 @@ def _init_state(batch: int, n_cores: int, cfg: InterpreterConfig,
                                      device=device)
     if cfg.record_pulses:
         st['rec'] = z(B, C, len(_REC_FIELDS), P)
+    if cfg.trace:
+        # the instruction trace: each step's pc, time and qclk origin
+        T = cfg.max_steps
+        st.update(trace_pc=z(B, C, T), trace_time=z(B, C, T),
+                  trace_off=z(B, C, T))
     if cfg.opcode_histogram:
         st['op_hist'] = z(B, C, isa.N_KINDS)
     if cfg.physics:
@@ -1678,6 +1676,15 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     if 'op_hist' in st:
         upd['op_hist'] = st['op_hist'] \
             + _slot_mask(kind, isa.N_KINDS).to(i32) * adv[..., None]
+    if cfg.trace:
+        # instruction-trace export, the simulator's VCD analog (the
+        # reference traces RTL waveforms via Verilator --trace): every
+        # lane's pc, time and qclk origin at the start of the step,
+        # written in place at column step_i (< max_steps, the planes'
+        # length)
+        for name, val in (('trace_pc', st['pc']), ('trace_time', time),
+                          ('trace_off', offset)):
+            st[name][:, :, step_i] = val
 
     return dict(st, pc=pc_next, regs=regs, time=time_next,
                 offset=offset_next, done=st['done'] | is_done, err=err,

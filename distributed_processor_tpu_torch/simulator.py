@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``simulator.py``:
 
-    dict program
+    dict program / OpenQASM 3
         -> Compiler (IR passes) -> GlobalAssembler -> decoder
         -> the torch ISA interpreter (shots batched on the device)
         -> element waveform synthesis / readout demod (ops/)
@@ -17,8 +17,7 @@ Example::
 The facade runs on CUDA unless given ``device=``.  There,
 :meth:`Simulator.waveforms` renders every element of a shot in one launch
 of the waveform kernel and :meth:`Simulator.demod_readout` demodulates
-with the demod kernel; on the CPU both take the kernels' plain versions.  OpenQASM
-source is not compiled by this package yet.
+with the demod kernel; on the CPU both take the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from .models.coupling import couplings_from_qchip
 from .models.default_qchip import make_default_qchip
 from .models.readout import make_generator, sample_meas_bits
 from .sim.interpreter import (ERR_PULSE_OVERFLOW, InterpreterConfig,
-                              not_ported, simulate, simulate_batch,
+                              simulate, simulate_batch,
                               torch_device)
 from .ops.waveform import (default_n_clks, render_shot, render_table,
                            shot_records, split_traces)
@@ -62,10 +61,10 @@ class Simulator:
     # -- compilation -----------------------------------------------------
 
     def compile(self, program) -> MachineProgram:
-        """Compile a dict program (a list of instruction dicts)."""
+        """Compile a dict program or OpenQASM 3 source string."""
         if isinstance(program, str):
-            raise not_ported('the OpenQASM 3 front end (compile a dict '
-                             'program instead)', 6)
+            from .frontend import qasm_to_program
+            program = qasm_to_program(program)
         return compile_to_machine(program, self.qchip,
                                   channel_configs=self.channel_configs,
                                   fpga_config=self.fpga_config)

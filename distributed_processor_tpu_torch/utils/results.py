@@ -15,6 +15,16 @@ import zipfile
 import zlib
 
 import numpy as np
+import torch
+
+
+def host_array(value) -> np.ndarray:
+    """``value`` as a host numpy array: a tensor on any device is copied
+    to the host first (``np.asarray`` refuses a CUDA tensor), anything
+    else goes through ``np.asarray``."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def save_results(path: str, results: dict, meta: dict = None) -> None:

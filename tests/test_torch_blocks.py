@@ -265,9 +265,20 @@ def test_unported_features_still_raise(looped):
     with pytest.raises(ValueError, match='sharded_cores_simulate'):
         torch_simulate_batch(mp_t, bits, device='cpu', engine='auto',
                              cores_axis='cores')
-    with pytest.raises(ValueError, match='trace'):
+    # trace mode: the block engine refuses it with the JAX package's
+    # error, and 'auto' takes the generic engine in both packages
+    with pytest.raises(ValueError, match='trace') as e_t:
         torch_simulate_batch(mp_t, bits, device='cpu', engine='block',
                              trace=True)
+    with pytest.raises(ValueError) as e_j:
+        jax_simulate_batch(looped, bits, engine='block', trace=True)
+    assert str(e_t.value) == str(e_j.value)
+    kw = dict(looped.static_bounds(), max_meas=6, max_resets=2, trace=True)
+    traced = assert_same_as_jax(looped, bits, engine='auto',
+                                jax_engine='auto', **kw)
+    assert int(traced['steps']) \
+        == int(torch_simulate_batch(mp_t, bits, device='cpu',
+                                    engine='generic', **kw)['steps'])
 
 
 def test_simulator_runs_a_loop_on_auto():

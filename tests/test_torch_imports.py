@@ -70,6 +70,20 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/parallel/mesh.py',
                  'distributed_processor_tpu_torch/parallel/multihost.py',
                  'distributed_processor_tpu_torch/utils/results.py',
+                 'distributed_processor_tpu_torch/frontend/qasm_parser.py',
+                 'distributed_processor_tpu_torch/frontend/visitor.py',
+                 'distributed_processor_tpu_torch/frontend/gate_map.py',
+                 'distributed_processor_tpu_torch/compilecache/cache.py',
+                 'distributed_processor_tpu_torch/compilecache/key.py',
+                 'distributed_processor_tpu_torch/compilecache/store.py',
+                 'distributed_processor_tpu_torch/integrity.py',
+                 'distributed_processor_tpu_torch/obs/metrics.py',
+                 'distributed_processor_tpu_torch/obs/trace.py',
+                 'distributed_processor_tpu_torch/obs/recorder.py',
+                 'distributed_processor_tpu_torch/obs/clock.py',
+                 'distributed_processor_tpu_torch/utils/profiling.py',
+                 'distributed_processor_tpu_torch/utils/vcd.py',
+                 'distributed_processor_tpu_torch/sim/grad.py',
                  'tests/test_torch_spmd_worker.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):

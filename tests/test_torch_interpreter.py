@@ -239,8 +239,10 @@ def test_engine_selection():
         for key in ref:
             if key != 'steps':
                 assert torch.equal(out[key], ref[key]), (kw, key)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        torch_simulate_batch(mp, meas, device='cpu', trace=True)
+    # trace mode runs on the generic engine, every key (the per-step
+    # traces included) equal to the JAX package's
+    traced = assert_same_as_jax(mp_j, meas, trace=True)
+    assert {'trace_pc', 'trace_time', 'trace_off'} <= set(traced)
     # a set cores_axis: the JAX package's ValueError, message and all
     with pytest.raises(ValueError, match='sharded_cores_simulate') as e_t:
         torch_simulate_batch(mp, meas, device='cpu', cores_axis='cores')

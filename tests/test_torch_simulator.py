@@ -292,11 +292,32 @@ def test_interpreter_config_sizes_budgets(sim2, jsim2):
             == dataclasses.asdict(jsim2.interpreter_config(jmp, **kw))
 
 
-def test_unported_entries_name_the_roadmap(sim2):
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 6'):
+def test_unported_entries_name_the_roadmap(sim2, jsim2):
+    """Once unported (the QASM front door), now held against the JAX
+    facade: OpenQASM text compiles to JAX's bytes and runs with every
+    integer output equal to JAX's run on the same bits."""
+    from distributed_processor_tpu.compilecache import \
+        machine_program_bytes as j_bytes
+    from distributed_processor_tpu_torch.compilecache import \
+        machine_program_bytes
+    # a source with no instruction: both compile stacks refuse it alike
+    with pytest.raises(ValueError) as e_t:
         sim2.compile('qubit[1] q;')
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 6'):
-        sim2.run('qubit[1] q; reset q[0];', shots=8, p1=0.5)
+    with pytest.raises(ValueError) as e_j:
+        jsim2.compile('qubit[1] q;')
+    assert str(e_t.value) == str(e_j.value)
+    src = 'qubit[1] q; reset q[0];'
+    assert machine_program_bytes(sim2.compile(src)) \
+        == j_bytes(jsim2.compile(src))
+    bits = np.random.default_rng(8).integers(0, 2, (8, 1, 2)) \
+        .astype(np.int32)           # the program's one core
+    _assert_ints_equal(sim2.run(src, shots=8, meas_bits=bits),
+                       jsim2.run(src, shots=8, meas_bits=bits))
+    # sampled bits (p1) are drawn by each package's own generator: the
+    # run is whole, with one measurement on core 0 per shot
+    out = sim2.run(src, shots=8, p1=0.5)
+    assert not bool(out['incomplete']) and not out['err'].any()
+    assert out['n_meas'][:, 0].tolist() == [1] * 8
     # the statevec device runs now (item 4), its coupling map derived
     # from the program and the gate library
     out = sim2.run(X90_READ, shots=2, physics=ReadoutPhysics(

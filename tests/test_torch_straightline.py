@@ -185,13 +185,14 @@ _LADDER_CFGS = [dict(engine=e, straightline=s)
     dict(engine='auto', physics=True, device='parity'),
     dict(engine=None, straightline=None, physics=True, device='parity'),
     dict(engine='auto', trace=True),
+    dict(engine=None, straightline=None, trace=True),
 ]
 
 
 def _engine_or_error(resolve, mp, cfg, *args):
     try:
         return resolve(mp, cfg, *args)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         return type(e)
 
 
@@ -264,6 +265,19 @@ def test_forced_engine_errors_match_jax():
                       device='parity')
     assert_same_error(span, bits_s, engine='fused')
     assert_same_error(span, bits_s, engine='nope')
+    # trace mode: the rungs that refuse it give JAX's message word for
+    # word, and the picks that take the generic engine for it run with
+    # every key, the per-step traces included, equal to JAX's
+    for eng in ('straightline', 'pallas'):
+        with pytest.raises(ValueError) as e_j:
+            jax_simulate_batch(span, bits_s, engine=eng, trace=True)
+        with pytest.raises(ValueError) as e_t:
+            torch_simulate_batch(_to_port(span), bits_s, device='cpu',
+                                 engine=eng, trace=True)
+        assert str(e_t.value) == str(e_j.value)
+    for eng in (None, 'auto'):
+        out = assert_same_as_jax(span, bits_s, engine=eng, trace=True)
+        assert 'trace_pc' in out
     # the engines a loop may take run it as JAX does: 'pallas' on a loop
     # is the block engine with K1 block's bodies (plain on the CPU), so
     # it is held against JAX 'block'; 'auto' against JAX 'auto'
