@@ -100,7 +100,17 @@ Phases, in order (any failure exits nonzero):
    CPU to rtol 1e-5, one ``grad_loss_batch`` of 4096 candidates per knob
    timed beside sequential calls) and trace mode (the headline with
    ``trace=True`` at 4096 shots on the generic engine, every key card =
-   CPU, one shot through ``write_vcd``);
+   CPU, one shot through ``write_vcd``); then the serving tier
+   (``ExecutionService`` on the card: 64 RB requests of 16384 shots from
+   4 submitter threads coalesced into batches of up to 16 programs, each
+   result equal to a direct ``simulate_batch``, beside the same requests
+   as sequential calls; headline requests on K1 span and the looped
+   headline on K1 block through ``singleton_engine``; a rounds chunk on
+   the span rung and a streaming session; the QASM headline through
+   ``submit_source``; a service warmed from the learned catalog; a chaos
+   soak; no service thread left) and the closed calibration loop
+   (``calibrate`` on the amplitude through a service on the card, equal
+   in steps to the same loop on the CPU);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths, ``simulate_rounds`` with the decode and
@@ -131,6 +141,7 @@ of JAX.  Without CUDA it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -2683,10 +2694,12 @@ def _busy_note(b: tuple) -> str:
             + (f', K1 device {1e3 * k1:.4f} ms' if k1 else ''))
 
 
+@functools.lru_cache(maxsize=None)
 def multi_ensemble(seed: int):
     """The headline ensemble: ``MULTI['n_seqs']`` distinct random RB
     sequences over 8 qubits at depth 12, each after active reset,
-    compiled by the port; returns ``(programs, stacked)``."""
+    compiled by the port; returns ``(programs, stacked)``, compiled once
+    per seed (the serve phase reuses the multi path's)."""
     from distributed_processor_tpu_torch import compile_to_machine
     from distributed_processor_tpu_torch.decoder import \
         stack_machine_programs
@@ -3381,6 +3394,466 @@ def phase_trace(mp, env) -> None:
           f'{env["smi"]}')
 
 
+# the serving tier at the headline's width: (a) coalesced RB traffic, four
+# ensembles of 16 distinct sequences (8 qubits, depth 12, after active
+# reset) from one submitter thread each, 16384 shots a request, batches of
+# up to 16 programs = 262144 lanes; (b) headline requests on K1 span at
+# 262144 shots; (c) the looped headline at 32768 lanes on K1 block; (d)
+# the repetition round's 32 x 8192 chunk and a session of 4 chunks of 8
+# rounds; (e) the QASM headline through the compile front door; (g) a
+# chaos soak of 64 requests; the calibration loop of tests/test_calib.py
+SERVE = dict(threads=4, shots=16384, max_batch=16, max_wait_ms=5.0,
+             k1_requests=4, loop_requests=2, stream_rounds=32,
+             stream_shots=8192, session_chunks=4, session_rounds=8,
+             qasm_shots=4096, qasm_submits=3, soak_requests=64,
+             soak_programs=8, soak_shots=1024, timeout=300.0)
+# the calibration loop on the card against the same loop on the CPU: the
+# amplitudes may differ by one DAC amplitude word (1 / 65535), where a
+# float32 gradient's last bits round a candidate to the next word
+CALIB_LOOP = dict(x90_amp=0.52, shots=4, atol_truth=5e-3,
+                  atol_cpu=1.6e-5)
+
+
+def _service(*args, **kw):
+    """An ``ExecutionService`` on the card (``devices=None``), or on
+    :data:`DEV` where a rehearsal sets another device."""
+    from distributed_processor_tpu_torch.serve import ExecutionService
+    return ExecutionService(*args, devices=None if DEV == 'cuda' else [DEV],
+                            **kw)
+
+
+def _part(label: str, t0: float) -> float:
+    """Print the seconds a part of the serve phase took; returns now."""
+    now = time.perf_counter()
+    print(f'[serve {label}: {now - t0:.1f} s]')
+    return now
+
+
+def _alloc_state() -> tuple:
+    """``(cudaMalloc retries, reserved GB)`` of the caching allocator: a
+    retry is a failed cudaMalloc that freed the cached blocks and tried
+    again (cached blocks belong to the stream they were made on)."""
+    import torch
+    if DEV != 'cuda':
+        return 0, 0.0
+    st = torch.cuda.memory_stats()
+    return st.get('num_alloc_retries', 0), \
+        torch.cuda.memory_reserved() / 1e9
+
+
+def _served_equal(got: dict, want: dict, what: str) -> None:
+    """A served result (host arrays) equal on every key to a direct call's
+    (tensors on any device)."""
+    import torch
+    _max_abs_diff({k: torch.as_tensor(v) for k, v in got.items()},
+                  {k: v.cpu() for k, v in want.items()}, what)
+
+
+def _serve_threads(svc, jobs) -> tuple:
+    """Submit ``jobs`` (one list of ``(mp, bits)`` per submitter thread)
+    and wait every handle out; returns ``(results in job order, wall s,
+    handle latencies in s)``."""
+    import threading
+    n = sum(len(j) for j in jobs)
+    results, lat, errors = [None] * n, [0.0] * n, []
+    offsets = [sum(len(j) for j in jobs[:t]) for t in range(len(jobs))]
+
+    def worker(t):
+        try:
+            hs = [(offsets[t] + j, time.perf_counter(), svc.submit(mp, b))
+                  for j, (mp, b) in enumerate(jobs[t])]
+            for i, t_sub, h in hs:
+                results[i] = h.result(timeout=SERVE['timeout'])
+                lat[i] = time.perf_counter() - t_sub
+        except Exception as exc:     # noqa: BLE001 - reported below
+            errors.append(exc)
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE['timeout'])
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f'serve: submitter threads failed: {errors}')
+    return results, wall, lat
+
+
+def phase_serve(env) -> dict:
+    """The in-process serving tier on the card (``ExecutionService`` with
+    ``devices=None``: one executor on the card with its own stream): (a)
+    coalesced RB traffic from 4 submitter threads, every result equal to
+    a direct ``simulate_batch(engine='generic')``, beside the same
+    requests as direct sequential calls; (b) headline requests on K1 span
+    (``singleton_engine='pallas'``), (c) the looped headline on K1 block
+    (``'pallas'`` on a looping program; ``'block'``, the plain block
+    engine, beside it), (d) a rounds chunk on the span rung and a
+    session of chunks, each equal to its direct call; (e) the QASM
+    headline through ``submit_source``; (f) a service warmed from (a)'s
+    learned catalog, its first dispatch labelled ``aot``; (g) a chaos
+    soak; (h) no service thread left.  Returns the launches of K1 span
+    and K1 block on the serve paths."""
+    import dataclasses
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch import isa
+    from distributed_processor_tpu_torch.compilecache import \
+        machine_program_bytes
+    from distributed_processor_tpu_torch.models import (make_default_qchip,
+                                                        qec)
+    from distributed_processor_tpu_torch.serve import (
+        BucketCatalog, ChaosMonkey, ChaosPlan, RetryPolicy, soak)
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        InterpreterConfig, simulate_batch, simulate_rounds)
+    smi, T = env['smi'], SERVE['timeout']
+    rng = np.random.default_rng(4401)
+    launches = {}
+
+    # (a) coalesced RB traffic
+    t_part = time.perf_counter()
+    mps = [mp for i in range(SERVE['threads'])
+           for mp in multi_ensemble(seed=2026 + i)[0]]
+    bucket = max(isa.shape_bucket(mp.n_instr) for mp in mps)
+    cfg = InterpreterConfig(max_steps=2 * bucket + 64, max_pulses=bucket + 2,
+                            max_meas=2, max_resets=2, record_pulses=False)
+    B, C = SERVE['shots'], mps[0].n_cores
+    bits = [rng.integers(0, 2, (B, C, 2), dtype=np.int32) for _ in mps]
+    per = len(mps) // SERVE['threads']
+    jobs = [[(mps[t * per + j], bits[t * per + j]) for j in range(per)]
+            for t in range(SERVE['threads'])]
+    tmp = tempfile.mkdtemp(prefix='serve-')
+    catalog = f'{tmp}/buckets.json'
+    with _service(cfg, max_batch_programs=SERVE['max_batch'],
+                  max_wait_ms=SERVE['max_wait_ms'],
+                  warmup_catalog=catalog) as svc:
+        _reset_launches()
+        results, wall, lat = _serve_threads(svc, jobs)
+        counts = _launches()
+        st = svc.stats()
+        busy = _busy(lambda: _serve_threads(svc, jobs))
+    check(_only_launched(counts), f'serve (a) launched hand kernels: '
+                                  f'{counts} (the multi path has none)')
+    check(st['completed'] == len(mps) and st['failed'] == 0,
+          f'serve (a): {st["completed"]} of {len(mps)} completed')
+    gcfg = dataclasses.replace(cfg, engine='generic')
+    sync()
+    t0 = time.perf_counter()
+    for i, (mp, b) in enumerate(zip(mps, bits)):
+        want = simulate_batch(mp, b, cfg=gcfg, device=DEV)
+        _served_equal(results[i], want, f'serve (a) request {i}')
+    sync()
+    seq_wall = time.perf_counter() - t0
+    shots = len(mps) * B
+    lat_ms = np.sort(np.asarray(lat) * 1e3)
+    print(f'serve (a): {len(mps)} requests x {B} shots from '
+          f'{SERVE["threads"]} threads in {wall:.3f} s: '
+          f'{len(mps) / wall:.1f} requests/s, {shots / wall:.1f} shots/s; '
+          f'handle latency p50 {np.percentile(lat_ms, 50):.1f} / p99 '
+          f'{np.percentile(lat_ms, 99):.1f} ms (service p50 '
+          f'{st["latency_p50_ms"]:.1f} / p99 {st["latency_p99_ms"]:.1f} '
+          f'ms); {st["dispatches"]} batches, '
+          f'{st["coalesce_efficiency"]:.2f} programs per batch '
+          f'(occupancy {st["batch_occupancy"]}); hand-kernel launches 0; '
+          f'a second run profiled: {_busy_note(busy)}; every result equal '
+          f'on every key to a direct simulate_batch(engine=\'generic\'); '
+          f'the same {len(mps)} requests as direct sequential calls '
+          f'{seq_wall:.3f} s ({shots / seq_wall:.1f} shots/s) on {smi}')
+    cold_ms = [v['cold_ms_mean'] for v in st['compile']['per_bucket']
+               .values() if v['cold_ms_mean'] is not None]
+    t_part = _part('(a)', t_part)
+
+    # (b) headline requests on K1 span
+    mp = headline_program()
+    hcfg = headline_config(mp)
+    Bh = HEADLINE['batch']
+    hbits = [rng.integers(0, 2, (Bh, mp.n_cores, 2), dtype=np.int32)
+             for _ in range(SERVE['k1_requests'])]
+    retries0, reserved0 = _alloc_state()
+    with _service(hcfg, singleton_engine='pallas',
+                  max_batch_programs=1, max_wait_ms=1.0) as svc:
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        hs = [svc.submit(mp, b) for b in hbits]
+        got, done_s = [], []
+        for h in hs:
+            got.append(h.result(timeout=T))
+            done_s.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        counts = _launches()
+        st = svc.stats()
+    retries1, reserved1 = _alloc_state()
+    check(counts['exec_span'] == SERVE['k1_requests']
+          and _only_launched(counts, 'exec_span'),
+          f'serve (b): K1 span launches {counts}')
+    check(st['engine_dispatches'] == {'pallas': SERVE['k1_requests']},
+          f'serve (b): engines {st["engine_dispatches"]}')
+    launches['exec_span'] = counts['exec_span']
+    pcfg = headline_config(mp, engine='pallas')
+    for i, (b, g) in enumerate(zip(hbits, got)):
+        _served_equal(g, simulate_batch(mp, b, cfg=pcfg, device=DEV),
+                      f'serve (b) request {i}')
+    del got
+    print(f"serve (b): {SERVE['k1_requests']} headline requests x {Bh} "
+          f"shots, singleton_engine='pallas', in {wall:.3f} s "
+          f'({SERVE["k1_requests"] * Bh / wall:.1f} shots/s, service p50 '
+          f'{st["latency_p50_ms"]:.1f} ms; done at '
+          + ', '.join(f'{x:.3f}' for x in done_s)
+          + f' s; allocator retries {retries1 - retries0}, reserved '
+          f'{reserved0:.1f} -> {reserved1:.1f} GB), K1 span launches '
+          f'{counts["exec_span"]}, each equal on every key to a direct '
+          f"simulate_batch(engine='pallas') on {smi}")
+    t_part = _part('(b)', t_part)
+
+    # (c) the looped headline on K1 block
+    lmp = loop_program()
+    lcfg = loop_config(lmp)
+    Bl = LOOP['batch']
+    lbits = [rng.integers(0, 2, (Bl, lmp.n_cores, LOOP['max_meas']),
+                          dtype=np.int32)
+             for _ in range(SERVE['loop_requests'])]
+    per_request = []
+    with _service(lcfg, singleton_engine='pallas',
+                  max_batch_programs=1, max_wait_ms=1.0) as svc:
+        for b in lbits:
+            _reset_launches()
+            g = svc.submit(lmp, b).result(timeout=T)
+            counts = _launches()
+            check(_only_launched(counts, 'exec_blocks'),
+                  f'serve (c): launches {counts}')
+            per_request.append(counts['exec_blocks'])
+            _reset_launches()
+            want = simulate_batch(lmp, b, cfg=dataclasses.replace(
+                lcfg, engine='pallas'), device=DEV)
+            direct = _launches()['exec_blocks']
+            check(per_request[-1] == direct and direct > 0,
+                  f'serve (c): K1 block {per_request[-1]} launches served, '
+                  f'{direct} direct')
+            _served_equal(g, want, 'serve (c) pallas')
+    with _service(lcfg, singleton_engine='block',
+                  max_batch_programs=1, max_wait_ms=1.0) as svc:
+        _reset_launches()
+        g = svc.submit(lmp, lbits[0]).result(timeout=T)
+        check(_only_launched(_launches()),
+              'serve (c): the plain block engine launched a hand kernel')
+    _served_equal(g, simulate_batch(lmp, lbits[0], cfg=dataclasses.replace(
+        lcfg, engine='block'), device=DEV), 'serve (c) block')
+    launches['exec_blocks'] = per_request[0]
+    print(f"serve (c): the looped headline x {Bl} lanes, "
+          f"singleton_engine='pallas': K1 block launches per request "
+          f'{per_request}, each equal on every key to the direct call; '
+          f"singleton_engine='block' (the plain block engine) equal, no "
+          f'hand kernel, on {smi}')
+    t_part = _part('(c)', t_part)
+
+    # (d) streams on the span rung
+    label, rmp, rcfg = lut_workloads()[0]
+    rcfg = dataclasses.replace(rcfg, engine='pallas', record_pulses=False)
+    spec = qec.repetition_decode_spec(LUT['n_data'])
+    R, Bs = SERVE['stream_rounds'], SERVE['stream_shots']
+    rbits = rng.integers(0, 2, (R, Bs, rmp.n_cores, rcfg.max_meas),
+                         dtype=np.int32)
+    chunks = [rng.integers(0, 2, (SERVE['session_rounds'], Bs, rmp.n_cores,
+                                  rcfg.max_meas), dtype=np.int32)
+              for _ in range(SERVE['session_chunks'])]
+    with _service(max_wait_ms=1.0) as svc:
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        g = svc.submit_rounds(rmp, rbits, cfg=rcfg,
+                              decode=spec).result(timeout=T)
+        chunk_s = time.perf_counter() - t0
+        counts = _launches()
+        check(counts['exec_span'] == 1 and _only_launched(counts,
+                                                          'exec_span'),
+              f'serve (d) chunk: launches {counts}')
+        _served_equal(g, simulate_rounds(rmp, rbits, cfg=rcfg, decode=spec,
+                                         device=DEV), 'serve (d) chunk')
+        _reset_launches()
+        t0 = time.perf_counter()
+        with svc.open_stream(rmp, cfg=rcfg, decode=spec) as sess:
+            for mb in chunks:
+                sess.submit_rounds(mb)
+            frames = list(sess.results(timeout=T))
+        session_s = time.perf_counter() - t0
+        n_sess = _launches()['exec_span']
+        st = svc.stats()['streaming']
+    check(n_sess == len(chunks), f'serve (d) session: K1 span {n_sess}')
+    for i, (mb, f) in enumerate(zip(chunks, frames)):
+        _served_equal(f, simulate_rounds(rmp, mb, cfg=rcfg, decode=spec,
+                                         device=DEV), f'serve (d) chunk {i}')
+    check(st['rounds_served'] == R + len(chunks) * SERVE['session_rounds'],
+          f'serve (d): streaming stats {st}')
+    print(f'serve (d): {label}, submit_rounds of {R} x {Bs} with the '
+          f'majority decode in {chunk_s:.4f} s, K1 span launches 1; a '
+          f'session of {len(chunks)} chunks x {SERVE["session_rounds"]} '
+          f'rounds in {session_s:.4f} s, K1 span launches {n_sess}; every '
+          f'chunk equal on every key to its direct simulate_rounds on {smi}')
+    t_part = _part('(d)', t_part)
+
+    # (e) the compile front door
+    n = HEADLINE['n_qubits']
+    src = qasm_headline_source(n, HEADLINE['depth'], 1234)
+    qchip = make_default_qchip(n)
+    Bq = SERVE['qasm_shots']
+    qbits = rng.integers(0, 2, (Bq, mp.n_cores, 2), dtype=np.int32)
+    host_ms, statuses = [], []
+    with _service(hcfg, max_batch_programs=1,
+                  max_wait_ms=1.0) as svc:
+        cache = svc.compile_cache
+        for _ in range(SERVE['qasm_submits']):
+            before = cache.stats()
+            t0 = time.perf_counter()
+            g = svc.submit_source(src, qchip, meas_bits=qbits,
+                                  n_qubits=n).result(timeout=T)
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            after = cache.stats()
+            statuses.append('miss' if after['misses'] > before['misses']
+                            else 'hit' if after['hits'] > before['hits']
+                            else '?')
+        mp_q, status, _key = cache.get_or_compile(src, qchip, n_qubits=n)
+    check(statuses == ['miss'] + ['hit'] * (SERVE['qasm_submits'] - 1)
+          and status == 'hit', f'serve (e): cache statuses {statuses}')
+    check(machine_program_bytes(mp_q) == machine_program_bytes(mp),
+          "serve (e): the QASM headline's bytes differ from the dict "
+          "headline's")
+    _served_equal(g, simulate_batch(mp, qbits, cfg=dataclasses.replace(
+        hcfg, straightline=False), device=DEV), 'serve (e)')
+    print(f'serve (e): submit_source of the QASM headline ({len(src)} '
+          f'characters) x {Bq} shots: cache {statuses}, host ms per '
+          f'request ' + ' / '.join(f'{x:.1f}' for x in host_ms)
+          + f"; compiled bytes equal to the dict headline's; result equal "
+          f'to a direct simulate_batch on {smi}')
+    t_part = _part('(e)', t_part)
+
+    # (f) warm-up from (a)'s learned catalog
+    specs = BucketCatalog(catalog).load()
+    check(len(specs) >= 1, 'serve (f): (a) recorded no bucket spec')
+    # one batch at the catalog's largest occupancy, ripened by count
+    P = max(s.n_programs for s in specs)
+    first = [job for t_jobs in jobs for job in t_jobs][:P]
+    # the requests of (a), whose results equal their direct calls
+    with _service(cfg, max_batch_programs=P, max_wait_ms=60_000.0,
+                  trace_sample=1.0) as svc:
+        t0 = time.perf_counter()
+        report = svc.warmup(specs)
+        warm_s = time.perf_counter() - t0
+        hs = [svc.submit(m, b) for m, b in first]
+        got = [h.result(timeout=T) for h in hs]
+        klass = [s['args']['classification'] for s in hs[0].trace()
+                 if s['name'] == 'dispatch']
+        st = svc.stats()
+    check(klass[:1] == ['aot'], f'serve (f): first dispatch labelled '
+                                f'{klass}, not aot')
+    check(st['compile']['cold'] == len(specs) and st['dispatches'] >= 1,
+          f'serve (f): compile stats {st["compile"]}')
+    for i, g in enumerate(got):
+        _served_equal(g, {k: torch.as_tensor(v) for k, v in
+                          results[i].items()}, 'serve (f) vs (a)')
+    del results
+    warm_ms = [v['warm_ms_mean'] for v in st['compile']['per_bucket']
+               .values() if v['warm_ms_mean'] is not None]
+    print(f'serve (f): warmup() of {len(specs)} catalog specs ('
+          + ', '.join(s.label() for s in specs) + f') in {warm_s:.3f} s '
+          f'(' + ', '.join(f'{r["compile_ms"]:.1f}' for r in report)
+          + f' ms each); the first dispatch labelled aot; first-dispatch '
+          f'wall warm {", ".join(f"{x:.1f}" for x in warm_ms)} ms against '
+          f'cold {", ".join(f"{x:.1f}" for x in cold_ms)} ms in (a) on '
+          f'{smi}')
+    t_part = _part('(f)', t_part)
+
+    # (g) chaos soak
+    plan = ChaosPlan(seed=11, script=('crash',) * 3, p_crash=0.1,
+                     p_slow=0.05, slow_s=0.005)
+    soak_mps = mps[:SERVE['soak_programs']]
+    with _service(cfg, max_batch_programs=SERVE['max_batch'],
+                  max_wait_ms=SERVE['max_wait_ms'],
+                  retry_policy=RetryPolicy(max_attempts=6,
+                                           backoff_s=0.005),
+                  breaker_threshold=2, breaker_cooldown_ms=60.0,
+                  supervise_interval_ms=10.0) as svc:
+        with ChaosMonkey(svc, plan) as monkey:
+            t0 = time.perf_counter()
+            rep = soak(svc, soak_mps, cfg,
+                       n_requests=SERVE['soak_requests'],
+                       shots=SERVE['soak_shots'], seed=12,
+                       result_timeout_s=T, device=DEV)
+            soak_s = time.perf_counter() - t0
+        st = svc.stats()
+    typed = {'ChaosError', 'ExecutorLostError', 'OverloadError',
+             'QueueFullError'}
+    check(rep.hung == 0 and rep.bit_mismatches == 0
+          and rep.terminated() == rep.submitted
+          and set(rep.errors) <= typed and monkey.script_exhausted(),
+          f'serve (g): soak {rep}')
+    check(st['retries'] >= rep.retries >= 1,
+          f'serve (g): retries {st["retries"]} / {rep.retries}')
+    print(f'serve (g): chaos soak of {rep.submitted} requests x '
+          f'{SERVE["soak_shots"]} shots in {soak_s:.3f} s, injected '
+          f'{dict(monkey.injected)}: {rep.completed} completed equal to '
+          f'their solo runs, typed failures {dict(rep.errors)}, retries '
+          f'{st["retries"]}, breaker trips {st["breaker_trips"]}, '
+          f'readmissions {st["readmissions"]} on {smi}')
+    _part('(g)', t_part)
+
+    # (h) no service thread outlives its service
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith('dproc-serve') and t.is_alive()]
+    check(not left, f'serve (h): threads left after shutdown: {left}')
+    print('serve (h): after shutdown(drain=True) no dproc-serve thread is '
+          'left')
+    return launches
+
+
+def phase_calib(env) -> None:
+    """The closed calibration loop on the card: ``calibrate`` for the
+    amplitude (the truth at x90 = 0.52, the qchip at 0.48) through a
+    service on the card, converged within 5e-3 of the truth and written
+    back to the live qchip; the same loop through a CPU service takes the
+    same steps and reaches the amplitude within one DAC word."""
+    from distributed_processor_tpu_torch.calib import calibrate
+    from distributed_processor_tpu_torch.models import make_default_qchip
+    from distributed_processor_tpu_torch.serve import ExecutionService
+    from distributed_processor_tpu_torch.sim.grad import LossSpec
+    spec = LossSpec(knob='amplitude', x90_amp=CALIB_LOOP['x90_amp'])
+    runs = {}
+    for dev in (DEV, 'cpu'):
+        qchip = make_default_qchip(2)
+        with (_service() if dev == DEV
+              else ExecutionService(devices=['cpu'])) as svc:
+            t0 = time.perf_counter()
+            res = calibrate(svc, qchip, knob='amplitude', qubit='Q0',
+                            spec=spec, shots=CALIB_LOOP['shots'],
+                            n_qubits=2, result_timeout=SERVE['timeout'],
+                            device=dev)
+            runs[dev] = (res, qchip, time.perf_counter() - t0,
+                         svc.stats()['calibration'])
+    res, qchip, wall, cal = runs[DEV]
+    amp = res.params['amp']
+    check(res.converged and abs(amp - CALIB_LOOP['x90_amp'])
+          <= CALIB_LOOP['atol_truth'], f'calib: {res.to_dict()}')
+    check(qchip.gates['Q0X90'].contents[0].amp == amp
+          and res.fp_before != res.fp_after == qchip.fingerprint(),
+          'calib: the converged amplitude was not written back')
+    check(cal['converged'] == 1 and cal['steps'] == res.steps,
+          f'calib: session counters {cal}')
+    cpu = runs['cpu'][0]
+    check(cpu.steps == res.steps and abs(cpu.params['amp'] - amp)
+          <= CALIB_LOOP['atol_cpu'],
+          f'calib: card {res.steps} steps amp {amp}, CPU {cpu.steps} steps '
+          f'amp {cpu.params["amp"]}')
+    print(f'calib: calibrate(amplitude) through a service on the card: '
+          f'converged in {res.steps} steps to amp {amp:.6f} (truth '
+          f'{CALIB_LOOP["x90_amp"]}), written back (qchip fingerprint '
+          f'moved, {res.flushed} stale cache entries flushed) in '
+          f'{wall:.3f} s; the CPU loop {cpu.steps} steps to '
+          f'{cpu.params["amp"]:.6f} in {runs["cpu"][2]:.3f} s on '
+          f'{env["smi"]}')
+
+
 def phase_cuda_vs_cpu(mp):
     """Each path on the card against the same path on the CPU (the plain
     versions there), at sigma = 0 with explicit initial states."""
@@ -3881,6 +4354,10 @@ def main(argv: list) -> int:
     timed(phase_grad, env)
     timed(phase_trace, mp, env)
     torch.cuda.empty_cache()
+    serve = timed(phase_serve, env)
+    torch.cuda.empty_cache()
+    timed(phase_calib, env)
+    torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)
     torch.cuda.empty_cache()
@@ -3903,6 +4380,9 @@ def main(argv: list) -> int:
           f'{_device_note(lut_phys["dev_ms"])}, plain '
           f'{lut_phys["plain_ms"]:.3f}, bound {lut_phys["bound_ms"]:.4f}, '
           f'launches {lut_phys["launches"]} on {env["smi"]}')
+    print(f"serve paths (launches): K1 span {serve['exec_span']} for "
+          f"{SERVE['k1_requests']} singleton requests, K1 block "
+          f"{serve['exec_blocks']} per looped request")
     print('rounds paths (launches in one simulate_rounds call): '
           + '; '.join(f'{label}: {n}' for label, n in rounds.items())
           + ' (K1 span on the loop-free rounds, K1 block on the looped '

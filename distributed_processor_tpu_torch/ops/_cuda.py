@@ -5,17 +5,22 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``distributed_processor_tpu_torch/_build/`` (git-ignored), named by
 a hash of the source, and loaded with ``ctypes``; a changed source
 builds anew.  Nothing is built when a module is imported.
+
+The serving tier dispatches from several threads: :func:`load` builds
+and loads each source once under a lock, and :func:`count_launch` adds
+to a wrapper's ``launches`` under a lock, so concurrent first use runs
+``nvcc`` once and no launch goes uncounted.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -73,7 +78,23 @@ def build(name: str, verbose: bool = False) -> str:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+_LIBS: dict = {}
+_COUNT_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    return ctypes.CDLL(build(name))
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    Thread-safe: threads that find it unbuilt wait for one build."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a read-modify-write that
+    dispatcher threads would otherwise race)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -116,7 +116,7 @@ def demod_iq(adc, weights) -> torch.Tensor:
                       S, N, J, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'demod kernel launch failed: cudaError {rc}')
-    demod_iq.launches += 1
+    _cuda.count_launch(demod_iq)
     return out.reshape(S, -1, 2)
 
 

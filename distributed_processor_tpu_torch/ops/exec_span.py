@@ -138,7 +138,7 @@ def exec_span(st: dict, table, meas_bits, cfg) -> dict:
         raise ValueError('exec_span runs injected-bits programs; a physics '
                          'run takes exec_span_fused')
     out = _launch(st, table, cfg, bits_in=meas_bits)
-    exec_span.launches += 1
+    _cuda.count_launch(exec_span)
     return out
 
 
@@ -173,7 +173,7 @@ def exec_span_fused(st: dict, table, bits, valid, cfg, fused: dict):
             raise ValueError('exec_span_fused runs physics mode on the '
                              'parity device without CW windows')
         out = _launch(carry, table, cfg, fused=fused)
-        exec_span_fused.launches += 1
+        _cuda.count_launch(exec_span_fused)
     return out, out.pop('meas_bits'), out.pop('meas_valid')
 
 
@@ -328,7 +328,7 @@ def exec_blocks(st: dict, table: BlockTable, cfg) -> dict:
         from ..sim.interpreter import _apply_blocks
         return _apply_blocks(st, table, cfg)
     _launch_blocks(st, table, cfg)
-    exec_blocks.launches += 1
+    _cuda.count_launch(exec_blocks)
     return st
 
 
@@ -552,6 +552,13 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
         amp_scale, int(fused is not None), tile, stream)
     if rc != 0:
         raise RuntimeError(f'exec_span kernel launch failed: cudaError {rc}')
+    # the cached table may have been made on another stream (the serving
+    # tier gives each executor its own): keep its memory from being
+    # reused before this stream's launch has read it
+    cur = torch.cuda.current_stream(device)
+    for t in (table.prog, table.spc, table.interp, table.lut):
+        if t is not None:
+            t.record_stream(cur)
     return out
 
 

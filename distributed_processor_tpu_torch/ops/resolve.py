@@ -389,7 +389,7 @@ def resolve_windows_fused(sc: dict, tables: dict, gs_i, gs_q,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'resolve kernel launch failed: cudaError {rc}')
-    resolve_windows_fused.launches += 1
+    _cuda.count_launch(resolve_windows_fused)
     return tuple(outs)
 
 

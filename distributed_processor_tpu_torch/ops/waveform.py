@@ -555,7 +555,7 @@ def render_shot(rec: dict, table: RenderTable, n_clks: int) -> torch.Tensor:
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'waveform kernel launch failed: cudaError {rc}')
-    render_shot.launches += 1
+    _cuda.count_launch(render_shot)
     return out
 
 

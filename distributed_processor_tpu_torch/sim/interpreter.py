@@ -62,7 +62,11 @@ package; :func:`..utils.vcd.write_vcd` writes one shot as a VCD file.
 
 from __future__ import annotations
 
+import collections
 import functools
+import os
+import threading
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -74,6 +78,7 @@ from ..ops.decode import as_decode_spec, decode_history
 from ..ops.exec_span import (block_table, exec_blocks, exec_span,
                              lut_min_read, span_table)
 from ..ops.waveform import PHASE_BITS
+from ..utils.profiling import counter_get, counter_inc
 from .device import DEVICE_KINDS, STATEVEC_MAX_CORES
 
 # timing constants of the scalar golden model (the JAX package's
@@ -131,6 +136,36 @@ class FaultError(RuntimeError):
         parts = [f'{name}={int(n)}'
                  for (name, _), n in zip(FAULT_CODES, self.counts) if n]
         super().__init__('faulted shots: ' + (', '.join(parts) or 'none'))
+
+
+def is_infrastructure_error(exc: BaseException) -> bool:
+    """Classify an execution failure: ``True`` means the execution
+    SUBSTRATE failed (a CUDA runtime fault, device loss, resource
+    exhaustion, a chaos-injected crash) and the same program would
+    plausibly succeed on a healthy executor — the serving tier's
+    :class:`~..serve.supervise.RetryPolicy` may retry it.  ``False``
+    means the failure is a property of the PROGRAM or the request
+    itself (:class:`FaultError`, static-validation errors, bad
+    arguments) and would reproduce identically anywhere: these always
+    propagate to the caller on the first attempt.
+
+    :class:`~..integrity.IntegrityError` (detected silent data
+    corruption) is a plain RuntimeError and therefore
+    infrastructure-class by design: a re-execution on another engine or
+    device re-derives the correct bits, which is what the retry
+    machinery does.  The port raises the JAX package's exception types
+    at the same validation points, so a request the JAX service would
+    not retry is not retried here either.
+    """
+    if isinstance(exc, (FaultError, ValueError, TypeError, KeyError,
+                        IndexError, AssertionError,
+                        NotImplementedError)):
+        return False
+    # decoder.ProgramValidationError by name: any *ValidationError is
+    # program-class
+    if type(exc).__name__.endswith('ValidationError'):
+        return False
+    return True
 
 
 def torch_device(device=None) -> torch.device:
@@ -666,11 +701,15 @@ def program_traits(mp) -> tuple:
             bool(np.any(np.asarray(soa.p_regsel))))
 
 
+def _max_elems(mp) -> int:
+    """Element axis of the per-core geometry tables."""
+    return max((len(t.elem_cfgs) for t in mp.tables), default=0) or 1
+
+
 def _element_geometry(mp) -> tuple:
     """Per-element samples-per-clock and interpolation ``[C, E]`` int32
     numpy arrays of the decoded program."""
-    n_cores = mp.n_cores
-    max_elems = max((len(t.elem_cfgs) for t in mp.tables), default=0) or 1
+    n_cores, max_elems = mp.n_cores, _max_elems(mp)
     spc = np.ones((n_cores, max_elems), dtype=np.int32)
     interp = np.zeros((n_cores, max_elems), dtype=np.int32)
     for c, t in enumerate(mp.tables):
@@ -1264,6 +1303,34 @@ def _lut_serve(pv: dict, meas_bits, meas_valid, req,
     return causal & valid, data, torch.maximum(req, t_lut), causal & ~valid
 
 
+def _producer_planes(bits, valid, n_cores: int):
+    """The injected ``bits`` and ``valid`` planes ``[B, CM, M]`` over the
+    program's ``n_cores`` producer rows, read as the JAX package's
+    one-hot producer select reads them (``sum(plane[:, None] * onehot,
+    axis=2)``) when ``meas_bits`` carries another core axis than the
+    program: one row broadcasts to every producer; a one-core program
+    reads the SUM of every row, which its sticky and fresh reads take as
+    valid only where exactly one row is (``== 1``), so with several rows
+    every read behind a measurement stalls into ``ERR_FPROC_DEADLOCK``;
+    any other pair of axes does not broadcast and raises ``TypeError``,
+    as JAX's multiply does.  Returns ``(bits, valid, lut_valid)``, the
+    last for the ``'lut'`` read, which tests each row's validity
+    before it reduces."""
+    CM = bits.shape[1]
+    if CM == n_cores:
+        return bits, valid, valid
+    B, _, M = bits.shape
+    if CM == 1:
+        bits, valid = bits.expand(B, n_cores, M), valid.expand(B, n_cores, M)
+        return bits, valid, valid
+    if n_cores != 1:
+        raise TypeError(
+            f'meas_bits has {CM} cores, which does not broadcast against '
+            f'the program\'s {n_cores}')
+    return (bits.sum(1, keepdim=True, dtype=torch.int32),
+            valid.sum(1, keepdim=True) == 1, valid.all(1, keepdim=True))
+
+
 def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
           cfg: InterpreterConfig, traits, dm=None, step_i: int = 0,
           prog=None, cores=None) -> dict:
@@ -1382,6 +1449,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         prod_m = prod.unsqueeze(-1).expand(B, C, M)
         sel_m = lambda arr: arr.gather(1, prod_m)           # [B,C,M]
         mavail_p = sel_m(pv['meas_avail'])
+        P_bits, P_valid, L_valid = _producer_planes(P_bits, P_valid, CF)
         bits_p = sel_m(P_bits)
         valid_p = sel_m(P_valid)
         if cfg.fabric == 'sticky':
@@ -1423,7 +1491,7 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         if cfg.fabric == 'lut':
             fid_bad = zeros_b
             l_ready, l_data, l_tready, l_phys = _lut_serve(
-                pv, P_bits, P_valid, req, cfg, core0)
+                pv, P_bits, L_valid, req, cfg, core0)
             is_own = fid == 0
             f_ready = torch.where(is_own, f_ready, l_ready)
             f_data = torch.where(is_own, f_data, l_data)
@@ -2330,6 +2398,13 @@ def _run_injected(mp, eng: str, meas_bits, init_regs,
         soa, spc, interp = soa[own], spc[own], interp[own]
         C = soa.shape[0]
     L = meas_bits.shape[0]
+    if eng in ('straightline', 'pallas') and meas_bits.shape[1] != C:
+        # the JAX package's straight-line and Pallas executors reshape
+        # the bits to the program's core axis: they raise, or return a
+        # state with no one core axis to match
+        raise TypeError(
+            f'meas_bits has {meas_bits.shape[1]} cores; the {eng} engine '
+            f'runs the program\'s {C}')
     prog = None
     if soa.ndim == 4:
         # an ensemble: lane l runs program l // B, fetched from the shared
@@ -2495,9 +2570,175 @@ def simulate_multi_batch(mps, meas_bits, init_regs=None,
             init_regs = init_regs[:, None].expand(P, B, C, isa.N_REGS)
         if init_regs.ndim == 4:          # [P, B, C, R]
             init_regs = init_regs.reshape(P * B, C, isa.N_REGS)
+    if _aot_lookup(P, B, C, mmp.n_instr, _max_elems(mmp), cfg.max_meas,
+                   cfg, program_traits(mmp), device):
+        counter_inc('aot_hit')
     out = _run_injected(mmp, eng, meas_bits.reshape(P * B, C, -1),
                         init_regs, cfg, device, groups=P)
     return _check_strict(out, strict)
+
+
+# ---------------------------------------------------------------------------
+# Warm-up of the serving tier's multi-program dispatch: the JAX package's
+# AOT executables.  Eager torch has no executable to compile ahead; what a
+# first dispatch pays on the card is the caching allocator's growth to the
+# batch's working set and the first launches of the step's kernels.
+# aot_compile_batch pays it before traffic by running the bound spec's
+# shape once through the generic multi engine, on zero bits on the
+# device, and keeps JAX's bounded LRU of warmed shapes (same bound, same
+# 'aot_compile' / 'aot_hit' / 'aot_evictions' counters), so the serving
+# tier labels a dispatch cold, warm or aot as JAX labels it.
+
+_AOT_LOCK = threading.Lock()
+# _aot_cache_key(...) -> warm-up seconds, least-recently-used first
+_AOT_CACHE: collections.OrderedDict = collections.OrderedDict()
+_AOT_CACHE_CAP = int(os.environ.get('DPROC_AOT_CACHE_CAP', '256'))
+
+
+def set_aot_cache_cap(cap: int) -> int:
+    """Set the warm-shape cache bound (``DPROC_AOT_CACHE_CAP`` gives the
+    process default); returns the previous cap.  Lowering the cap evicts
+    immediately, oldest-used first."""
+    global _AOT_CACHE_CAP
+    if cap < 1:
+        raise ValueError('aot cache cap must be >= 1')
+    with _AOT_LOCK:
+        old, _AOT_CACHE_CAP = _AOT_CACHE_CAP, cap
+        _evict_aot_locked()
+    return old
+
+
+def _evict_aot_locked() -> None:
+    while len(_AOT_CACHE) > _AOT_CACHE_CAP:
+        _AOT_CACHE.popitem(last=False)
+        counter_inc('aot_evictions')
+
+
+def _aot_cache_key(P, B, C, N, E, max_meas, cfg, traits, device):
+    dev = None
+    if device is not None:
+        device = torch.device(device)
+        index = device.index
+        if index is None and device.type == 'cuda':
+            index = torch.cuda.current_device()
+        dev = (device.type, index)
+    return (int(P), int(B), int(C), int(N), int(E), int(max_meas),
+            cfg, traits, dev)
+
+
+def _aot_cfg(spec):
+    """The dispatch cfg of a bound spec, normalized as
+    :func:`simulate_multi_batch` normalizes it, or None when the spec is
+    unbound or names a content-keyed engine."""
+    if spec.n_programs is None or spec.n_shots is None:
+        return None
+    cfg = spec.cfg
+    if cfg.straightline or cfg.engine in ('straightline', 'block',
+                                          'pallas', 'fused'):
+        return None
+    cfg = replace(cfg, straightline=False, engine=None)
+    return _fault_policy(cfg)[0]
+
+
+def _aot_lookup(P, B, C, N, E, max_meas, cfg, traits, device) -> bool:
+    with _AOT_LOCK:
+        key = _aot_cache_key(P, B, C, N, E, max_meas, cfg, traits, device)
+        if key not in _AOT_CACHE:
+            return False
+        _AOT_CACHE.move_to_end(key)
+        return True
+
+
+def aot_compile_batch(spec, device=None) -> float:
+    """Warm the multi-program dispatch a bound
+    :class:`~..serve.bucketspec.BucketSpec` describes on ``device``
+    (default CUDA): one run of the spec's shape — ``n_programs`` programs
+    of DONE over its cores, instruction bucket and element geometry, at
+    ``n_shots`` shots of zero bits — through the generic multi engine,
+    ended by a device sync.
+
+    ``spec`` is duck-typed (``n_programs``/``n_shots``/``n_cores``/
+    ``n_instr_bucket``/``geometry``/``max_elems``/``cfg``/``traits``/
+    ``has_init_regs``).  Returns the wall seconds of the run, or 0.0
+    when the shape was already warm on the device (idempotent: safe to
+    replay a catalog on every start)."""
+    if spec.n_programs is None or spec.n_shots is None:
+        raise ValueError('aot_compile_batch needs a BOUND spec '
+                         '(n_programs/n_shots set — BucketSpec.bind)')
+    cfg = _aot_cfg(spec)
+    if cfg is None:
+        raise ValueError('AOT precompilation covers the generic '
+                         'multi-program engine only (content-keyed '
+                         'engines have no shape-only executable)')
+    device = torch_device(device)
+    P, B, C = spec.n_programs, spec.n_shots, spec.n_cores
+    key = _aot_cache_key(P, B, C, spec.n_instr_bucket, spec.max_elems,
+                         cfg.max_meas, cfg, spec.traits, device)
+    with _AOT_LOCK:
+        if key in _AOT_CACHE:
+            _AOT_CACHE.move_to_end(key)
+            return 0.0
+    from ..decoder import machine_program_from_cmds
+    from ..elements import TPUElementConfig
+    mp = machine_program_from_cmds([[isa.done_cmd()]] * C)
+    for table, geom in zip(mp.tables, spec.geometry):
+        table.elem_cfgs = [TPUElementConfig(samples_per_clk=spc,
+                                            interp_ratio=interp)
+                           for spc, interp in geom]
+    mmp = stack_machine_programs([mp] * P, pad_to=spec.n_instr_bucket)
+    bits = torch.zeros((P, B, C, cfg.max_meas), dtype=torch.int32,
+                       device=device)
+    regs = torch.zeros((P, B, C, isa.N_REGS), dtype=torch.int32,
+                       device=device) if spec.has_init_regs else None
+    t0 = time.perf_counter()
+    simulate_multi_batch(mmp, bits, regs, cfg=cfg, device=device)
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    with _AOT_LOCK:
+        _AOT_CACHE.setdefault(key, dt)
+        _AOT_CACHE.move_to_end(key)
+        _evict_aot_locked()
+    counter_inc('aot_compile')
+    return dt
+
+
+def aot_batch_cached(spec, device=None) -> bool:
+    """Would a multi-batch dispatch of this bound spec on ``device`` find
+    its shape warmed by :func:`aot_compile_batch`?  A pure lookup: warms
+    nothing, and returns False for an unbound or content-keyed spec (the
+    serving tier labels dispatch spans cold / warm / aot with it)."""
+    cfg = _aot_cfg(spec)
+    if cfg is None:
+        return False
+    return _aot_lookup(spec.n_programs, spec.n_shots, spec.n_cores,
+                       spec.n_instr_bucket, spec.max_elems, cfg.max_meas,
+                       cfg, spec.traits, device)
+
+
+def aot_cache_size() -> int:
+    with _AOT_LOCK:
+        return len(_AOT_CACHE)
+
+
+def clear_aot_cache() -> int:
+    """Drop every warmed shape; returns the number dropped."""
+    with _AOT_LOCK:
+        n = len(_AOT_CACHE)
+        _AOT_CACHE.clear()
+    return n
+
+
+def aot_compile_count() -> int:
+    """How many shapes this process has warmed (named counter
+    ``'aot_compile'``); ``'aot_hit'`` counts dispatches that found one."""
+    return counter_get('aot_compile')
+
+
+def aot_eviction_count() -> int:
+    """How many warmed shapes the LRU bound has evicted (named counter
+    ``'aot_evictions'``)."""
+    return counter_get('aot_evictions')
 
 
 # per-program scalars of the simulate_multi_batch result: every other

@@ -1784,3 +1784,43 @@ def test_mesh_physics_and_demod_match_cpu(card, program):
     torch.testing.assert_close(acc.cpu(), demod_iq_reference(adc.cpu(), w),
                                rtol=2e-5, atol=2e-4)
 
+
+
+def test_service_on_card_matches_direct_calls(card, program):
+    """The execution service on the card (``devices=None``: one executor
+    on CUDA with its own stream): coalesced requests, a K1 span singleton
+    and a stream chunk, each equal on every key to the direct call on
+    the card; the kernels' launches counted exactly."""
+    from distributed_processor_tpu_torch.ops.exec_span import exec_span
+    from distributed_processor_tpu_torch.serve import ExecutionService
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_rounds
+    rng = np.random.default_rng(61)
+    cfg = InterpreterConfig(max_meas=4, max_resets=4)
+    bits = [rng.integers(0, 2, (64 + 16 * i, program.n_cores, 4))
+            .astype(np.int32) for i in range(4)]
+    with ExecutionService(cfg, max_batch_programs=4,
+                          max_wait_ms=20.0) as svc:
+        hs = [svc.submit(program, b) for b in bits]
+        got = [h.result(timeout=120) for h in hs]
+    for b, g in zip(bits, got):
+        want = simulate_batch(program, b, cfg=cfg, device=card)
+        for k, v in want.items():
+            np.testing.assert_array_equal(g[k], v.cpu().numpy(), err_msg=k)
+    before = exec_span.launches
+    with ExecutionService(cfg, singleton_engine='pallas',
+                          max_batch_programs=1, max_wait_ms=1.0) as svc:
+        g = svc.submit(program, bits[0]).result(timeout=120)
+        rb = rng.integers(0, 2, (4, 32, program.n_cores, 4)).astype(np.int32)
+        rcfg = dataclasses.replace(cfg, engine='pallas')
+        gr = svc.submit_rounds(program, rb, cfg=rcfg).result(timeout=120)
+    assert exec_span.launches - before == 2
+    want = simulate_batch(program, bits[0], cfg=rcfg, device=card)
+    for k, v in want.items():
+        np.testing.assert_array_equal(g[k], v.cpu().numpy(), err_msg=k)
+    # a stream chunk's dispatch cfg drops the pulse records
+    want = simulate_rounds(program, rb, cfg=dataclasses.replace(
+        rcfg, record_pulses=False), device=card)
+    assert set(gr) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(gr[k], v.cpu().numpy(), err_msg=k)

@@ -84,6 +84,18 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/utils/profiling.py',
                  'distributed_processor_tpu_torch/utils/vcd.py',
                  'distributed_processor_tpu_torch/sim/grad.py',
+                 'distributed_processor_tpu_torch/serve/__init__.py',
+                 'distributed_processor_tpu_torch/serve/request.py',
+                 'distributed_processor_tpu_torch/serve/bucketspec.py',
+                 'distributed_processor_tpu_torch/serve/batcher.py',
+                 'distributed_processor_tpu_torch/serve/supervise.py',
+                 'distributed_processor_tpu_torch/serve/stream.py',
+                 'distributed_processor_tpu_torch/serve/catalog.py',
+                 'distributed_processor_tpu_torch/serve/service.py',
+                 'distributed_processor_tpu_torch/serve/chaos.py',
+                 'distributed_processor_tpu_torch/calib/__init__.py',
+                 'distributed_processor_tpu_torch/calib/session.py',
+                 'distributed_processor_tpu_torch/calib/loops.py',
                  'tests/test_torch_spmd_worker.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):

@@ -254,3 +254,62 @@ def test_engine_selection():
         torch_simulate_batch(mp, meas, device='cpu', engine='fused')
     with pytest.raises(ValueError):
         torch_simulate_batch(mp, meas, device='cpu', engine='nope')
+
+
+def _reset_program(n_cores: int):
+    """Each of ``n_cores`` cores measures, waits for the result and
+    reads its own bit through the fabric into a register."""
+    cores = []
+    for c in range(n_cores):
+        cores.append([
+            isa.pulse_cmd(amp_word=3, env_word=1 << 12, cfg_word=2,
+                          cmd_time=5),
+            isa.idle(400),
+            isa.read_fproc(c, 1),
+            isa.done_cmd()])
+    return machine_program_from_cmds(cores)
+
+
+@pytest.mark.parametrize('n_cores,bit_cores,fabric,engine', [
+    (1, 2, 'sticky', None), (1, 2, 'fresh', None), (1, 3, 'sticky', None),
+    (1, 2, 'sticky', 'generic'), (1, 2, 'sticky', 'block'),
+    (2, 1, 'sticky', None), (2, 1, 'fresh', 'block'),
+    (1, 2, 'sticky', 'straightline'), (1, 2, 'sticky', 'auto'),
+    (2, 3, 'sticky', None)])
+def test_meas_bits_core_axis(n_cores, bit_cores, fabric, engine):
+    """``meas_bits`` whose core axis differs from the program's: every
+    key equal to the JAX package's run (a one-core program reads the
+    rows' sum, valid only from one row; one row broadcasts to every
+    core), or JAX's error type where JAX raises (the straight-line
+    executor, and axes that do not broadcast)."""
+    mp_j = _reset_program(n_cores)
+    bits = np.random.default_rng(n_cores + bit_cores).integers(
+        0, 2, (B, bit_cores, 2)).astype(np.int32)
+    kw = dict(fabric=fabric, max_meas=2)
+    if engine in ('straightline', 'auto') or bit_cores > 1 < n_cores:
+        # the port raises JAX's TypeError; JAX's straight-line executor
+        # raises it or returns a state whose core axes disagree (the
+        # bits' on done/pc/regs, the program's on the records)
+        with pytest.raises(TypeError):
+            torch_simulate_batch(_to_port(mp_j), bits,
+                                 cfg=TCfg(engine=engine, **kw),
+                                 device='cpu')
+        try:
+            out_j = jax_simulate_batch(mp_j, bits,
+                                       cfg=JCfg(engine=engine, **kw))
+        except TypeError:
+            return
+        assert engine in ('straightline', 'auto')
+        assert np.asarray(out_j['done']).shape[1] \
+            != np.asarray(out_j['n_pulses']).shape[1]
+        return
+    out_j = jax_simulate_batch(mp_j, bits, cfg=JCfg(engine=engine, **kw))
+    out_t = torch_simulate_batch(_to_port(mp_j), bits,
+                                 cfg=TCfg(engine=engine, **kw), device='cpu')
+    assert set(out_t) == set(out_j)
+    for key in sorted(out_j):
+        np.testing.assert_array_equal(out_t[key].numpy(),
+                                      np.asarray(out_j[key]), err_msg=key)
+    if bit_cores > 1:
+        # several rows for one core: every read of a measured bit stalls
+        assert (out_t['err'].numpy() & 8).all()

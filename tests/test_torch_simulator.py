@@ -313,6 +313,16 @@ def test_unported_entries_name_the_roadmap(sim2, jsim2):
         .astype(np.int32)           # the program's one core
     _assert_ints_equal(sim2.run(src, shots=8, meas_bits=bits),
                        jsim2.run(src, shots=8, meas_bits=bits))
+    # two cores' rows for the one-core program: JAX's producer select
+    # sums the rows and finds the read's bit invalid, so every shot
+    # deadlocks at its fproc read; the port computes the same
+    bits2 = np.random.default_rng(8).integers(0, 2, (8, 2, 2)) \
+        .astype(np.int32)
+    out_t = sim2.run(src, shots=8, meas_bits=bits2)
+    _assert_ints_equal(out_t, jsim2.run(src, shots=8, meas_bits=bits2))
+    assert out_t['err'].ravel().tolist() == [8] * 8
+    assert out_t['fault'].ravel().tolist() == [4] * 8
+    assert int(out_t['steps']) == 5
     # sampled bits (p1) are drawn by each package's own generator: the
     # run is whole, with one measurement on core 0 per shot
     out = sim2.run(src, shots=8, p1=0.5)
