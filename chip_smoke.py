@@ -110,7 +110,22 @@ Phases, in order (any failure exits nonzero):
    ``submit_source``; a service warmed from the learned catalog; a chaos
    soak; no service thread left) and the closed calibration loop
    (``calibrate`` on the amplitude through a service on the card, equal
-   in steps to the same loop on the CPU);
+   in steps to the same loop on the CPU); then the multi-process serving
+   tier (``Fleet`` of two replica processes on the card, each with its
+   own CUDA context, behind the router of this process: the serve
+   phase's RB requests routed again, each equal to its in-process
+   result; a soak through a SIGKILL of the loaded replica, every
+   completion equal to its solo run, goodput inside the kill window,
+   the respawned replica warm after its catalog replay; a SIGSTOP caught
+   by gossip staleness and a SIGCONT re-admitted; headline requests on
+   K1 span and the looped headline on K1 block through a second fleet,
+   each equal to its direct call; no thread or replica process left) and
+   the command line (``cli.main``: ``run`` of the QASM headline with K2
+   per epoch and on K1 span, of the looped headline on K1 block,
+   ``sweep`` of 1M shots, ``warmup``, ``serve-bench``, ``fleet-status``
+   against a live fleet, each with its launches; ``python -m
+   distributed_processor_tpu_torch run`` in a process of its own equal
+   to the in-process call);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths, ``simulate_rounds`` with the decode and
@@ -3422,10 +3437,10 @@ def _service(*args, **kw):
                             **kw)
 
 
-def _part(label: str, t0: float) -> float:
-    """Print the seconds a part of the serve phase took; returns now."""
+def _part(label: str, t0: float, phase: str = 'serve') -> float:
+    """Print the seconds a part of a phase took; returns now."""
     now = time.perf_counter()
-    print(f'[serve {label}: {now - t0:.1f} s]')
+    print(f'[{phase} {label}: {now - t0:.1f} s]')
     return now
 
 
@@ -3493,7 +3508,8 @@ def phase_serve(env) -> dict:
     headline through ``submit_source``; (f) a service warmed from (a)'s
     learned catalog, its first dispatch labelled ``aot``; (g) a chaos
     soak; (h) no service thread left.  Returns the launches of K1 span
-    and K1 block on the serve paths."""
+    and K1 block on the serve paths, and (a)'s programs, bits, config and
+    results (which phase_fleet routes again)."""
     import dataclasses
     import tempfile
     import threading
@@ -3753,7 +3769,6 @@ def phase_serve(env) -> dict:
     for i, g in enumerate(got):
         _served_equal(g, {k: torch.as_tensor(v) for k, v in
                           results[i].items()}, 'serve (f) vs (a)')
-    del results
     warm_ms = [v['warm_ms_mean'] for v in st['compile']['per_bucket']
                .values() if v['warm_ms_mean'] is not None]
     print(f'serve (f): warmup() of {len(specs)} catalog specs ('
@@ -3805,7 +3820,7 @@ def phase_serve(env) -> dict:
     check(not left, f'serve (h): threads left after shutdown: {left}')
     print('serve (h): after shutdown(drain=True) no dproc-serve thread is '
           'left')
-    return launches
+    return launches, dict(mps=mps, bits=bits, cfg=cfg, results=results)
 
 
 def phase_calib(env) -> None:
@@ -3852,6 +3867,573 @@ def phase_calib(env) -> None:
           f'{wall:.3f} s; the CPU loop {cpu.steps} steps to '
           f'{cpu.params["amp"]:.6f} in {runs["cpu"][2]:.3f} s on '
           f'{env["smi"]}')
+
+
+# the multi-process serving tier on the card: two replica processes
+# (one CUDA context and one executor each) behind the router of this
+# process; (a) replays phase_serve (a)'s requests, the kill and wedge
+# parts a soak of RB requests of 1024 shots (a third of the way in, the
+# loaded replica is killed), the headline requests of (b) run on K1
+# span through a second fleet with singleton_engine='pallas'.  One
+# connection carries a replica's gossip replies and its result frames, so
+# a heartbeat waits behind the frames ahead of it (a batch of (a) is 16
+# results of ~4.5 MB, a headline result ~200 MB): the liveness window is
+# 3 s, not the router's default 250 ms, which the frames of one batch
+# already outlast on the card
+FLEET = dict(replicas=2, soak_requests=48, soak_programs=8,
+             soak_shots=1024, soak_rate_hz=40.0, kill_window_s=2.0,
+             wedge_requests=8, timeout=300.0, gossip_ms=100.0,
+             liveness_ms=3000.0)
+# the command line on the card: the QASM headline at the headline's
+# batch, the looped headline at the loop path's lanes, the 1M-shot sweep
+CLI = dict(shots=262144, p1=0.15, loop_shots=32768, sweep_shots=1048576,
+           sweep_batch=262144, catalog_shots=1024, timeout=300.0)
+
+
+def _fleet(name: str, trace: bool = False, **service):
+    """A ``Fleet`` of :data:`FLEET` replicas on the card (each replica's
+    service on its default device, the card), or on :data:`DEV` where a
+    rehearsal sets another device; the router retries a lost replica's
+    requests up to 10 times and, with ``trace``, samples every request
+    (the replica's spans come back on the reply, and each request's
+    ``wire.await`` span carries its wire time)."""
+    from distributed_processor_tpu_torch.serve import Fleet, RetryPolicy
+    if DEV != 'cuda':
+        service['devices'] = [DEV]
+    router_kwargs = {'retry_policy': RetryPolicy(
+        max_attempts=10, backoff_s=0.05, max_backoff_s=1.0),
+        'gossip_interval_ms': FLEET['gossip_ms'],
+        'liveness_window_ms': FLEET['liveness_ms']}
+    if trace:
+        router_kwargs['trace_sample'] = 1.0
+    if 'default_cfg' in service:
+        router_kwargs['default_cfg'] = service.pop('default_cfg')
+    return Fleet(FLEET['replicas'], service=service, name=name,
+                 router_kwargs=router_kwargs,
+                 ready_timeout_s=FLEET['timeout'])
+
+
+def _fleets(*specs) -> list:
+    """Fleets booted side by side, one ``_fleet(**spec)`` each; if one
+    fails to boot, the others are shut down before the error surfaces."""
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futs = [pool.submit(lambda kw: _fleet(**kw), spec) for spec in specs]
+    made, err = [], None
+    for f in futs:
+        try:
+            made.append(f.result())
+        except BaseException as exc:     # noqa: BLE001 - re-raised below
+            err = exc
+    if err is not None:
+        for fleet in made:
+            fleet.shutdown()
+        raise err
+    return made
+
+
+def _wire_bytes(fleet) -> int:
+    """Bytes on the wire so far, both ways, summed over the replicas'
+    meters (every request here is the default tenant's)."""
+    return sum(fleet.replica_stats(rid)['tenants'].get('default', {})
+               .get('bytes_wire', 0) for rid in fleet.replica_ids())
+
+
+def _wait(cond, what: str, timeout: float):
+    """Poll ``cond()`` until it returns a true value, and return that;
+    fails after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.02)
+    fail(f'fleet: {what} within {timeout} s')
+
+
+def _engines(fleet) -> dict:
+    return {rid: dict(fleet.replica_stats(rid)['engine_dispatches'])
+            for rid in fleet.replica_ids()}
+
+
+def phase_fleet(env, served: dict) -> dict:
+    """The multi-process serving tier on the card: ``Fleet`` of two
+    replica processes, each an ``ExecutionService`` with one executor on
+    the card in a CUDA context of its own, behind the ``FleetRouter`` of
+    this process.  (a) phase_serve (a)'s 64 RB requests from 4 threads
+    through the router, each result equal on every key to (a)'s
+    in-process result, which phase_serve held equal to its direct
+    ``simulate_batch``; (c) a soak with the loaded replica SIGKILLed a
+    third of the way in: every completion equal to its solo run,
+    goodput inside the kill window, the respawned replica routable again
+    and its first request after the catalog replay counted warm; (d) the
+    loaded replica SIGSTOPped under traffic: gossip staleness takes it
+    out, the requests complete on the other, SIGCONT re-admits it; (b)
+    through a second fleet with ``singleton_engine='pallas'``: 4
+    headline requests at 262144 shots on K1 span (~200 MB result frames)
+    and the looped headline at 32768 lanes on K1 block, each equal to
+    the direct call, the replicas' dispatches counted; (e) after both
+    shut down, no ``dproc-serve`` thread and no replica process is
+    left.  The two fleets boot side by side.  Returns the replicas' K1
+    span and K1 block dispatches."""
+    import dataclasses
+    import os
+    import threading
+    import numpy as np
+    import torch
+    from distributed_processor_tpu_torch.serve import fleet_soak
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_batch
+    smi, T = env['smi'], FLEET['timeout']
+    mps, bits, cfg = served['mps'], served['bits'], served['cfg']
+    out = {}
+    t_part = time.perf_counter()
+    fleet, k1_fleet = _fleets(
+        dict(name='fleet-rb', default_cfg=cfg,
+             max_batch_programs=SERVE['max_batch'],
+             max_wait_ms=SERVE['max_wait_ms'], max_queue=256),
+        dict(name='fleet-k1', trace=True, singleton_engine='pallas',
+             max_batch_programs=1, max_wait_ms=1.0))
+    boot_s = time.perf_counter() - t_part
+    procs = [s.proc for f in (fleet, k1_fleet) for s in f._replicas]
+    soak_mps = mps[:FLEET['soak_programs']]
+    rng = np.random.default_rng(4411)
+    soak_bits = [rng.integers(0, 2, (FLEET['soak_shots'], mp.n_cores, 2),
+                              dtype=np.int32) for mp in soak_mps]
+    probe = dict(mp=soak_mps[0], meas_bits=soak_bits[0], cfg=cfg)
+    try:
+        # every replica serves the soak's shape once, which the shared
+        # catalog records for a respawn to replay
+        for rid in fleet.replica_ids():
+            fleet.router.call_replica(rid, 'submit', dict(probe),
+                                      timeout_s=T)
+        print(f'fleet: two fleets of {FLEET["replicas"]} replicas each '
+              f'ready in {boot_s:.2f} s, booted side by side (pids '
+              f'{[p.pid for p in procs]})')
+        t_part = _part('boot', t_part, 'fleet')
+
+        # (a) routed RB traffic
+        per = len(mps) // SERVE['threads']
+        jobs = [[(mps[t * per + j], bits[t * per + j]) for j in range(per)]
+                for t in range(SERVE['threads'])]
+        wire0 = _wire_bytes(fleet)
+        results, wall, lat = _serve_threads(fleet, jobs)
+        wire_a = _wire_bytes(fleet) - wire0
+        for i, got in enumerate(results):
+            _served_equal(got, {k: torch.as_tensor(v) for k, v in
+                                served['results'][i].items()},
+                          f'fleet (a) request {i}')
+        del results
+        st = fleet.stats()
+        eng_a = _engines(fleet)
+        check(sum(e.get('generic', 0) for e in eng_a.values()) >= 1,
+              f'fleet (a): replica engines {eng_a}')
+        B = bits[0].shape[0]
+        lat_ms = np.sort(np.asarray(lat) * 1e3)
+        print(f'fleet (a): {len(mps)} RB requests x {B} shots from '
+              f'{SERVE["threads"]} threads through the router in '
+              f'{wall:.3f} s: {len(mps) / wall:.1f} requests/s, '
+              f'{len(mps) * B / wall:.1f} shots/s; handle latency p50 '
+              f'{np.percentile(lat_ms, 50):.1f} / p99 '
+              f'{np.percentile(lat_ms, 99):.1f} ms (router p50 '
+              f'{st["latency_p50_ms"]:.1f} / p99 {st["latency_p99_ms"]:.1f} '
+              f'ms); {wire_a / 1e6:.1f} MB on the wire; replica engine '
+              f'dispatches {eng_a}; every result equal on every key to '
+              f'phase_serve (a)\'s in-process result on {smi}')
+        out['a'] = dict(rps=len(mps) / wall, wall=wall)
+        t_part = _part('(a)', t_part, 'fleet')
+
+        # (c) SIGKILL the loaded replica mid-stream
+        before = fleet.router.stats()
+        n = FLEET['soak_requests']
+        t_soak = time.monotonic()
+        rep = fleet_soak(fleet, soak_mps, cfg, n_requests=n,
+                         shots=FLEET['soak_shots'], seed=21,
+                         rate_hz=FLEET['soak_rate_hz'],
+                         actions=[(n // 3, 'kill', -1)],
+                         result_timeout_s=T, device=DEV)
+        kill_t = next(t for t, m, _ in rep.actions if m == 'kill')
+        victim = fleet.replica_ids()[next(i for _, m, i in rep.actions
+                                          if m == 'kill')]
+        ok_kill = rep.ok_in_window(kill_t, kill_t + FLEET['kill_window_s'])
+        check(rep.hung == 0 and rep.bit_mismatches == 0
+              and rep.terminated() == rep.submitted and ok_kill > 0,
+              f'fleet (c): soak {rep}, {ok_kill} completions in the kill '
+              f'window')
+        after = fleet.router.stats()
+        check(after['replica_down'] >= before['replica_down'] + 1,
+              f'fleet (c): no replica_down after the kill: {after}')
+        _wait(lambda: fleet.stats()['replicas'].get(victim, {})
+              .get('routable') and fleet.stats()['processes'][victim]
+              ['respawns'] >= 1, 'the killed replica was not respawned', T)
+        slot = fleet._replicas[fleet.replica_ids().index(victim)]
+        # the respawn is routable once its ready line is read and the
+        # router has connected (spawned_t); the kill fired kill_t into
+        # the soak
+        routable_s = slot.spawned_t - (t_soak + kill_t)
+        procs.append(slot.proc)
+
+        def replayed():
+            r = fleet.replica_stats(victim)
+            return r if r['warmup']['in_progress'] == 0 else None
+        rs = _wait(replayed, 'the respawned replica\'s warm-up did not '
+                             'settle', T)
+        cold0 = rs['compile']['cold']
+        got = fleet.router.call_replica(victim, 'submit', dict(probe),
+                                        timeout_s=T)
+        cold1 = fleet.replica_stats(victim)['compile']['cold']
+        check(cold1 == cold0 and rs['warmup']['replayed'] >= 1,
+              f'fleet (c): the respawned replica counted {cold1 - cold0} '
+              f'cold dispatches after replaying {rs["warmup"]["replayed"]} '
+              f'catalog specs')
+        _served_equal(got, simulate_batch(soak_mps[0], soak_bits[0],
+                                          cfg=dataclasses.replace(
+                                              cfg, engine='generic'),
+                                          device=DEV),
+                      'fleet (c) respawned replica')
+        print(f'fleet (c): soak of {rep.submitted} requests x '
+              f'{FLEET["soak_shots"]} shots at {FLEET["soak_rate_hz"]} Hz, '
+              f'replica {victim} SIGKILLed at {kill_t:.3f} s: '
+              f'{rep.completed} completed equal to their solo runs, '
+              f'{ok_kill} inside the {FLEET["kill_window_s"]} s kill window, '
+              f'typed failures {dict(rep.errors)}; failovers '
+              f'{after["failovers"] - before["failovers"]}, retries '
+              f'{after["retries"] - before["retries"]}; respawned and '
+              f'routable {routable_s:.2f} s after the kill, its '
+              f'first request after replaying {rs["warmup"]["replayed"]} '
+              f'catalog specs counted warm on {smi}')
+        out['routable_s'] = routable_s
+        t_part = _part('(c)', t_part, 'fleet')
+
+        # (d) SIGSTOP the loaded replica under traffic, then SIGCONT
+        _wait(lambda: fleet.router.stats()['n_routable']
+              == FLEET['replicas'], 'both replicas routable', T)
+        before = fleet.router.stats()
+        victim = fleet.router.primary_replica()
+        vidx = fleet.replica_ids().index(victim)
+        k = FLEET['wedge_requests']
+        reqs = [(soak_mps[i % len(soak_mps)], soak_bits[i % len(soak_mps)])
+                for i in range(k)]
+        hs = [fleet.submit(m, b) for m, b in reqs]
+        t0 = time.monotonic()
+        fleet.wedge(vidx)
+        try:
+            got = [h.result(timeout=T) for h in hs]
+
+            def caught():
+                s = fleet.router.stats()
+                return s['gossip_stale'] > before['gossip_stale'] \
+                    and not s['replicas'][victim]['alive']
+            _wait(caught, 'gossip staleness did not catch the wedge', T)
+            stale_s = time.monotonic() - t0
+        finally:
+            fleet.unwedge(vidx)
+        t0 = time.monotonic()
+        _wait(lambda: fleet.router.stats()['replicas'][victim]['routable'],
+              'the unwedged replica was not re-admitted', T)
+        readmit_s = time.monotonic() - t0
+        gcfg = dataclasses.replace(cfg, engine='generic')
+        for i, ((m, b), g) in enumerate(zip(reqs, got)):
+            _served_equal(g, simulate_batch(m, b, cfg=gcfg, device=DEV),
+                          f'fleet (d) request {i}')
+        st = fleet.router.stats()
+        check(st['replica_up'] >= before['replica_up'] + 1,
+              f'fleet (d): no re-admission: {st}')
+        print(f'fleet (d): replica {victim} SIGSTOPped under {k} requests: '
+              f'gossip staleness marked it down within {stale_s:.3f} s '
+              f'(liveness window {FLEET["liveness_ms"]:.0f} ms), all {k} '
+              f'completed equal to their '
+              f'direct calls (failovers '
+              f'{st["failovers"] - before["failovers"]}); SIGCONT '
+              f're-admitted it in {readmit_s:.3f} s on {smi}')
+        eng = _engines(fleet)
+        metrics = fleet.router.fleet_metrics()
+        served_n = {rid: {k: v for k, v in m['counters'].items()
+                          if k.startswith('serve.engine.')}
+                    for rid, m in metrics.items()}
+        print(f'fleet: router totals: submitted {st["submitted"]}, '
+              f'completed {st["completed"]}, failed {st["failed"]}, '
+              f'failovers {st["failovers"]}, retries {st["retries"]}, '
+              f'replica_down {st["replica_down"]}, replica_up '
+              f'{st["replica_up"]}, gossip_stale {st["gossip_stale"]}; '
+              f'replica engine dispatches {eng}; fleet-metrics '
+              f'serve.engine counters {served_n}')
+        t_part = _part('(d)', t_part, 'fleet')
+    except BaseException:
+        k1_fleet.shutdown()
+        raise
+    finally:
+        fleet.shutdown()
+
+    # (b) headline requests on K1 span, the looped headline on K1 block
+    fleet = k1_fleet
+    mp = headline_program()
+    hcfg = headline_config(mp)
+    Bh = HEADLINE['batch']
+    hbits = [rng.integers(0, 2, (Bh, mp.n_cores, 2), dtype=np.int32)
+             for _ in range(SERVE['k1_requests'])]
+    lmp = loop_program()
+    lcfg = loop_config(lmp)
+    lbits = rng.integers(0, 2, (LOOP['batch'], lmp.n_cores,
+                                LOOP['max_meas']), dtype=np.int32)
+    try:
+        wire0 = _wire_bytes(fleet)
+        t0 = time.perf_counter()
+        hs = [fleet.submit(mp, b, cfg=hcfg) for b in hbits]
+        got, done_s = [], []
+        for h in hs:
+            got.append(h.result(timeout=T))
+            done_s.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        wire_b = _wire_bytes(fleet) - wire0
+        # per request: the round trip less the replica's own window
+        wire_ms = [s['args']['wire_ms'] for c in fleet.router.trace_contexts()
+                   for s in c.spans if s['name'] == 'wire.await'
+                   and 'wire_ms' in s['args']]
+        eng_b = _engines(fleet)
+        t0 = time.perf_counter()
+        lgot = fleet.submit(lmp, lbits, cfg=lcfg).result(timeout=T)
+        loop_s = time.perf_counter() - t0
+        eng_l = _engines(fleet)
+    finally:
+        fleet.shutdown()
+    n_span = sum(e.get('pallas', 0) for e in eng_b.values())
+    n_loop = sum(e.get('pallas', 0) for e in eng_l.values()) - n_span
+    check(n_span == SERVE['k1_requests'] and n_loop == 1,
+          f'fleet (b): replica engines {eng_b} then {eng_l}')
+    pcfg = headline_config(mp, engine='pallas')
+    for i, (b, g) in enumerate(zip(hbits, got)):
+        _served_equal(g, simulate_batch(mp, b, cfg=pcfg, device=DEV),
+                      f'fleet (b) request {i}')
+    del got
+    _reset_launches()
+    want = simulate_batch(lmp, lbits, cfg=dataclasses.replace(
+        lcfg, engine='pallas'), device=DEV)
+    blocks = _launches()['exec_blocks']
+    _served_equal(lgot, want, 'fleet (b) looped headline')
+    del want, lgot
+    print(f"fleet (b): the second fleet (singleton_engine='pallas'): "
+          f'{SERVE["k1_requests"]} headline requests x '
+          f'{Bh} shots in {wall:.3f} s (done at '
+          + ', '.join(f'{x:.3f}' for x in done_s)
+          + f' s; {wire_b / 1e6:.1f} MB on the wire, '
+          f'{wire_b / len(hbits) / 1e6:.1f} MB a request, wire ms per '
+          f'request (round trip less the replica\'s window) '
+          + ', '.join(f'{x:.1f}' for x in wire_ms)
+          + f'), replica K1 span dispatches {n_span}; the looped headline x {LOOP["batch"]} '
+          f'lanes in {loop_s:.3f} s, replica K1 block dispatches {n_loop} '
+          f'({blocks} K1 block launches in the same direct call here); '
+          f'each equal on every key to the direct simulate_batch('
+          f"engine='pallas') on {smi}")
+    check(len(wire_ms) == len(hbits), f'fleet (b): wire spans {wire_ms}')
+    out['span_dispatches'], out['block_dispatches'] = n_span, n_loop
+    out['block_launches'] = blocks
+    t_part = _part('(b)', t_part, 'fleet')
+
+    # (e) nothing left behind
+    _wait(lambda: not any(t.name.startswith('dproc-serve')
+                          for t in threading.enumerate()),
+          'dproc-serve threads outlived the fleets', 10.0)
+    alive = []
+    for p in procs:
+        if p.poll() is None:
+            alive.append(p.pid)
+            continue
+        try:
+            os.kill(p.pid, 0)
+            alive.append(p.pid)
+        except ProcessLookupError:
+            pass
+    check(not alive, f'fleet (e): replica processes left: {alive}')
+    print(f'fleet (e): after shutdown no dproc-serve thread and none of the '
+          f'{len(procs)} replica processes is left')
+    return out
+
+
+def _cli(argv: list, expect: dict, label: str) -> tuple:
+    """``cli.main(['--torch-device', DEV] + argv)`` with every launch
+    count set to 0 just before; returns ``(stdout, launches, wall s)``
+    and prints them.  ``expect``: kernel name -> a predicate on its
+    count; no other kernel may launch."""
+    import contextlib
+    import io
+    from distributed_processor_tpu_torch import cli
+    buf = io.StringIO()
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(['--torch-device', DEV] + argv)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _launches()
+    shown = {k: v for k, v in counts.items() if v}
+    check(_only_launched(counts, *expect)
+          and all(ok(counts[k]) for k, ok in expect.items()),
+          f'cli {label}: launches {shown}')
+    print(f'cli {label}: {wall:.3f} s, launches {shown}')
+    return buf.getvalue(), counts, wall
+
+
+def phase_cli(env) -> dict:
+    """The command line on the card, each command through ``cli.main`` in
+    this process with its launch counts set to 0 just before it: ``run``
+    of the QASM headline physics-closed at 262144 shots (K2 once per
+    epoch), on ``--engine pallas`` with ``--p1 0.15`` (one K1 span
+    launch), and of the looped headline (a dict program with a hardware
+    loop) on ``--engine pallas`` (K1 block, one launch per block-engine
+    iteration); ``sweep`` of 1M shots in batches of 262144 (K2 per
+    epoch); ``warmup`` of a learned catalog; ``serve-bench`` at its
+    defaults; ``fleet-status`` against a live fleet; then ``python -m
+    distributed_processor_tpu_torch run`` in a process of its own, equal
+    on the integer fields to the in-process call.  Returns the launches
+    of K2, K1 span and K1 block."""
+    import os
+    import tempfile
+    import numpy as np
+    from distributed_processor_tpu_torch import Simulator, compile_to_machine
+    from distributed_processor_tpu_torch.models import (active_reset,
+                                                        make_default_qchip,
+                                                        rb_ensemble)
+    from distributed_processor_tpu_torch.models.experiments import \
+        loop_shots_program
+    from distributed_processor_tpu_torch.serve import Fleet
+    smi, T = env['smi'], CLI['timeout']
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='cli-')
+    n = HEADLINE['n_qubits']
+    qubits = [f'Q{i}' for i in range(n)]
+    qasm = os.path.join(tmp, 'headline.qasm')
+    with open(qasm, 'w') as f:
+        f.write(qasm_headline_source(n, HEADLINE['depth'], 1234))
+    loop = os.path.join(tmp, 'loop.json')
+    with open(loop, 'w') as f:
+        json.dump(loop_shots_program(headline_source(), LOOP['n_shots'],
+                                     scope=qubits), f)
+    pos = (lambda c: c > 0)
+    t_part = time.perf_counter()
+
+    text, counts, _ = _cli(['run', qasm, '--physics', '--shots',
+                            str(CLI['shots']), '--p1-init', str(CLI['p1'])],
+                           {'resolve_windows': pos}, 'run --physics')
+    r = json.loads(text)
+    check(r['error_shots'] == 0 and not any(r['fault_shots'].values())
+          and counts['resolve_windows'] == r['epochs'],
+          f'cli run --physics: {r}, K2 {counts["resolve_windows"]}')
+    out['resolve_windows'] = counts['resolve_windows']
+    print(f'cli run --physics: {r["shots"]} shots on {r["engine"]}, '
+          f'{r["epochs"]} epochs, K2 launches {counts["resolve_windows"]}, '
+          f'meas1 rate per core '
+          + ', '.join(f'{x:.4f}' for x in r['meas1_rate_per_core']))
+
+    argv = ['run', qasm, '--engine', 'pallas', '--p1', str(CLI['p1']),
+            '--shots', str(CLI['shots'])]
+    text, counts, cli_s = _cli(argv, {'exec_span': lambda c: c == 1},
+                               'run --engine pallas')
+    span_run = json.loads(text)
+    check(span_run['engine'] == 'pallas' and span_run['error_shots'] == 0,
+          f'cli run --engine pallas: {span_run}')
+    out['exec_span'] = counts['exec_span']
+    # the same run through the facade the command wraps
+    sim = Simulator(n_qubits=n, device=DEV)
+    with open(qasm) as f:
+        src = f.read()
+    sync()
+    t0 = time.perf_counter()
+    r = sim.run(src, shots=CLI['shots'], p1=CLI['p1'], engine='pallas')
+    int(r['steps'])
+    sync()
+    sim_s = time.perf_counter() - t0
+    del r
+    print(f'cli run --engine pallas: {cli_s:.3f} s against Simulator.run '
+          f'of the same QASM text and arguments {sim_s:.3f} s on {smi}')
+
+    text, counts, _ = _cli(['run', loop, '--engine', 'pallas', '--shots',
+                            str(CLI['loop_shots'])],
+                           {'exec_blocks': pos}, 'run loop --engine pallas')
+    r = json.loads(text)
+    check(r['engine'] == 'pallas' and r['error_shots'] == 0
+          and not any(r['fault_shots'].values()),
+          f'cli run loop: {r}')
+    out['exec_blocks'] = counts['exec_blocks']
+
+    text, counts, _ = _cli(['sweep', qasm, '--shots',
+                            str(CLI['sweep_shots']), '--batch',
+                            str(CLI['sweep_batch'])],
+                           {'resolve_windows': pos}, 'sweep')
+    r = json.loads(text)
+    check(r['shots'] == CLI['sweep_shots'] and r['err_shots'] == 0
+          and not any(r['fault_shots'].values()), f'cli sweep: {r}')
+    out['sweep_resolve_windows'] = counts['resolve_windows']
+    t_part = _part('run, sweep', t_part, 'cli')
+
+    # a learned catalog for warmup: one service run of two RB requests
+    cat = os.path.join(tmp, 'catalog.json')
+    mps = [compile_to_machine(active_reset(qubits) + p,
+                              make_default_qchip(n), n_qubits=n)
+           for p in rb_ensemble(qubits, HEADLINE['depth'], 2, seed=77)]
+    cfg = multi_config(mps[0])
+    rng = np.random.default_rng(4421)
+    with _service(cfg, warmup_catalog=cat, max_wait_ms=1.0) as svc:
+        for mp in mps:
+            svc.submit(mp, rng.integers(0, 2, (CLI['catalog_shots'],
+                                               mp.n_cores, 2),
+                                        dtype=np.int32)).result(timeout=T)
+    text, _, _ = _cli(['warmup', cat], {}, 'warmup')
+    lines = [json.loads(x) for x in text.splitlines()]
+    check(len(lines) >= 2 and lines[-1]['specs'] >= 1,
+          f'cli warmup: {lines}')
+
+    text, _, _ = _cli(['serve-bench'], {}, 'serve-bench')
+    r = json.loads(text)
+    check(r['bit_identical'] and r['warm_retraces'] == 0,
+          f'cli serve-bench: {r}')
+    print(f'cli serve-bench (defaults): {r["n_reqs"]} requests, sequential '
+          f'{r["sequential_warm_s"]} s, service {r["service_warm_s"]} s, '
+          f'ratio {r["throughput_ratio"]}, {r["dispatches"]} dispatches, '
+          f'warm_retraces {r["warm_retraces"]}')
+    t_part = _part('warmup, serve-bench', t_part, 'cli')
+
+    # the module entry point in a process of its own, started beside the
+    # fleet's boot (both are mostly interpreter and CUDA start-up)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_sub = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'distributed_processor_tpu_torch',
+         '--torch-device', DEV] + argv, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        service = {} if DEV == 'cuda' else {'devices': [DEV]}
+        with Fleet(1, service=service, name='fleet-cli',
+                   ready_timeout_s=T) as fleet:
+            fleet.submit(mps[0], rng.integers(
+                0, 2, (CLI['catalog_shots'], mps[0].n_cores, 2),
+                dtype=np.int32), cfg=cfg).result(timeout=T)
+            host, port = fleet._replicas[0].address
+            text, _, _ = _cli(['fleet-status', f'{host}:{port}', '--json'],
+                              {}, 'fleet-status')
+        rows = json.loads(text)
+        check(len(rows) == 1 and rows[0]['completed'] == 1
+              and 'error' not in rows[0], f'cli fleet-status: {rows}')
+        t_part = _part('fleet-status', t_part, 'cli')
+        stdout, stderr = proc.communicate(timeout=T)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    sub_s = time.perf_counter() - t_sub
+    check(proc.returncode == 0, f'cli subprocess exited {proc.returncode}: '
+                                f'{stderr[-2000:]}')
+    sub = json.loads(stdout)
+    ints = ('shots', 'error_shots', 'fault_shots', 'steps', 'engine')
+    check({k: sub[k] for k in ints} == {k: span_run[k] for k in ints},
+          f'cli subprocess {sub} differs from the in-process call '
+          f'{span_run}')
+    print(f'cli: python -m distributed_processor_tpu_torch run (K1 span) '
+          f'in a process of its own, beside the fleet\'s boot: {sub_s:.2f} s '
+          f'with start-up, equal on the integer fields to the in-process '
+          f'call on {smi}')
+    _part('subprocess', t_part, 'cli')
+    return out
 
 
 def phase_cuda_vs_cpu(mp):
@@ -4354,9 +4936,20 @@ def main(argv: list) -> int:
     timed(phase_grad, env)
     timed(phase_trace, mp, env)
     torch.cuda.empty_cache()
-    serve = timed(phase_serve, env)
+    serve, served = timed(phase_serve, env)
     torch.cuda.empty_cache()
     timed(phase_calib, env)
+    # the parent's caching allocator still holds what earlier phases
+    # grew; the replicas of the fleet phase need the card's memory
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f'card memory before the fleet: {free / 1e9:.1f} GB free of '
+          f'{total / 1e9:.1f} GB (reserved here '
+          f'{torch.cuda.memory_reserved() / 1e9:.1f} GB)')
+    fleet = timed(phase_fleet, env, served)
+    del served
+    torch.cuda.empty_cache()
+    cli = timed(phase_cli, env)
     torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)
@@ -4383,6 +4976,14 @@ def main(argv: list) -> int:
     print(f"serve paths (launches): K1 span {serve['exec_span']} for "
           f"{SERVE['k1_requests']} singleton requests, K1 block "
           f"{serve['exec_blocks']} per looped request")
+    print(f"fleet paths (replica dispatches): K1 span "
+          f"{fleet['span_dispatches']} for {SERVE['k1_requests']} headline "
+          f"requests, K1 block {fleet['block_dispatches']} looped request "
+          f"({fleet['block_launches']} K1 block launches in its direct "
+          f"call); cli paths (launches): K2 {cli['resolve_windows']} "
+          f"(run --physics), {cli['sweep_resolve_windows']} (sweep), K1 span "
+          f"{cli['exec_span']} (run --engine pallas), K1 block "
+          f"{cli['exec_blocks']} (run of the looped headline)")
     print('rounds paths (launches in one simulate_rounds call): '
           + '; '.join(f'{label}: {n}' for label, n in rounds.items())
           + ' (K1 span on the loop-free rounds, K1 block on the looped '

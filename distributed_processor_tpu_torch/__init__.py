@@ -36,7 +36,12 @@ compile stack.  Layers, named as in the JAX package:
 * :mod:`.obs`, :mod:`.utils.profiling` — the metrics registry and its
   counters, the profiler wrappers; :mod:`.utils.vcd` — a ``trace=True``
   run as a VCD file
-* :mod:`.parallel` — per-batch statistics and the single-device sweep
+* :mod:`.parallel` — per-batch statistics, sweeps and the device meshes
+* :mod:`.serve` — the in-process ``ExecutionService`` and, one ring out,
+  the ``Fleet`` of replica processes behind the ``FleetRouter`` on the
+  fleet wire; :mod:`.calib` — the closed calibration loop
+* :mod:`.cli` — the command line, ``python -m
+  distributed_processor_tpu_torch`` (``--torch-device cpu`` off the card)
 
 Entry points (``Simulator``, ``simulate``, ``simulate_batch``,
 ``run_physics_batch``, ``run_physics_sweep``) run on CUDA unless given

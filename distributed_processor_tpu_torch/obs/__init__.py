@@ -1,8 +1,7 @@
 """Flight-deck observability for the serving stack (docs/OBSERVABILITY.md).
 
 Four stdlib-only pieces the serve / compilecache / sim layers emit
-into (a copy of the JAX package's ``obs/``; of those layers, the port
-has the compile cache and the simulator, not the serving tier yet):
+into (a copy of the JAX package's ``obs/``):
 
 :mod:`.trace`     per-request lifecycle spans + Chrome Trace export
 :mod:`.metrics`   typed registry (counters / gauges / histograms) with

@@ -17,8 +17,15 @@ canary re-admission; bounded retries of infrastructure failures; overload
 shedding) and tenant-fair (deficit round-robin, quotas with the typed
 :class:`QuotaExceededError`, exactly-once metering).  :mod:`.chaos`
 injects seeded crashes, hangs, slowdowns, deaths and bit flips under
-``_run_batch`` to prove it.  The multi-process tier of the JAX package
-(transport, router, fleet) is not part of this package.
+``_run_batch`` to prove it.
+
+One ring out, the multi-process tier: a :class:`Fleet` runs N services
+as replica processes (:mod:`.replica_main`, one CUDA context each),
+reached over a framed-pickle wire (:mod:`.transport`) through a
+:class:`FleetRouter` with health gossip, fleet-level breakers,
+cross-replica retry and bucket affinity; :func:`fleet_soak` scripts
+SIGKILL / SIGSTOP chaos against it, and :mod:`.benchmark` times every
+tier.
 """
 
 from ..integrity import IntegrityError
@@ -26,18 +33,24 @@ from .batcher import Coalescer, bucket_key
 from .bucketspec import BucketSpec
 from .catalog import BucketCatalog
 from .chaos import (ChaosError, ChaosMonkey, ChaosPlan, ChaosThreadDeath,
-                    SoakReport, TenantSoakReport, soak, tenant_soak)
+                    FleetSoakReport, SoakReport, TenantSoakReport,
+                    fleet_soak, soak, tenant_soak)
+from .fleet import AutoscalePolicy, Fleet
 from .request import (CancelledError, DeadlineError, ExecutorLostError,
                       OverloadError, QueueFullError, QuotaExceededError,
                       RequestHandle, ServiceClosedError, ShutdownError)
+from .router import ROUTER_THREAD_PREFIX, FleetRouter, is_terminal_error
 from .service import (CANARY_THREAD_PREFIX, DISPATCH_THREAD_PREFIX,
                       SUPERVISE_THREAD_PREFIX, WARMUP_THREAD_PREFIX,
                       ExecutionService)
 from .stream import StreamKey, StreamSession
 from .supervise import (HEALTH_LIVE, HEALTH_PROBING, HEALTH_QUARANTINED,
                         CircuitBreaker, RetryPolicy)
+from .transport import (WIRE_THREAD_PREFIX, ReplicaClient, ReplicaLostError,
+                        ReplicaServer, WireCorruptionError)
 
 __all__ = [
+    'AutoscalePolicy',
     'BucketCatalog',
     'BucketSpec',
     'CANARY_THREAD_PREFIX',
@@ -52,6 +65,9 @@ __all__ = [
     'DeadlineError',
     'ExecutionService',
     'ExecutorLostError',
+    'Fleet',
+    'FleetRouter',
+    'FleetSoakReport',
     'HEALTH_LIVE',
     'HEALTH_PROBING',
     'HEALTH_QUARANTINED',
@@ -59,6 +75,10 @@ __all__ = [
     'OverloadError',
     'QueueFullError',
     'QuotaExceededError',
+    'ROUTER_THREAD_PREFIX',
+    'ReplicaClient',
+    'ReplicaLostError',
+    'ReplicaServer',
     'RequestHandle',
     'RetryPolicy',
     'SUPERVISE_THREAD_PREFIX',
@@ -69,7 +89,11 @@ __all__ = [
     'StreamSession',
     'TenantSoakReport',
     'WARMUP_THREAD_PREFIX',
+    'WIRE_THREAD_PREFIX',
+    'WireCorruptionError',
     'bucket_key',
+    'fleet_soak',
+    'is_terminal_error',
     'soak',
     'tenant_soak',
 ]

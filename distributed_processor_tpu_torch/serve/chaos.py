@@ -19,8 +19,15 @@ resets, runtime crashes, wedged calls) surface — so canary probes
 draw injected faults too, and a quarantined executor only re-admits
 once the chaos actually lets a probe through.
 
+One tier further up, :func:`fleet_soak` drives the same contract
+against a whole :class:`~.fleet.Fleet`: scripted process-level actions
+(SIGKILL, SIGSTOP wedges, SIGCONT) fire at chosen points in the
+submission stream while every completion is bit-checked and
+timestamped, so the caller can assert not just "nothing hung" but
+"goodput stayed positive through the kill window" (docs/FLEET.md).
+
 The references run on ``device`` (default the card): a soak of a CPU
-service names ``device='cpu'``.
+service or fleet names ``device='cpu'``.
 """
 
 from __future__ import annotations
@@ -427,4 +434,129 @@ def tenant_soak(svc, mps, cfg, *, tenants, n_requests: int = 100,
                 report.meter_mismatches.append(
                     f'{t}.{k}: metered {row.get(k)} != observed '
                     f'{truth[k]}')
+    return report
+
+
+@dataclass
+class FleetSoakReport(SoakReport):
+    """:class:`SoakReport` plus the timeline a fleet soak needs:
+    ``actions`` records each chaos action as ``(t_rel_s, name, idx)``
+    and ``samples`` records each request outcome as ``(t_rel_s,
+    'ok' | error-type-name)`` — both relative to soak start — so the
+    caller can compute goodput inside any window (e.g. the kill
+    window) instead of only end-to-end totals."""
+    actions: list = field(default_factory=list)
+    samples: list = field(default_factory=list)
+
+    def goodput(self, t0: float = 0.0, t1: float = None) -> float:
+        """Completed-OK requests per second inside ``[t0, t1]``
+        (relative seconds; ``t1`` defaults to the last sample)."""
+        if t1 is None:
+            t1 = max((t for t, _ in self.samples), default=0.0)
+        n = sum(1 for t, out in self.samples
+                if t0 <= t <= t1 and out == 'ok')
+        return n / max(t1 - t0, 1e-9)
+
+    def ok_in_window(self, t0: float, t1: float) -> int:
+        return sum(1 for t, out in self.samples
+                   if t0 <= t <= t1 and out == 'ok')
+
+
+def fleet_soak(fleet, mps, cfg, *, n_requests: int = 100,
+               shots: int = 3, seed: int = 0, rate_hz: float = None,
+               actions=(), result_timeout_s: float = 120.0,
+               device=None) -> FleetSoakReport:
+    """:func:`soak`, against a :class:`~.fleet.Fleet`, with scripted
+    process-level chaos.
+
+    ``actions`` is a sequence of ``(at_request_index, method, idx)``
+    triples — ``method`` is a Fleet chaos hook name (``'kill'``,
+    ``'wedge'``, ``'unwedge'``) applied to replica ``idx`` just before
+    submission ``at_request_index``; each firing is timestamped into
+    the report.  ``idx = -1`` resolves AT FIRE TIME to the router's
+    :meth:`~.router.FleetRouter.primary_replica` (the one carrying the
+    load), so a scripted kill always lands on the serving path even
+    when bucket affinity pinned the whole workload to one home — and
+    an ``unwedge -1`` re-targets whatever the last ``wedge`` hit.
+    ``rate_hz`` paces submissions (None = as fast as possible).
+    Completions are timestamped by polling ``done()`` so the report's
+    ``samples`` reflect when each handle actually resolved, not the
+    order the caller happened to wait in; each is held against its
+    program's solo run on ``device`` (default the card).
+
+    The fleet contract under fire, assertable from the report:
+    ``hung == 0``, ``bit_mismatches == 0``, every non-completion a
+    typed error, and ``ok_in_window(kill_t, kill_t + w) > 0`` —
+    serving never stops while a replica is down.
+    """
+    rng = np.random.default_rng(seed)
+    bits = {i: rng.integers(0, 2, size=(shots, mp.n_cores,
+                                        cfg.max_meas)).astype(np.int32)
+            for i, mp in enumerate(mps)}
+    refs = {}
+    report = FleetSoakReport()
+    start = time.monotonic()
+    script = sorted(actions, key=lambda a: a[0])
+    ai = 0
+    resolved = {}                # method -> last concrete replica idx
+
+    def fire(method, idx):
+        if idx == -1:
+            if method == 'unwedge' and 'wedge' in resolved:
+                idx = resolved['wedge']
+            else:
+                rid = fleet.router.primary_replica()
+                rids = fleet.replica_ids()
+                idx = rids.index(rid) if rid in rids else 0
+        resolved[method] = idx
+        getattr(fleet, method)(idx)
+        report.actions.append(
+            (round(time.monotonic() - start, 4), method, idx))
+
+    pending = {}                 # handle -> (program idx, submit time)
+    for i in range(n_requests):
+        while ai < len(script) and script[ai][0] <= i:
+            _, method, idx = script[ai]
+            ai += 1
+            fire(method, idx)
+        if rate_hz:
+            time.sleep(1.0 / rate_hz)
+        pi = i % len(mps)
+        t0 = time.monotonic()
+        try:
+            handle = fleet.submit(mps[pi], bits[pi], cfg=cfg)
+        except Exception as exc:     # noqa: BLE001 - typed refusal
+            report.rejected += 1
+            report.errors[type(exc).__name__] += 1
+            report.samples.append((round(t0 - start, 4),
+                                   type(exc).__name__))
+            continue
+        report.submitted += 1
+        pending[handle] = (pi, t0)
+    for _, method, idx in script[ai:]:   # actions past the last submit
+        fire(method, idx)
+    deadline = time.monotonic() + result_timeout_s
+    while pending and time.monotonic() < deadline:
+        for handle in [h for h in pending if h.done()]:
+            pi, t0 = pending.pop(handle)
+            t_rel = round(time.monotonic() - start, 4)
+            exc = handle.exception(timeout=0)
+            if exc is not None:
+                report.errors[type(exc).__name__] += 1
+                report.samples.append((t_rel, type(exc).__name__))
+                continue
+            got = handle.result(timeout=0)
+            report.completed += 1
+            report.latencies_s.append(time.monotonic() - t0)
+            report.samples.append((t_rel, 'ok'))
+            if pi not in refs:
+                refs[pi] = _solo(mps[pi], bits[pi], cfg, device)
+            want = refs[pi]
+            same = set(got) == set(want) and all(
+                np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+                for k in want)
+            if not same:
+                report.bit_mismatches += 1
+        time.sleep(0.005)
+    report.hung += len(pending)
     return report

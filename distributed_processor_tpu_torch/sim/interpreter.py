@@ -137,6 +137,12 @@ class FaultError(RuntimeError):
                  for (name, _), n in zip(FAULT_CODES, self.counts) if n]
         super().__init__('faulted shots: ' + (', '.join(parts) or 'none'))
 
+    def __reduce__(self):
+        # default exception pickling replays __init__ with the MESSAGE
+        # as counts; rebuild from the counts array instead so the error
+        # crosses the fleet wire (serve/transport.py) intact
+        return (FaultError, (self.counts,))
+
 
 def is_infrastructure_error(exc: BaseException) -> bool:
     """Classify an execution failure: ``True`` means the execution

@@ -1824,3 +1824,47 @@ def test_service_on_card_matches_direct_calls(card, program):
     assert set(gr) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(gr[k], v.cpu().numpy(), err_msg=k)
+
+
+def test_fleet_on_card_matches_direct_calls(card, program):
+    """Two replica processes on the card (one CUDA context and one
+    executor each) behind the fleet router: a coalesced RB request and
+    an 8-qubit headline request on K1 span (``singleton_engine=
+    'pallas'``), each equal on every key to the direct call on the card;
+    the replicas count the K1 span dispatch, and no replica process
+    outlives the fleet."""
+    from distributed_processor_tpu_torch.models import active_reset
+    from distributed_processor_tpu_torch.serve import Fleet
+    rng = np.random.default_rng(62)
+    cfg = InterpreterConfig(max_meas=4, max_resets=4)
+    rb_bits = rng.integers(0, 2, (256, program.n_cores, 4)).astype(np.int32)
+    qubits = [f'Q{i}' for i in range(8)]
+    head = compile_to_machine(active_reset(qubits)
+                              + rb_program(qubits, 12, seed=1234),
+                              make_default_qchip(8), n_qubits=8)
+    hcfg = InterpreterConfig(max_steps=2 * head.n_instr + 64,
+                             max_pulses=int(head.max_pulses_per_core(1)) + 4,
+                             max_meas=2, max_resets=2, record_pulses=False)
+    h_bits = rng.integers(0, 2, (8192, head.n_cores, 2)).astype(np.int32)
+    with Fleet(2, service={'max_batch_programs': 4, 'max_wait_ms': 5.0},
+               ready_timeout_s=300.0) as rb_fleet:
+        g = rb_fleet.submit(program, rb_bits, cfg=cfg).result(timeout=300)
+        eng = [rb_fleet.replica_stats(i)['engine_dispatches']
+               for i in range(2)]
+        procs = [s.proc for s in rb_fleet._replicas]
+    assert all(p.poll() is not None for p in procs)
+    assert sum(e.get('generic', 0) for e in eng) == 1
+    want = simulate_batch(program, rb_bits, cfg=cfg, device=card)
+    for k, v in want.items():
+        np.testing.assert_array_equal(g[k], v.cpu().numpy(), err_msg=k)
+    with Fleet(2, service={'singleton_engine': 'pallas',
+                           'max_batch_programs': 1, 'max_wait_ms': 1.0},
+               ready_timeout_s=300.0) as k1_fleet:
+        g = k1_fleet.submit(head, h_bits, cfg=hcfg).result(timeout=300)
+        eng = [k1_fleet.replica_stats(i)['engine_dispatches']
+               for i in range(2)]
+    assert sum(e.get('pallas', 0) for e in eng) == 1
+    want = simulate_batch(head, h_bits, cfg=dataclasses.replace(
+        hcfg, engine='pallas'), device=card)
+    for k, v in want.items():
+        np.testing.assert_array_equal(g[k], v.cpu().numpy(), err_msg=k)

@@ -96,6 +96,13 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/calib/__init__.py',
                  'distributed_processor_tpu_torch/calib/session.py',
                  'distributed_processor_tpu_torch/calib/loops.py',
+                 'distributed_processor_tpu_torch/serve/transport.py',
+                 'distributed_processor_tpu_torch/serve/router.py',
+                 'distributed_processor_tpu_torch/serve/fleet.py',
+                 'distributed_processor_tpu_torch/serve/replica_main.py',
+                 'distributed_processor_tpu_torch/serve/benchmark.py',
+                 'distributed_processor_tpu_torch/cli.py',
+                 'distributed_processor_tpu_torch/__main__.py',
                  'tests/test_torch_spmd_worker.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
