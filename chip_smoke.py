@@ -6,8 +6,14 @@ Phases, in order (any failure exits nonzero):
 
 1. environment: the card's name and power limit, and the build of every
    CUDA kernel of the port from ``distributed_processor_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
-2. each kernel against its plain torch version on the card, at the
+   (one ``nvcc`` per source, all started together, beside the ``g++``
+   build of the native command codec ``native/soa_codec.cpp``);
+2. first the port's kernel self-test (``ops.selftest``, the JAX
+   package's ``pallas_parity_check`` on its own inputs and tolerances):
+   K5 and K4 against their plain versions, K1 span, K1 block and K3
+   against the generic engine, each check timed with its launches, then
+   ``kernel_parity_check('cuda')`` whole; then
+   each kernel against its plain torch version on the card, at the
    shapes its path gives it, with its time beside the plain version's and
    its bound: the resolver K2 (sigma = 0, identical streamed noise, and
    the kernel's own Philox noise held to CLT bounds), and K2 with AR(1)
@@ -117,7 +123,9 @@ Phases, in order (any failure exits nonzero):
    result; a soak through a SIGKILL of the loaded replica, every
    completion equal to its solo run, goodput inside the kill window,
    the respawned replica warm after its catalog replay; a SIGSTOP caught
-   by gossip staleness and a SIGCONT re-admitted; headline requests on
+   by gossip staleness and a SIGCONT re-admitted, at the router's
+   default 250 ms liveness window (gossip has a connection of its own
+   to each replica, apart from the result frames); headline requests on
    K1 span and the looped headline on K1 block through a second fleet,
    each equal to its direct call; no thread or replica process left) and
    the command line (``cli.main``: ``run`` of the QASM headline with K2
@@ -125,7 +133,13 @@ Phases, in order (any failure exits nonzero):
    ``sweep`` of 1M shots, ``warmup``, ``serve-bench``, ``fleet-status``
    against a live fleet, each with its launches; ``python -m
    distributed_processor_tpu_torch run`` in a process of its own equal
-   to the in-process call);
+   to the in-process call); then the tooling (the native codec on the
+   headline's command buffers equal to the Python codec; the eleven
+   goldens equal to ``tests/goldens/*.json``; the fault-injection fuzz
+   over 35 mutants with K1 span and K1 block as a fourth engine, and the
+   feedback (K1), fused (K3), vmap and audit consistency checks, none
+   failing; K1 span, K1 block and K3 each launched; the headline's
+   ``carry_stream_bytes`` beside the bytes K1's bound counts);
 4. the headline on CUDA and on the CPU in the port, at sigma = 0 with
    explicit initial states: bits and statistics identical, and the
    three ``'lut'`` paths, ``simulate_rounds`` with the decode and
@@ -142,7 +156,9 @@ Phases, in order (any failure exits nonzero):
    its rank mode (``--rank R --world 2 --init URL --out DIR``): the
    8-core ``lut`` repetition round at 262144 shots on a cores mesh of 2
    (its first call, then a steady one), and the headline sweep at
-   dp = 2, both equal to the single-process runs.
+   dp = 2, both equal to the single-process runs, and the
+   fault-injection harness's ``check_mesh_consistency`` at dp = 2 (no
+   mismatched fault code).
 
 ``python3 chip_smoke.py --ranks N`` builds the kernels and runs only
 phase 7 on N ranks: a card per rank over NCCL on a host with N cards,
@@ -468,16 +484,59 @@ def phase_environment() -> dict:
     name = torch.cuda.get_device_name(0)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {name} count {torch.cuda.device_count()}')
+    from distributed_processor_tpu_torch import native
     t0 = time.perf_counter()
     sources = _cuda.sources()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(sources)) as pool:
+    # one nvcc per source and the host codec's g++, all started together
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        codec = pool.submit(native.build)
         for src in pool.map(lambda name: _cuda.build(name, verbose=True),
                             sources):
             print(f'built {src}')
+        print(f'built {codec.result()}')
     print(f'kernel build: {time.perf_counter() - t0:.3f} s '
-          f'({", ".join(s + ".cu" for s in sources)})')
+          f'({", ".join(s + ".cu" for s in sources)}, and the native '
+          f'codec native/soa_codec.cpp with g++)')
     return dict(smi=smi, name=name)
+
+
+def phase_selftest(env) -> None:
+    """Phase 2's first check: the port's kernel self-test
+    (``ops.selftest``) on the card, on the JAX package's own inputs and
+    tolerances: K5 and K4 against their plain versions, K1 span, K1 block
+    and K3 against the generic engine.  Each check runs alone, with its
+    wall time and the launches it made, then ``kernel_parity_check
+    ('cuda')`` runs them all again and must launch all five kernels."""
+    from distributed_processor_tpu_torch.ops import selftest
+    names = (('exec_span', 'K1 span'), ('exec_blocks', 'K1 block'),
+             ('exec_span_fused', 'K3'), ('render_shot', 'K4'),
+             ('demod_iq', 'K5'))
+
+    def run(fn) -> tuple:
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        fn(DEV)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _launches()
+        return wall, counts, ', '.join(f'{label} {counts[k]}'
+                                       for k, label in names)
+
+    for label, fn in (('K5 demod', selftest.check_demod_parity),
+                      ('K4 render', selftest.check_waveform_parity),
+                      ('K1 span, K1 block, K3',
+                       selftest.check_exec_parity)):
+        wall, _counts, text = run(fn)
+        print(f'self-test {label} ({fn.__name__}): {wall * 1e3:.1f} ms '
+              f'wall, launches {text}, on {env["smi"]}')
+    wall, counts, text = run(selftest.kernel_parity_check)
+    check(all(counts[k] > 0 for k, _ in names),
+          f'kernel_parity_check launched {counts}')
+    print(f'self-test kernel_parity_check({DEV!r}), all three again: '
+          f'{wall * 1e3:.1f} ms wall, launches {text}: every kernel held '
+          f'to its plain version on {env["smi"]}')
+    _reset_launches()
 
 
 def synthetic_tables(C: int, W: int, seed: int) -> dict:
@@ -978,7 +1037,9 @@ def phase_k1(mp, env) -> dict:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes',
-                library_ms=None)
+                library_ms=None, bound_bytes=nbytes, batch=B,
+                table_bytes=table.soa_np.nbytes + _nbytes(table.spc,
+                                                          table.interp))
 
 
 def phase_k3(mp, env) -> dict:
@@ -3874,16 +3935,13 @@ def phase_calib(env) -> None:
 # process; (a) replays phase_serve (a)'s requests, the kill and wedge
 # parts a soak of RB requests of 1024 shots (a third of the way in, the
 # loaded replica is killed), the headline requests of (b) run on K1
-# span through a second fleet with singleton_engine='pallas'.  One
-# connection carries a replica's gossip replies and its result frames, so
-# a heartbeat waits behind the frames ahead of it (a batch of (a) is 16
-# results of ~4.5 MB, a headline result ~200 MB): the liveness window is
-# 3 s, not the router's default 250 ms, which the frames of one batch
-# already outlast on the card
+# span through a second fleet with singleton_engine='pallas'.  The
+# routers keep the default liveness window (250 ms): gossip travels on a
+# connection of its own, beside the one carrying the result frames (a
+# batch of (a) is 16 results of ~4.5 MB, a headline result ~300 MB)
 FLEET = dict(replicas=2, soak_requests=48, soak_programs=8,
              soak_shots=1024, soak_rate_hz=40.0, kill_window_s=2.0,
-             wedge_requests=8, timeout=300.0, gossip_ms=100.0,
-             liveness_ms=3000.0)
+             wedge_requests=8, timeout=300.0, gossip_ms=100.0)
 # the command line on the card: the QASM headline at the headline's
 # batch, the looped headline at the loop path's lanes, the 1M-shot sweep
 CLI = dict(shots=262144, p1=0.15, loop_shots=32768, sweep_shots=1048576,
@@ -3902,8 +3960,7 @@ def _fleet(name: str, trace: bool = False, **service):
         service['devices'] = [DEV]
     router_kwargs = {'retry_policy': RetryPolicy(
         max_attempts=10, backoff_s=0.05, max_backoff_s=1.0),
-        'gossip_interval_ms': FLEET['gossip_ms'],
-        'liveness_window_ms': FLEET['liveness_ms']}
+        'gossip_interval_ms': FLEET['gossip_ms']}
     if trace:
         router_kwargs['trace_sample'] = 1.0
     if 'default_cfg' in service:
@@ -4016,6 +4073,7 @@ def phase_fleet(env, served: dict) -> dict:
         jobs = [[(mps[t * per + j], bits[t * per + j]) for j in range(per)]
                 for t in range(SERVE['threads'])]
         wire0 = _wire_bytes(fleet)
+        stale0 = fleet.router.stats()['gossip_stale']
         results, wall, lat = _serve_threads(fleet, jobs)
         wire_a = _wire_bytes(fleet) - wire0
         for i, got in enumerate(results):
@@ -4024,6 +4082,8 @@ def phase_fleet(env, served: dict) -> dict:
                           f'fleet (a) request {i}')
         del results
         st = fleet.stats()
+        rs = fleet.router.stats()
+        window_ms = fleet.router._liveness_window_s * 1e3
         eng_a = _engines(fleet)
         check(sum(e.get('generic', 0) for e in eng_a.values()) >= 1,
               f'fleet (a): replica engines {eng_a}')
@@ -4037,8 +4097,11 @@ def phase_fleet(env, served: dict) -> dict:
               f'{np.percentile(lat_ms, 99):.1f} ms (router p50 '
               f'{st["latency_p50_ms"]:.1f} / p99 {st["latency_p99_ms"]:.1f} '
               f'ms); {wire_a / 1e6:.1f} MB on the wire; replica engine '
-              f'dispatches {eng_a}; every result equal on every key to '
-              f'phase_serve (a)\'s in-process result on {smi}')
+              f'dispatches {eng_a}; liveness window {window_ms:.0f} ms: '
+              f'{rs["gossip_stale"] - stale0} stale heartbeats, failovers '
+              f'{rs["failovers"]}, retries {rs["retries"]}; every result '
+              f'equal on every key to phase_serve (a)\'s in-process result '
+              f'on {smi}')
         out['a'] = dict(rps=len(mps) / wall, wall=wall)
         t_part = _part('(a)', t_part, 'fleet')
 
@@ -4140,7 +4203,7 @@ def phase_fleet(env, served: dict) -> dict:
               f'fleet (d): no re-admission: {st}')
         print(f'fleet (d): replica {victim} SIGSTOPped under {k} requests: '
               f'gossip staleness marked it down within {stale_s:.3f} s '
-              f'(liveness window {FLEET["liveness_ms"]:.0f} ms), all {k} '
+              f'(liveness window {window_ms:.0f} ms), all {k} '
               f'completed equal to their '
               f'direct calls (failovers '
               f'{st["failovers"] - before["failovers"]}); SIGCONT '
@@ -4177,6 +4240,7 @@ def phase_fleet(env, served: dict) -> dict:
                                 LOOP['max_meas']), dtype=np.int32)
     try:
         wire0 = _wire_bytes(fleet)
+        rs0 = fleet.router.stats()
         t0 = time.perf_counter()
         hs = [fleet.submit(mp, b, cfg=hcfg) for b in hbits]
         got, done_s = [], []
@@ -4194,6 +4258,7 @@ def phase_fleet(env, served: dict) -> dict:
         lgot = fleet.submit(lmp, lbits, cfg=lcfg).result(timeout=T)
         loop_s = time.perf_counter() - t0
         eng_l = _engines(fleet)
+        rs = fleet.router.stats()
     finally:
         fleet.shutdown()
     n_span = sum(e.get('pallas', 0) for e in eng_b.values())
@@ -4222,6 +4287,9 @@ def phase_fleet(env, served: dict) -> dict:
           + f'), replica K1 span dispatches {n_span}; the looped headline x {LOOP["batch"]} '
           f'lanes in {loop_s:.3f} s, replica K1 block dispatches {n_loop} '
           f'({blocks} K1 block launches in the same direct call here); '
+          f'liveness window {fleet.router._liveness_window_s * 1e3:.0f} ms: '
+          f'{rs["gossip_stale"] - rs0["gossip_stale"]} stale heartbeats, '
+          f'failovers {rs["failovers"] - rs0["failovers"]}; '
           f'each equal on every key to the direct simulate_batch('
           f"engine='pallas') on {smi}")
     check(len(wire_ms) == len(hbits), f'fleet (b): wire spans {wire_ms}')
@@ -4434,6 +4502,134 @@ def phase_cli(env) -> dict:
           f'call on {smi}')
     _part('subprocess', t_part, 'cli')
     return out
+
+
+# the tooling on the card: the fault-injection corpus (35 mutants, about
+# one cycle of its 5 base programs x 7 mutators) with K1 as a fourth engine
+TOOLING = dict(fuzz_seed=0, fuzz_n=35)
+
+
+def phase_tooling(env, k1: dict) -> dict:
+    """The port's tooling on the card, with every launch count set to 0
+    just before: the native codec (built in phase 1) decoding the
+    headline's command buffers equal to the Python codec; the eleven
+    goldens compiled here equal to ``tests/goldens/*.json`` byte for
+    byte; the fault-injection fuzz with K1 span and K1 block as a fourth
+    engine on every mutant, and the feedback (K1), fused (K3), vmap and
+    audit consistency checks at the JAX package's defaults, each with no
+    failure; K1 span, K1 block and K3 each launched.  Then
+    ``carry_stream_bytes`` of the headline beside the bytes phase 2's K1
+    bound counts (``k1``).  Returns the launches."""
+    import os
+    import numpy as np
+    from distributed_processor_tpu_torch import isa, native
+    from distributed_processor_tpu_torch.assembler import GlobalAssembler
+    from distributed_processor_tpu_torch.elements import TPUElementConfig
+    from distributed_processor_tpu_torch.hwconfig import FPGAConfig
+    from distributed_processor_tpu_torch.models import (make_channel_configs,
+                                                        make_default_qchip)
+    from distributed_processor_tpu_torch.models.golden_suite import (
+        GOLDEN_PROGRAMS, canonical_json, compile_golden)
+    from distributed_processor_tpu_torch.pipeline import compile_program
+    from distributed_processor_tpu_torch.sim import faultinject as fi
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        carry_stream_bytes
+    smi = env['smi']
+    _reset_launches()
+    t_start = t_part = time.perf_counter()
+
+    # the native codec on the headline's command buffers
+    check(native.available(), 'the native codec did not build or load')
+    n = HEADLINE['n_qubits']
+    prog = compile_program(headline_source(), make_default_qchip(n),
+                           FPGAConfig(n_cores=n))
+    bufs = [b['cmd_buf'] for b in GlobalAssembler(
+        prog, make_channel_configs(n), TPUElementConfig)
+        .get_assembled_program().values()]
+    ms, soas = {}, {}
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        soas[use_native] = [isa.decode_soa(b, use_native=use_native)
+                            for b in bufs]
+        ms[use_native] = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(soas[True], soas[False]):
+        for f in isa.SOA_FIELDS:
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f'native decode of the headline differs on {f}')
+    words = sum(len(b) for b in bufs) // 16
+    print(f'tooling: native codec ({native.library_path()}) decodes the '
+          f'headline\'s {len(bufs)} command buffers ({words} words) equal to '
+          f'the Python codec on every field: {ms[True]:.3f} ms against '
+          f'{ms[False]:.3f} ms (host ms, beside {smi})')
+    t_part = _part('native', t_part, 'tooling')
+
+    # the goldens
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in GOLDEN_PROGRAMS:
+        with open(os.path.join(root, 'tests', 'goldens',
+                               name + '.json')) as f:
+            check(canonical_json(compile_golden(name)) + '\n' == f.read(),
+                  f'golden {name} differs from tests/goldens/{name}.json')
+    print(f'tooling: the {len(GOLDEN_PROGRAMS)} golden programs compile '
+          f'equal to tests/goldens/*.json byte for byte (host, beside '
+          f'{smi})')
+    t_part = _part('goldens', t_part, 'tooling')
+
+    # the fuzz, K1 beside the other engines
+    engines = fi.ENGINES + ('pallas',)
+    rep = fi.run_fuzz(seed=TOOLING['fuzz_seed'], n=TOOLING['fuzz_n'],
+                      engines=engines, device=DEV)
+    check(rep.ok and rep.n == TOOLING['fuzz_n'],
+          f'fault-injection fuzz: {rep.verdicts}, failures '
+          f'{rep.failures[:5]}')
+    fuzz = _launches()
+    print(f'tooling: run_fuzz(seed={TOOLING["fuzz_seed"]}, '
+          f'n={TOOLING["fuzz_n"]}, engines={engines}): verdicts '
+          f'{rep.verdicts}, no failure; K1 span {fuzz["exec_span"]}, K1 '
+          f'block {fuzz["exec_blocks"]} launches on {smi}')
+    t_part = _part('fuzz', t_part, 'tooling')
+
+    # the consistency checks at the JAX package's defaults
+    res = {}
+    for name, fn in (('feedback', fi.check_feedback_consistency),
+                     ('fused', fi.check_fused_consistency)):
+        r = fn(device=DEV)
+        check(not r['failures'] and r['checked'] > 0,
+              f'check_{name}_consistency: {r}')
+        res[name] = f'{r["checked"]} checked, {r["skipped"]} skipped'
+    bad = fi.check_vmap_consistency(device=DEV)
+    check(bad == 0, f'check_vmap_consistency: {bad} mismatched programs')
+    aud = fi.check_audit_consistency(device=DEV)
+    check(aud['false_positives'] == 0 and aud['checked'] > 0,
+          f'check_audit_consistency: {aud}')
+    counts = _launches()
+    for k, label in (('exec_span', 'K1 span'), ('exec_blocks', 'K1 block'),
+                     ('exec_span_fused', 'K3')):
+        check(counts[k] > 0, f'tooling: {label} was not launched: {counts}')
+    wall = time.perf_counter() - t_start
+    print(f'tooling: consistency checks: feedback (generic, block, K1) '
+          f'{res["feedback"]}, fused (generic, K3) {res["fused"]}, vmap 0 '
+          f'mismatched, audit {aud["checked"]} checked, {aud["audits"]} '
+          f'audits, 0 false positives; the phase launched K1 span '
+          f'{counts["exec_span"]}, K1 block {counts["exec_blocks"]}, K3 '
+          f'{counts["exec_span_fused"]} in {wall:.1f} s on {smi}')
+    _part('consistency', t_part, 'tooling')
+
+    # the carry stream beside K1's bound
+    mp = headline_program()
+    per_shot, packed = carry_stream_bytes(mp, headline_config(mp))
+    B = k1['batch']
+    check(packed == per_shot and k1['bound_bytes'] - k1['table_bytes']
+          == B * per_shot,
+          f'carry_stream_bytes {per_shot} x {B} shots + the table '
+          f'{k1["table_bytes"]} != the K1 bound\'s {k1["bound_bytes"]} bytes')
+    print(f'tooling: carry_stream_bytes(headline) = {per_shot} bytes a shot '
+          f'(the carry read and written once, the injected bits read once; '
+          f'packed = unpacked, one layout); phase 2\'s K1 bound counts '
+          f'{k1["bound_bytes"]} bytes at B={B}: that stream for every shot '
+          f'plus the program table and element geometry once '
+          f'({k1["table_bytes"]} bytes), on {smi}')
+    return counts
 
 
 def phase_cuda_vs_cpu(mp):
@@ -4767,6 +4963,9 @@ def phase_multi_rank(mp, env, world: int = None) -> None:
         got = {k: o['sweep'][k] for k in want}
         check(got == want, f'multi-rank: rank {r} dp=2 sweep {got} differs '
                            f'from the single-process batches {want}')
+        check(o['mesh_check']['bad'] == 0,
+              f'multi-rank: rank {r} check_mesh_consistency counted '
+              f'{o["mesh_check"]["bad"]} mismatched fault codes')
     c = outs[0]['cores']
     cards = len({o['card'] for o in outs})
     print(f'multi-rank, {world} {outs[0]["backend"]} ranks on {cards} '
@@ -4784,7 +4983,10 @@ def phase_multi_rank(mp, env, world: int = None) -> None:
           f'({n} x {B}): '
           + ' / '.join(f'{o["sweep"]["wall"]:.3f}' for o in outs)
           + f' s per rank, every key equal to the single-process batches at '
-          f'derive_seed(seed, i, r)')
+          f'derive_seed(seed, i, r); check_mesh_consistency at dp={world}: '
+          f'0 mismatched fault codes on every rank ('
+          + ' / '.join(f'{o["mesh_check"]["wall"]:.3f}' for o in outs)
+          + ' s per rank)')
 
 
 def rank_main(rank: int, world: int, init: str, out: str) -> int:
@@ -4849,6 +5051,14 @@ def rank_main(rank: int, world: int, init: str, out: str) -> int:
         err_shots=r['err_shots'],
         fault_shots=list(r['fault_shots'].values()),
         survival00_rate=r['survival00_rate'])
+    # the fault-injection harness's mesh check: a starved mutant ensemble
+    # through run_multi_sweep with and without the dp mesh
+    from distributed_processor_tpu_torch.sim.faultinject import \
+        check_mesh_consistency
+    sync()
+    t0 = time.perf_counter()
+    res['mesh_check'] = dict(bad=check_mesh_consistency(device=DEV),
+                             wall=time.perf_counter() - t0)
     with open(f'{out}/rank{rank}.json', 'w') as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -4893,6 +5103,7 @@ def main(argv: list) -> int:
     t_start = time.perf_counter()
     env = timed(phase_environment)
     mp = headline_program()
+    timed(phase_selftest, env)
     resolve = timed(phase_kernels, mp)
     torch.cuda.empty_cache()
     resolve_ar1 = timed(phase_k2_ar1, mp)
@@ -4951,6 +5162,8 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     cli = timed(phase_cli, env)
     torch.cuda.empty_cache()
+    tooling = timed(phase_tooling, env, k1)
+    torch.cuda.empty_cache()
     timed(phase_cuda_vs_cpu, mp)
     timed(phase_sweep, mp, env)
     torch.cuda.empty_cache()
@@ -4984,6 +5197,8 @@ def main(argv: list) -> int:
           f"(run --physics), {cli['sweep_resolve_windows']} (sweep), K1 span "
           f"{cli['exec_span']} (run --engine pallas), K1 block "
           f"{cli['exec_blocks']} (run of the looped headline)")
+    print(f"tooling paths (launches): K1 span {tooling['exec_span']}, K1 "
+          f"block {tooling['exec_blocks']}, K3 {tooling['exec_span_fused']}")
     print('rounds paths (launches in one simulate_rounds call): '
           + '; '.join(f'{label}: {n}' for label, n in rounds.items())
           + ' (K1 span on the loop-free rounds, K1 block on the looped '

@@ -339,9 +339,17 @@ def _bits(word: int, pos: int, width: int) -> int:
     return (word >> pos) & ((1 << width) - 1)
 
 
-def decode_soa(cmds) -> SoAProgram:
-    """Decode a command buffer (bytes or list of 128-bit ints) into SoA form
-    (the pure-Python codec; this package carries no native decoder)."""
+def decode_soa(cmds, use_native: bool = True) -> SoAProgram:
+    """Decode a command buffer (bytes or list of 128-bit ints) into SoA form.
+
+    Uses the native C++ codec when available (bit-exact with the Python
+    path below; see distributed_processor_tpu_torch/native/)."""
+    if isinstance(cmds, (bytes, bytearray)) and use_native:
+        from . import native
+        if native.available():
+            fields_arr = native.decode_soa_fields(bytes(cmds))
+            return SoAProgram(**{f: np.ascontiguousarray(fields_arr[i])
+                                 for i, f in enumerate(SOA_FIELDS)})
     if isinstance(cmds, (bytes, bytearray)):
         cmds = bytes_to_cmds(bytes(cmds))
     n = len(cmds)

@@ -1,0 +1,159 @@
+"""Kernel parity self-test, shared by ``chip_smoke.py`` and the
+``cuda``-marked tests so that both run the same assertions.
+
+The counterpart of the JAX package's ``ops/selftest.py``
+(``pallas_parity_check(interpret)``), on the JAX package's own inputs
+and tolerances.  On ``'cuda'`` each check holds a hand kernel against
+its plain torch version on the same card: K5 (``csrc/demod.cu``,
+:func:`.demod.demod_iq`) against :func:`.demod.demod_iq_reference`, K4
+(``csrc/waveform.cu``, :func:`.waveform.synthesize_element`) against
+:func:`.waveform.synthesize_element_reference`, and K1 span, K1 block
+and K3 (``csrc/exec_span.cu``: ``engine='pallas'`` and
+``engine='fused'``) against the generic engine.  On ``'cpu'`` both
+sides are plain, so tier-1 runs the checks themselves.  The device is
+the caller's: with none named it is the card, and the check raises when
+there is no card rather than running on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..elements import ENV_CW_SENTINEL
+from .demod import demod_iq, demod_iq_reference
+from .waveform import synthesize_element, synthesize_element_reference
+
+
+def _device(device) -> torch.device:
+    # deferred import: ops stays import-time independent of sim
+    # (sim.physics imports ops)
+    from ..sim.interpreter import torch_device
+    return torch_device(device)
+
+
+def check_demod_parity(device=None) -> None:
+    """K5 against the plain product on ``device``; raises on
+    mismatch."""
+    d = _device(device)
+    rng = np.random.default_rng(0)
+    adc = torch.as_tensor(rng.standard_normal((1000, 1024))
+                          .astype(np.float32), device=d)
+    w = torch.as_tensor(rng.standard_normal((1024, 8)).astype(np.float32),
+                        device=d)
+    got = demod_iq(adc, w).cpu().numpy()
+    want = demod_iq_reference(adc, w).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-3)
+
+
+def waveform_inputs() -> tuple:
+    """The JAX check's pulse table (four records, one CW, one unused)
+    and its complex envelope memory: ``(rec, env)``."""
+    rng = np.random.default_rng(1)
+    env = (rng.standard_normal(256) + 1j * rng.standard_normal(256)) * 0.5
+    rec = {
+        'gtime': np.asarray([4, 40, 90, 0], np.int32),
+        'env': np.asarray([(32 << 12) | 0, (48 << 12) | 16,
+                           (ENV_CW_SENTINEL << 12) | 8, 0], np.int32),
+        'phase': np.asarray([0, 1 << 15, 1 << 14, 0], np.int32),
+        'freq_rel': np.asarray([0.1, 0.23, 0.05, 0], np.float32),
+        'amp': np.asarray([0xffff, 0x8000, 0x4000, 0], np.int32),
+        'elem': np.asarray([0, 0, 0, 0], np.int32),
+        'n_pulses': np.int32(3),
+    }
+    return rec, env
+
+
+WAVEFORM_GEOMETRY = dict(spc=4, interp=1, n_clks=128)
+
+
+def check_waveform_parity(device=None) -> None:
+    """K4 against the plain render on ``device``; raises on
+    mismatch."""
+    d = _device(device)
+    rec, env = waveform_inputs()
+    got = synthesize_element(rec, env, device=d, **WAVEFORM_GEOMETRY)
+    want = synthesize_element_reference(rec, env, device=d,
+                                        **WAVEFORM_GEOMETRY)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def exec_programs() -> tuple:
+    """The JAX check's two injected-bits programs, as per-core command
+    lists: a forward-only span (K1 span) and a counted loop (K1
+    block)."""
+    from .. import isa
+    span = [[isa.pulse_cmd(amp_word=1000, cfg_word=0,
+                           env_word=(8 << 12) | 3, cmd_time=10),
+             isa.alu_cmd('reg_alu', 'i', 5, 'add', alu_in1=1,
+                         write_reg_addr=1),
+             isa.pulse_cmd(amp_word=2000, cfg_word=2,
+                           env_word=(4 << 12) | 1, cmd_time=40),
+             isa.done_cmd()]]
+    loop = [[isa.alu_cmd('reg_alu', 'i', 0, 'add', write_reg_addr=2),
+             isa.pulse_cmd(amp_word=500, cfg_word=1,
+                           env_word=(4 << 12) | 2, cmd_time=12),
+             isa.alu_cmd('reg_alu', 'i', 1, 'add', alu_in1=2,
+                         write_reg_addr=2),
+             isa.alu_cmd('jump_cond', 'i', 3, 'ge', alu_in1=2,
+                         jump_cmd_ptr=1),
+             isa.done_cmd()]]
+    return span, loop
+
+
+def _assert_equal(got: dict, want: dict, skip: tuple) -> None:
+    for k in want:
+        if k in skip:
+            continue
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      want[k].cpu().numpy(), err_msg=k)
+
+
+def check_exec_parity(device=None) -> None:
+    """K1 span, K1 block and K3 against the generic engine on
+    ``device``; raises on mismatch.
+
+    Exact int32 equality on every output but ``steps`` for the span
+    program and the counted loop under ``engine='pallas'``; then the
+    fused measurement path: ``active_reset`` on 2 qubits at sigma = 0
+    under ``engine='fused'``, exact on every output but ``steps`` and
+    ``epochs`` (the loop-structure counters the fusion exists to
+    change), with ``epochs == 1``."""
+    from ..decoder import machine_program_from_cmds
+    from ..models.experiments import active_reset
+    from ..sim.interpreter import InterpreterConfig, simulate_batch
+    from ..sim.physics import ReadoutPhysics, run_physics_batch
+    from ..simulator import Simulator
+    d = _device(device)
+    rng = np.random.default_rng(2)
+    for cmds in exec_programs():
+        mp = machine_program_from_cmds(cmds)
+        kw = dict(max_steps=2 * mp.n_instr + 64, max_pulses=8,
+                  max_meas=2, max_resets=2)
+        bits = rng.integers(0, 2, size=(4, mp.n_cores, 2))
+        want = simulate_batch(mp, bits, device=d, cfg=InterpreterConfig(
+            engine='generic', **kw))
+        got = simulate_batch(mp, bits, device=d, cfg=InterpreterConfig(
+            engine='pallas', **kw))
+        _assert_equal(got, want, ('steps',))
+    mpf = Simulator(n_qubits=2, device=d).compile(active_reset(['Q0', 'Q1']))
+    init = rng.integers(0, 2, (4, mpf.n_cores)).astype(np.int32)
+    kwf = dict(init_states=init, max_steps=mpf.n_instr * 4 + 64,
+               max_pulses=16, max_meas=4, device=d)
+    want = run_physics_batch(mpf, ReadoutPhysics(sigma=0.0), 3, 4,
+                             engine='generic', **kwf)
+    got = run_physics_batch(mpf, ReadoutPhysics(sigma=0.0), 3, 4,
+                            engine='fused', **kwf)
+    _assert_equal(got, want, ('steps', 'epochs'))
+    assert int(got['epochs']) == 1, \
+        'fused engine did not collapse the epoch loop'
+
+
+def kernel_parity_check(device=None) -> None:
+    """Run every kernel parity check on ``device`` (default: the card,
+    raising without one); raises AssertionError on mismatch.  The
+    counterpart of the JAX package's ``pallas_parity_check``."""
+    check_demod_parity(device)
+    check_waveform_parity(device)
+    check_exec_parity(device)

@@ -8,12 +8,16 @@ design deliberately re-uses the in-process supervision vocabulary one
 ring out:
 
 * **Health gossip.**  A gossip thread polls every replica's ``stats()``
-  digest (queue depth, est_wait, health mix) on ``gossip_interval_ms``.
-  Each response re-arms the replica's heartbeat; a replica whose last
-  heartbeat exceeds ``liveness_window_ms`` is declared down
-  (``gossip_stale`` + ``replica_down`` flight events) even when its TCP
-  connection still accepts bytes — the wedged-process case a connection
-  error can never surface.  A stale replica that beats again (a SIGCONT
+  digest (queue depth, est_wait, health mix) on ``gossip_interval_ms``,
+  over a second connection to the replica that carries only gossip:
+  a heartbeat never waits behind the result frames of the request
+  connection, whose writes hold that connection's lock for a whole
+  frame (a headline result is ~300 MB).  Either connection dying loses
+  the replica.  Each response re-arms the replica's heartbeat; a
+  replica whose last heartbeat exceeds ``liveness_window_ms`` is
+  declared down (``gossip_stale`` + ``replica_down`` flight events)
+  even when its TCP connections still accept bytes — the
+  wedged-process case a connection error can never surface.  A stale replica that beats again (a SIGCONT
   after a wedge) is simply re-admitted: its recovered requests already
   completed elsewhere, and the stale wire callbacks were forgotten, so
   resuming routing to it is safe.
@@ -110,13 +114,14 @@ class _FleetRequest:
 
 
 class _Replica:
-    __slots__ = ('rid', 'client', 'breaker', 'alive', 'quarantined',
-                 'last_beat', 'digest', 'inflight', 'gossip_pending',
-                 'reconnect_t')
+    __slots__ = ('rid', 'client', 'beat', 'breaker', 'alive',
+                 'quarantined', 'last_beat', 'digest', 'inflight',
+                 'gossip_pending', 'reconnect_t')
 
-    def __init__(self, rid, client, breaker):
+    def __init__(self, rid, client, beat, breaker):
         self.rid = rid
-        self.client = client
+        self.client = client        # requests and their results
+        self.beat = beat            # gossip only
         self.breaker = breaker
         self.alive = True
         self.quarantined = False
@@ -126,9 +131,16 @@ class _Replica:
         self.gossip_pending = False
         self.reconnect_t = 0.0      # last re-dial attempt (throttle)
 
+    def connected(self) -> bool:
+        """Both connections are open."""
+        return self.client is not None and self.client.alive \
+            and self.beat is not None and self.beat.alive
+
     def routable(self) -> bool:
-        return self.alive and not self.quarantined \
-            and self.client is not None and self.client.alive
+        return self.alive and not self.quarantined and self.connected()
+
+    def clients(self) -> list:
+        return [c for c in (self.client, self.beat) if c is not None]
 
     def load(self) -> tuple:
         # gossiped load: est_wait (None sorts as 0) then queue depth
@@ -234,14 +246,24 @@ class FleetRouter:
 
     def add_replica(self, rid: str, address) -> None:
         """Connect to (or reconnect to a respawned) replica at
-        ``address`` and start routing to it."""
-        client = ReplicaClient(
-            address,
-            # late-bound `client`: the loss guard must name the exact
-            # connection that died, so a replaced client's death can
-            # never take down its successor
-            on_lost=lambda exc: self._replica_lost(rid, exc,
-                                                   via=client))
+        ``address`` and start routing to it: one connection for
+        requests and results, one for gossip."""
+        def connect():
+            client = ReplicaClient(
+                address,
+                # late-bound `client`: the loss guard must name the
+                # exact connection that died, so a replaced client's
+                # death can never take down its successor
+                on_lost=lambda exc: self._replica_lost(rid, exc,
+                                                       via=client))
+            return client
+
+        client = connect()
+        try:
+            beat = connect()
+        except OSError:
+            client.close()
+            raise
         with self._lock:
             old = self._replicas.get(rid)
         if old is not None and old.alive:
@@ -251,13 +273,14 @@ class FleetRouter:
         with self._lock:
             old = self._replicas.get(rid)
             self._replicas[rid] = _Replica(
-                rid, client,
+                rid, client, beat,
                 CircuitBreaker(self._breaker_threshold,
                                self._breaker_cooldown_s))
             self._replica_up += 1
             self._cv.notify_all()
-        if old is not None and old.client is not None:
-            old.client.close()
+        if old is not None:
+            for c in old.clients():
+                c.close()
         profiling.counter_inc('fleet.replica_up')
         self.flight_recorder.record('replica_up', rid=rid,
                                     address=list(address))
@@ -268,8 +291,9 @@ class FleetRouter:
         self._replica_lost(rid, ReplicaLostError(f'{rid} removed'))
         with self._lock:
             rep = self._replicas.pop(rid, None)
-        if rep is not None and rep.client is not None:
-            rep.client.close()
+        if rep is not None:
+            for c in rep.clients():
+                c.close()
 
     def replica_ids(self) -> list:
         with self._lock:
@@ -740,12 +764,14 @@ class FleetRouter:
         """Connection death or gossip staleness: declare the replica
         down, recover every in-flight request it held, and retry each
         on a surviving replica.  ``via`` (a ReplicaClient) scopes the
-        report to one specific connection — a replaced client's death
-        must not take down its successor."""
+        report to one specific connection, either of the replica's two
+        — a replaced client's death must not take down its
+        successor."""
         with self._lock:
             rep = self._replicas.get(rid)
             if rep is None or not rep.alive \
-                    or (via is not None and rep.client is not via):
+                    or (via is not None and via is not rep.client
+                        and via is not rep.beat):
                 return
             rep.alive = False
             self._replica_down += 1
@@ -755,7 +781,7 @@ class FleetRouter:
             for key in [k for k, r in self._home.items() if r == rid]:
                 del self._home[key]
             self._failovers += len(recovered)
-            client = rep.client
+            client, beat = rep.client, rep.beat
         profiling.counter_inc('fleet.replica_down')
         self.flight_recorder.record(
             'replica_down', rid=rid, reason=type(exc).__name__,
@@ -764,9 +790,11 @@ class FleetRouter:
         # A SIGKILLed replica can't answer (the last gossiped digest
         # stands in); a WEDGED one answers after SIGCONT — async, so a
         # frozen socket never stalls the loss path
-        if client is not None and client.alive:
+        puller = next((c for c in (beat, client)
+                       if c is not None and c.alive), None)
+        if puller is not None:
             try:
-                client.call_async(
+                puller.call_async(
                     'flight', {},
                     lambda ok, resp: self._on_flight_pull(
                         rid, ok, resp))
@@ -789,7 +817,7 @@ class FleetRouter:
                     return
                 reps = list(self._replicas.values())
             for rep in reps:
-                client = rep.client
+                client = rep.beat
                 if client is None or not client.alive \
                         or rep.gossip_pending:
                     continue
@@ -826,7 +854,7 @@ class FleetRouter:
             if self._closing:
                 return
             for rep in self._replicas.values():
-                if rep.client is not None and not rep.client.alive \
+                if rep.client is not None and not rep.connected() \
                         and now - rep.reconnect_t \
                         >= self._liveness_window_s:
                     rep.reconnect_t = now
@@ -873,8 +901,8 @@ class FleetRouter:
                     'counts': fl['counts'], 'events': fl['tail'],
                     'mono': resp.get('mono'), 'cached_t': t_recv,
                 }
-            if not rep.alive:
-                # a wedged replica resumed (SIGCONT): its connection
+            if not rep.alive and rep.connected():
+                # a wedged replica resumed (SIGCONT): its connections
                 # never died, its heartbeat just went stale; its
                 # recovered requests completed elsewhere and their
                 # wire callbacks were forgotten, so routing to it
@@ -900,8 +928,7 @@ class FleetRouter:
         stale = []
         with self._lock:
             for rep in self._replicas.values():
-                if rep.alive and rep.client is not None \
-                        and rep.client.alive \
+                if rep.alive and rep.connected() \
                         and now - rep.last_beat \
                         > self._liveness_window_s:
                     stale.append(rep.rid)
@@ -1215,8 +1242,8 @@ class FleetRouter:
             for rep in self._replicas.values():
                 doomed.extend(f for f, _tok in rep.inflight.values())
                 rep.inflight.clear()
-            clients = [rep.client for rep in self._replicas.values()
-                       if rep.client is not None]
+            clients = [c for rep in self._replicas.values()
+                       for c in rep.clients()]
         err = ShutdownError(f'fleet router {self.name!r} shut down')
         with self._lock:
             for freq in doomed:

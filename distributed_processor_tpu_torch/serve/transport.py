@@ -66,6 +66,15 @@ preallocated buffer through ``recv_into``, so a 200 MB result frame
 costs one pass over its bytes, not one copy of the growing buffer per
 socket read.
 
+A frame is pickled and unpickled in pieces, through Python-level file
+objects (:class:`_FrameWriter`, :class:`_FrameReader`): the pickler hands
+each array's buffer over as a view, written to the socket without a
+copy, and the unpickler fills each array a few MB at a time.  The bytes
+are those of ``pickle.dumps``, but no single call holds the interpreter
+lock for the whole of a ~300 MB result, so the threads that answer and
+read heartbeats on the gossip connection (:mod:`.router`) keep running
+while a large frame is pickled or unpickled.
+
 All threads carry the ``dproc-serve`` name prefix, so the conftest
 thread-leak probe holds this tier to the same no-leak contract as the
 service's dispatchers.
@@ -82,6 +91,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..utils import profiling
@@ -132,16 +142,79 @@ def install_wire_corruptor(fn):
     return prev
 
 
+# a frame this small goes out in one write with its header
+_SMALL_FRAME = 1 << 16
+# the unpickler fills a large array this many bytes per step
+_READ_STEP = 1 << 22
+
+
+class _FrameWriter:
+    """The pickler's output file: each write kept as a view (an array's
+    buffer is not copied) and folded into the payload's CRC32."""
+
+    __slots__ = ('parts', 'n', 'crc')
+
+    def __init__(self):
+        self.parts, self.n, self.crc = [], 0, 0
+
+    def write(self, b) -> int:
+        view = memoryview(b).cast('B')
+        self.parts.append(view)
+        self.n += view.nbytes
+        self.crc = zlib.crc32(view, self.crc)
+        return view.nbytes
+
+
+class _FrameReader:
+    """The unpickler's input file over a received payload; a large
+    ``readinto`` (an array's bytes) copies in steps of
+    :data:`_READ_STEP`."""
+
+    __slots__ = ('view', 'pos')
+
+    def __init__(self, buf):
+        self.view, self.pos = memoryview(buf).cast('B'), 0
+
+    def read(self, n: int = -1) -> bytes:
+        start = self.pos
+        end = self.view.nbytes if n is None or n < 0 \
+            else min(start + n, self.view.nbytes)
+        self.pos = end
+        return self.view[start:end].tobytes()
+
+    def readinto(self, b) -> int:
+        out = memoryview(b).cast('B')
+        n = min(out.nbytes, self.view.nbytes - self.pos)
+        for i in range(0, n, _READ_STEP):
+            j = min(i + _READ_STEP, n)
+            out[i:j] = self.view[self.pos + i:self.pos + j]
+        self.pos += n
+        return n
+
+    def readline(self) -> bytes:
+        rest = self.view[self.pos:]
+        i = rest.tobytes().find(b'\n')
+        return self.read(rest.nbytes if i < 0 else i + 1)
+
+
 def send_frame(sock: socket.socket, obj, lock: threading.Lock) -> int:
     """Pickle ``obj`` and write one CRC-stamped length-prefixed frame.
     ``lock`` serializes concurrent writers (responses from the waiter
     pool interleave with reader-thread error replies).  Returns the
     total bytes written (header + payload) so callers can meter
-    bytes-on-wire per tenant (docs/SERVING.md "Tenants")."""
-    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    bytes-on-wire per tenant (docs/SERVING.md "Tenants").  The bytes are
+    ``header + pickle.dumps(obj)``, written piece by piece."""
+    w = _FrameWriter()
+    pickle.Pickler(w, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    head = _HDR.pack(w.n, w.crc)
     with lock:
-        sock.sendall(_HDR.pack(len(data), zlib.crc32(data)) + data)
-    return _HDR.size + len(data)
+        if w.n <= _SMALL_FRAME:
+            sock.sendall(head + b''.join(w.parts))
+        else:
+            sock.sendall(head)
+            for part in w.parts:
+                sock.sendall(part)
+    return _HDR.size + w.n
 
 
 def recv_frame(sock: socket.socket):
@@ -172,14 +245,16 @@ def recv_frame_sized(sock: socket.socket):
         raise WireCorruptionError(
             f'frame CRC mismatch ({n} bytes): payload corrupted on '
             f'the wire')
-    return pickle.loads(data), _HDR.size + n
+    return pickle.Unpickler(_FrameReader(data)).load(), _HDR.size + n
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+def _recv_exact(sock: socket.socket, n: int) -> np.ndarray:
     """Exactly ``n`` bytes, read into one preallocated buffer: each read
     fills the next stretch in place, so a frame costs one pass over its
-    bytes however many reads it takes."""
-    buf = bytearray(n)
+    bytes however many reads it takes.  The buffer is uninitialised
+    uint8 (a ``bytearray`` would zero a large frame's memory first,
+    holding the interpreter lock throughout)."""
+    buf = np.empty(n, np.uint8)
     view = memoryview(buf)
     got = 0
     while got < n:

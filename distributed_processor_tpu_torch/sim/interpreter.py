@@ -213,11 +213,12 @@ _REC_FIELDS = ('qtime', 'gtime', 'env', 'phase', 'freq', 'amp', 'cfg',
 class InterpreterConfig:
     """Static execution parameters — the JAX package's
     ``InterpreterConfig`` field for field, so one config reads the same
-    in both packages.  Fields that select an engine or feature this
-    package does not port yet raise when a run uses them; the carry
-    layout knobs (``steps_per_iter``, ``packed_ctrl``,
-    ``pallas_interpret``, ``packed_carry``) leave every engine's results
-    unchanged and are accepted as no-ops."""
+    in both packages, and every field is served.  The carry layout knobs
+    of the JAX package's Pallas kernel (``steps_per_iter``,
+    ``packed_ctrl``, ``pallas_interpret``, ``packed_carry``) leave every
+    engine's results unchanged and are accepted as no-ops: the port's
+    K1 has one carry layout (:func:`use_packed_carry`,
+    :func:`carry_stream_bytes`)."""
     max_steps: int = 4096
     max_pulses: int = 256
     max_meas: int = 64
@@ -516,6 +517,252 @@ def _static_meas_bounds(soa_np, cfg: InterpreterConfig):
         return None, n_rst
     bound = int(max((int(pm[c].sum()) for c in range(C)), default=0))
     return bound, n_rst
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's bit-packed megastep carry, as probes.  Its Pallas
+# kernel can round-trip the machine state through HBM bit-packed, under a
+# layout carry_packspec derives from a static analysis of the program;
+# the port's K1 / K3 read and write one unpacked int32 / bool layout, so
+# packed_carry is a no-op here.  carry_packspec is kept as the JAX
+# package's analysis (its tuples equal JAX's:
+# tests/test_torch_carry_probes.py) and carry_stream_bytes prices the
+# port's own kernels.
+
+_ERR_ALL = (ERR_MISSED_TRIG | ERR_PULSE_OVERFLOW | ERR_MEAS_OVERFLOW
+            | ERR_FPROC_DEADLOCK | ERR_SYNC_DONE | ERR_FPROC_ID
+            | ERR_STICKY_RACE | ERR_CW_MEAS | ERR_COFIRE_ORDER)
+_FAULT_ALL = functools.reduce(lambda a, b: a | b,
+                              (bit for _, bit in FAULT_CODES))
+# pulse-latch regsel bits whose register sourcing makes pulse DURATION
+# dynamic: env (bit 0, length nibble) and cfg (bit 4, element select)
+_RSEL_TIMING = 0b10001
+
+
+def _bl(x: int) -> int:
+    return max(int(x).bit_length(), 1)
+
+
+def _static_pc_width(soa_np):
+    """Bits covering every value ``pc`` can hold: the fall-through
+    range ``[0, N]`` plus every static jump target (a taken OOB jump
+    parks the lane AT the raw target).  None when a negative target
+    exists (sign bit needed — not worth a lane)."""
+    kind = soa_np[..., _F['kind']]
+    ja = soa_np[..., _F['jump_addr']]
+    jm = np.isin(kind, _JUMP_KINDS)
+    hi = int(soa_np.shape[1])
+    if np.any(jm):
+        t = ja[jm]
+        if int(t.min()) < 0:
+            return None
+        hi = max(hi, int(t.max()))
+    return _bl(hi)
+
+
+def _static_clock_bound(soa_np, cfg: InterpreterConfig, spc_np, interp_np):
+    """Upper bound on every clock value (``time`` / ``meas_avail`` /
+    ``rst_time`` / ``meas_gtime``) one SPAN execution can produce, or
+    None when the program makes clocks data-dependent (INC_QCLK
+    rewrites the offset; a reg-sourced envelope/cfg latch makes pulse
+    duration dynamic).  Walks each core's instruction list once —
+    sound because a span index retires at most once — accumulating the
+    per-kind time advances of ``_sl_apply_instr`` with every pulse
+    charged the worst static duration."""
+    kind = soa_np[..., _F['kind']]
+    C, N = kind.shape
+    if np.any(kind == isa.K_INC_QCLK):
+        return None
+    bound = 0
+    for c in range(C):
+        k = kind[c]
+        wen = soa_np[c, :, _F['p_wen']].astype(np.int64)
+        rsel = soa_np[c, :, _F['p_regsel']].astype(np.int64)
+        penv = soa_np[c, :, _F['p_env']].astype(np.int64)
+        cmd = soa_np[c, :, _F['cmd_time']].astype(np.int64)
+        is_p = np.isin(k, (isa.K_PULSE_WRITE, isa.K_PULSE_TRIG))
+        if np.any((wen[is_p] & rsel[is_p] & _RSEL_TIMING) != 0):
+            return None
+        # worst static duration: longest latched envelope at the
+        # slowest element clock (CW 0xfff counts as 0 — physics-mode
+        # CW measurement windows are gated out of the packed engines)
+        lens = (penv[is_p & ((wen & 1) == 1)] >> 12) & 0xfff
+        lens = lens[lens != 0xfff]
+        interp_max = int(np.max(interp_np[c])) if interp_np[c].size else 1
+        spc_min = max(int(np.min(spc_np[c])), 1) if spc_np[c].size else 1
+        dur_max = 0
+        for L in np.unique(lens).tolist():
+            ns = int(L) * 4 * interp_max
+            dur_max = max(dur_max, -(-ns // spc_min))
+        t = int(INIT_TIME)
+        for i in range(N):
+            ki = int(k[i])
+            if ki in (isa.K_PULSE_TRIG, isa.K_IDLE):
+                t = max(t, max(int(cmd[i]), 0)) + cfg.pulse_load_clks
+            elif ki in (isa.K_PULSE_WRITE, isa.K_PULSE_RESET):
+                t += cfg.pulse_regwrite_clks
+            elif ki == isa.K_REG_ALU:
+                t += cfg.alu_instr_clks
+            elif ki in (isa.K_JUMP_I, isa.K_JUMP_COND):
+                t += cfg.jump_cond_clks
+            elif ki in (isa.K_JUMP_FPROC, isa.K_ALU_FPROC):
+                t += cfg.jump_fproc_clks
+        bound = max(bound, t + dur_max + cfg.meas_latency)
+    return bound if 0 <= bound < 2**31 else None
+
+
+def use_packed_carry(cfg: InterpreterConfig) -> bool:
+    """Resolve the ``cfg.packed_carry`` tri-state: an explicit value
+    stands; AUTO (None) is False, because the port's K1 and K3 have one
+    carry layout.  Either way the run is the same: the port accepts
+    ``packed_carry`` as a no-op."""
+    return bool(cfg.packed_carry)
+
+
+def carry_packspec(mp, cfg: InterpreterConfig, trim_regs: bool = True,
+                   fused: bool = False):
+    """The JAX package's bit-packed carry layout for ``(mp, cfg)`` under
+    its Pallas engine, as the same hashable nested tuple
+    ``((state leaves), (const leaves))`` of ``(key, trim, fill, widths,
+    sentinel)`` entries, or None when nothing packs.  ``trim_regs``
+    must be False when the caller injects a nonzero initial register
+    file; ``fused=True`` adds the measure-in-megastep co-state and
+    needs a span-shaped program.  The port's kernels do not pack (see
+    :func:`use_packed_carry`): this is the static analysis alone, whose
+    bounds describe the program whichever layout runs it."""
+    soa_np = _soa_np(mp)
+    spc_np, interp_np = _element_geometry(mp)
+    span = _pallas_mode(mp, cfg) == 'span'
+    if fused and not span:
+        raise ValueError('fused packspec needs a span-shaped program')
+    kind = soa_np[..., _F['kind']]
+    C, N = kind.shape
+    PL = lambda trim=None, fill=0, widths=None, sentinel=None: \
+        (trim, fill, widths, sentinel)
+    st, co = {}, {}
+
+    # flag/enum fields: width = the ISA's own value mask, any mode
+    st['done'] = PL(widths=1)
+    st['err'] = PL(widths=_bl(_ERR_ALL))
+    st['fault'] = PL(widths=_bl(_FAULT_ALL))
+    st['pp'] = PL(widths=tuple(int(m).bit_length() for m in _PMASKS) * C)
+    w_pc = _static_pc_width(soa_np)
+    if w_pc is not None:
+        st['pc'] = PL(widths=w_pc)
+    if trim_regs:
+        wm = np.isin(kind, (isa.K_REG_ALU, isa.K_ALU_FPROC))
+        written = sorted(set(
+            int(r) for r in soa_np[..., _F['out_reg']][wm].tolist())
+            & set(range(isa.N_REGS)))
+        if len(written) < isa.N_REGS:
+            st['regs'] = PL(trim=tuple(written) or (0,))
+
+    if span:
+        # span-only: every instruction index retires at most once from
+        # the zeroed entry state, so counters, slot occupancy, and (in
+        # the absence of INC_QCLK / reg-sourced durations) every clock
+        # value have static program bounds
+        tb = _static_clock_bound(soa_np, cfg, spc_np, interp_np)
+        w_t = None
+        if tb is not None:
+            w_t = _bl(tb)
+            if tb >= (1 << w_t) - 1:
+                w_t += 1    # keep the all-ones code free as a sentinel
+            st['time'] = PL(widths=w_t)
+        if not np.any(kind == isa.K_INC_QCLK):
+            st['offset'] = PL(widths=1)
+        n_pt = int(max((int(np.sum(kind[c] == isa.K_PULSE_TRIG))
+                        for c in range(C)), default=0))
+        m_bound, n_rst = _static_meas_bounds(soa_np, cfg)
+        mb = n_pt if m_bound is None else m_bound
+        st['n_pulses'] = PL(widths=_bl(n_pt))
+        st['n_resets'] = PL(widths=_bl(n_rst))
+        st['n_meas'] = PL(widths=_bl(mb))
+        M, R = cfg.max_meas, cfg.max_resets
+        mk = max(min(mb, M), 1)
+        rk = max(min(n_rst, R), 1)
+        mtrim = tuple(range(mk)) if mk < M else None
+        st['meas_avail'] = PL(
+            trim=mtrim, fill=int(INT32_MAX), widths=w_t,
+            sentinel=int(INT32_MAX) if w_t is not None else None)
+        if cfg.fabric == 'lut':
+            # production-clock plane (time-indexed LUT reads): the
+            # same trim/width/sentinel envelope as meas_avail, since
+            # avail = trig + dur + latency >= trig bounds the trigger
+            st['meas_time'] = PL(
+                trim=mtrim, fill=int(INT32_MAX), widths=w_t,
+                sentinel=int(INT32_MAX) if w_t is not None else None)
+        st['rst_time'] = PL(trim=tuple(range(rk)) if rk < R else None,
+                            widths=w_t)
+        if cfg.opcode_histogram:
+            cnt = np.stack([np.sum(kind == kk, axis=1)
+                            for kk in range(isa.N_KINDS)], axis=-1)
+            st['op_hist'] = PL(widths=tuple(
+                _bl(x) for x in cnt.reshape(-1).tolist()))
+        if cfg.record_pulses and n_pt < cfg.max_pulses:
+            P, keep = cfg.max_pulses, max(n_pt, 1)
+            st['rec'] = PL(trim=tuple(
+                fi * P + p for fi in range(len(_REC_FIELDS))
+                for p in range(keep)))
+        if fused:
+            # measure-in-megastep: the demodulated bit and its physics
+            # window parameters ride the carry as STATE; widths are the
+            # pulse-param masks, slots trim to the same static
+            # measurement bound
+            st['meas_bits'] = PL(trim=mtrim, widths=1)
+            st['meas_valid'] = PL(trim=mtrim, widths=1)
+            st['phys_wait'] = PL(widths=1)
+            st['meas_state'] = PL(trim=mtrim, widths=1)
+            for key, w in (('meas_env', 24), ('meas_phase', 17),
+                           ('meas_freq', 9), ('meas_amp', 16)):
+                st[key] = PL(trim=mtrim, widths=w)
+            st['meas_gtime'] = PL(trim=mtrim, widths=w_t)
+            if cfg.x90_amp > 0:
+                dq = (2 * int(_PMASKS[3]) + cfg.x90_amp) \
+                    // (2 * cfg.x90_amp)
+                st['qturns'] = PL(widths=_bl(2 + n_pt * dq))
+        elif mtrim is not None:
+            # injected-bits consts: values are caller-arbitrary int32
+            # (never width-packed) but slots past the static bound are
+            # never selected by the fproc read
+            co['meas_bits'] = PL(trim=mtrim)
+    else:
+        # block mode loops, so only execution-count-independent fields
+        # pack; the lane-activity const is a boolean mask
+        co['act'] = PL(widths=1)
+
+    clean = lambda d: {k: v for k, v in d.items()
+                       if v[0] is not None or v[2] is not None}
+    st, co = clean(st), clean(co)
+    if not st and not co:
+        return None
+    enc = lambda d: tuple(sorted((k,) + v for k, v in d.items()))
+    return (enc(st), enc(co))
+
+
+def carry_stream_bytes(mp, cfg: InterpreterConfig, fused: bool = False):
+    """``(unpacked, packed)`` per-shot bytes that one K1 span launch
+    reads and writes for ``(mp, cfg)``: the carry read and written once
+    (every leaf :func:`_init_state` makes for ``cfg``) plus the injected
+    ``meas_bits [C, max_meas]`` int32 read once.  With ``fused=True``,
+    K3's: the physics carry (``cfg`` in physics mode on the parity
+    device) with the ``meas_bits`` / ``meas_valid`` planes riding it as
+    state, read and written once.  The two numbers are equal: the
+    port's kernels have one carry layout.  The JAX package prices its
+    Pallas kernel's carry under its packed layout and multiplies by the
+    megastep count (``2 x carry x steps``); K1 and K3 retire the whole
+    program in one launch, so this is the whole per-shot stream."""
+    C, M = mp.n_cores, cfg.max_meas
+    if fused:
+        cfg = replace(cfg, physics=True, device='parity')
+    st = _init_state(1, C, cfg, None, 'meta')
+    nbytes = sum(t.numel() * t.element_size() for t in st.values())
+    if fused:
+        # meas_bits int32 and meas_valid bool, both state
+        total = 2 * (nbytes + C * M * 4 + C * M)
+    else:
+        total = 2 * nbytes + C * M * 4
+    return total, total
 
 
 @functools.lru_cache(maxsize=128)
@@ -2400,9 +2647,17 @@ def _run_injected(mp, eng: str, meas_bits, init_regs,
     soa, spc, interp, sync_part = _program_constants(mp, device)
     C = mp.n_cores
     if cores is not None:
+        _count_trace('cores_trace', (
+            eng, cores.size, tuple(meas_bits.shape), tuple(soa.shape), cfg,
+            program_traits(mp), _content_key(mp) if eng == 'block' else None,
+            _device_key(device)))
         own = slice(cores.core0, cores.core0 + meas_bits.shape[1])
         soa, spc, interp = soa[own], spc[own], interp[own]
         C = soa.shape[0]
+    elif groups is None and eng in ('pallas', 'block'):
+        _count_trace(f'{eng}_trace', (
+            tuple(meas_bits.shape), cfg, _content_key(mp),
+            _device_key(device)))
     L = meas_bits.shape[0]
     if eng in ('straightline', 'pallas') and meas_bits.shape[1] != C:
         # the JAX package's straight-line and Pallas executors reshape
@@ -2579,6 +2834,9 @@ def simulate_multi_batch(mps, meas_bits, init_regs=None,
     if _aot_lookup(P, B, C, mmp.n_instr, _max_elems(mmp), cfg.max_meas,
                    cfg, program_traits(mmp), device):
         counter_inc('aot_hit')
+    _count_trace('multi_trace', _aot_cache_key(
+        P, B, C, mmp.n_instr, _max_elems(mmp), cfg.max_meas, cfg,
+        program_traits(mmp), device))
     out = _run_injected(mmp, eng, meas_bits.reshape(P * B, C, -1),
                         init_regs, cfg, device, groups=P)
     return _check_strict(out, strict)
@@ -2747,6 +3005,103 @@ def aot_eviction_count() -> int:
     return counter_get('aot_evictions')
 
 
+# ---------------------------------------------------------------------------
+# Retrace probes: the JAX package counts each trace of its executors in
+# named counters, and its retrace contract allows one trace per (bucket,
+# engine) pair, mesh or rounds shape.  Eager torch traces nothing; what a
+# JAX trace marks is the first run of an executor key this process has
+# not run, and each probe counts exactly that, in the port's own
+# registry (utils.profiling -> obs.metrics).  The keys hold the JAX jit
+# caches' keys: the batch shape, the config, and the program content
+# where JAX makes the program static (pallas, block) or its traits where
+# the program is a traced argument (multi, cores).  Keys sit in a bounded
+# LRU per counter; one that falls out counts again, as an evicted jit
+# cache entry retraces.
+
+_TRACE_LOCK = threading.Lock()
+_TRACE_KEYS: dict = {}        # counter name -> OrderedDict of keys
+_TRACE_KEYS_CAP = 1024
+
+
+def _content_key(mp) -> tuple:
+    """The program's content as a key (JAX's ``_soa_static``, hashed)."""
+    arr = _soa_np(mp)
+    return arr.shape, hash(arr.tobytes())
+
+
+def _device_key(device) -> tuple:
+    device = torch.device(device)
+    index = device.index
+    if index is None and device.type == 'cuda':
+        index = torch.cuda.current_device()
+    return device.type, index
+
+
+def _count_trace(name: str, key) -> None:
+    """Add one to counter ``name`` the first time this process runs
+    ``key``."""
+    with _TRACE_LOCK:
+        seen = _TRACE_KEYS.setdefault(name, collections.OrderedDict())
+        if key in seen:
+            seen.move_to_end(key)
+            return
+        seen[key] = None
+        if len(seen) > _TRACE_KEYS_CAP:
+            seen.popitem(last=False)
+    counter_inc(name)
+
+
+def pallas_trace_count() -> int:
+    """How many K1 / K3 executors this process has set up (named counter
+    ``'pallas_trace'``): one per (batch shape, config, program content,
+    device) first run on ``engine='pallas'`` (span or block mode,
+    :func:`simulate_batch`) or ``engine='fused'``
+    (:func:`..sim.physics.run_physics_batch`).  The retrace contract: a
+    second call of the same key moves nothing."""
+    return counter_get('pallas_trace')
+
+
+def block_trace_count() -> int:
+    """How many block-engine executors this process has set up (named
+    counter ``'block_trace'``): one per (batch shape, config, program
+    content, device) first run on ``engine='block'``."""
+    return counter_get('block_trace')
+
+
+def cores_trace_count() -> int:
+    """How many sharded-cores executors this process has set up (named
+    counter ``'cores_trace'``): one per (engine, cores shards, rank-local
+    batch shape, program shape, config, traits, device) first run of
+    :mod:`..parallel.sweep`'s cores-mesh entry points — program content
+    is not part of the key (JAX traces the program as an argument), so
+    a same-shape program moves nothing."""
+    return counter_get('cores_trace')
+
+
+def multi_trace_count() -> int:
+    """How many multi-program executors this process has set up (named
+    counter ``'multi_trace'``): one per bucket shape ``(P, B, C, N, E,
+    max_meas)``, config, traits and device first run by
+    :func:`simulate_multi_batch` — a second same-shape ensemble, fresh
+    sequences included, moves nothing."""
+    return counter_get('multi_trace')
+
+
+def span_trace_count() -> int:
+    """How many span runners' span values have run in this process
+    (named counter ``'span_trace'``, :func:`make_span_runner`): a sweep
+    whose span divides its batch count moves it by one."""
+    return counter_get('span_trace')
+
+
+def rounds_trace_count() -> int:
+    """How many rounds executors this process has set up (named counter
+    ``'rounds_trace'``): one per (rounds, batch shape, engine, config,
+    decode, program — its content on a content-keyed engine, its traits
+    on the generic one — device) first run by :func:`simulate_rounds`."""
+    return counter_get('rounds_trace')
+
+
 # per-program scalars of the simulate_multi_batch result: every other
 # leaf carries a shot axis after the program axis is sliced away
 _MULTI_SCALAR_KEYS = ('steps', 'incomplete', 'op_hist')
@@ -2827,6 +3182,10 @@ def simulate_rounds(mp, meas_bits, init_regs=None,
         if init_regs.ndim == 3:          # [B, C, R] -> every round's lanes
             init_regs = init_regs[None].expand(R, *init_regs.shape) \
                 .reshape(R * B, C, isa.N_REGS)
+    _count_trace('rounds_trace', (
+        R, tuple(meas_bits.shape[1:]), eng, cfg, decode,
+        _content_key(mp) if eng != 'generic' else program_traits(mp),
+        _device_key(device)))
     out = _run_injected(mp, eng, meas_bits.reshape(R * B, C, -1), init_regs,
                         cfg, device, groups=R)
     if decode is not None:
@@ -2844,8 +3203,16 @@ def make_span_runner(step):
     sums in an on-device carry, so the host fetches once per span (the
     JAX ``make_span_runner``, whose ``lax.scan`` takes the batch key from
     the index as the step here takes its seed).  Integer addition is
-    associative, so any span equals the per-batch loop bit for bit."""
+    associative, so any span equals the per-batch loop bit for bit.
+    Each runner counts its first call of each ``span`` in
+    ``span_trace`` (:func:`span_trace_count`), as each span value of the
+    JAX runner compiles once."""
+    spans = set()
+
     def run_span(start: int, span: int) -> dict:
+        if span not in spans:
+            spans.add(span)
+            counter_inc('span_trace')
         carry = None
         for i in range(start, start + span):
             stats = step(i)

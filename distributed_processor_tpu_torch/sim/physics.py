@@ -50,6 +50,7 @@ from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
 from .device import DeviceModel
 from .interpreter import (InterpreterConfig, _program_constants,
                           _span_table, _init_state, _exec_blocks, _exec_loop,
+                          _content_key, _count_trace, _device_key,
                           _exec_straightline, _finalize, _fault_policy,
                           _check_fabric, _check_strict, _soa_np,
                           check_supported, program_traits, torch_device)
@@ -778,6 +779,9 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     cw = int(model.cw_horizon)
 
     B = init_states.shape[0]
+    if eng == 'fused':
+        _count_trace('pallas_trace', ('fused', B, cfg, _content_key(mp),
+                                      _device_key(device)))
     st = _init_state(B, C, cfg, init_regs, device)
     _init_device(st, model.device.kind, init_states)
     bits = torch.zeros((B, C, M), dtype=torch.int32, device=device)

@@ -30,7 +30,8 @@ from distributed_processor_tpu.decoder import machine_program_from_cmds
 from distributed_processor_tpu.models import (active_reset, make_default_qchip,
                                               rb_program)
 from distributed_processor_tpu.models.experiments import loop_shots_program
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.pipeline import compile_to_machine
 from distributed_processor_tpu.sim import interpreter as jax_interp
 from distributed_processor_tpu.sim.interpreter import (
@@ -39,6 +40,7 @@ from distributed_processor_tpu.sim.physics import (
     ReadoutPhysics as JPhysics, run_physics_batch as jax_run_physics)
 from distributed_processor_tpu.simulator import Simulator as JSimulator
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch import Simulator
 from distributed_processor_tpu_torch.sim import interpreter as torch_interp
 from distributed_processor_tpu_torch.sim.interpreter import (
@@ -123,7 +125,7 @@ def test_looped_headline_matches_jax(looped, engine):
 @pytest.mark.parametrize('name', sorted(set(GOLDEN_PROGRAMS)
                                         - _NONTERMINATING_GOLDENS))
 def test_terminating_goldens_match_jax(name):
-    n_qubits, thunk = GOLDEN_PROGRAMS[name]
+    n_qubits, thunk = J_GOLDEN_PROGRAMS[name]   # the JAX compile
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
         mp = compile_to_machine(thunk(), make_default_qchip(max(n_qubits, 2)),

@@ -20,10 +20,12 @@ import distributed_processor_tpu.models as jmodels
 from distributed_processor_tpu.assembler import GlobalAssembler as JAsm
 from distributed_processor_tpu.elements import TPUElementConfig as JElem
 from distributed_processor_tpu.hwconfig import FPGAConfig as JFPGA
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 
 import distributed_processor_tpu_torch.pipeline as tpipe
 import distributed_processor_tpu_torch.models as tmodels
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch.assembler import GlobalAssembler as TAsm
 from distributed_processor_tpu_torch.decoder import (
     decode_assembled_program, machine_program_from_arrays,
@@ -105,7 +107,7 @@ def test_compile_matches_jax(name, n, thunk):
 @pytest.mark.parametrize('name', sorted(GOLDEN_PROGRAMS))
 def test_golden_programs_match_jax(name):
     n, thunk = GOLDEN_PROGRAMS[name]
-    _check_same(thunk(), thunk(), n)
+    _check_same(J_GOLDEN_PROGRAMS[name][1](), thunk(), n)
 
 
 def test_compile_to_machine_matches_jax():

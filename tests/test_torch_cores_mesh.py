@@ -33,7 +33,8 @@ import torch
 
 from distributed_processor_tpu.models.default_qchip import \
     make_default_qchip as j_qchip
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.models.repetition import (
     _lut_fabric_kwargs, repetition_round_machine_program as j_rep)
 from distributed_processor_tpu.parallel import (
@@ -45,6 +46,7 @@ from distributed_processor_tpu.pipeline import compile_to_machine as j_comp
 from distributed_processor_tpu.sim import interpreter as jint
 from distributed_processor_tpu.sim.interpreter import InterpreterConfig as JCfg
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch.sim import interpreter as tint
 from distributed_processor_tpu_torch.sim.interpreter import (
     InterpreterConfig as TCfg)
@@ -59,7 +61,7 @@ S = 12                       # shots: divisible by every dp extent here
 
 
 def _golden(name):
-    n_qubits, thunk = GOLDEN_PROGRAMS[name]
+    n_qubits, thunk = J_GOLDEN_PROGRAMS[name]   # the JAX compile
     return j_comp(thunk(), j_qchip(max(n_qubits, 2)), n_qubits=n_qubits)
 
 

@@ -27,7 +27,9 @@ and 9 cores and batches that cut tiles and blocks raggedly), K1 block
 qubits) against theirs; ``simulate_rounds`` (one K1 span launch for all
 R x B lanes, and one K1 block launch per iteration on a looping
 program) and ``simulate_multi_batch`` against the same calls on the
-CPU.  The waveform kernel
+CPU; the port's kernel self-test (``ops/selftest.py``,
+``kernel_parity_check('cuda')``) and the fault-injection harness with
+K1 as a fourth engine and K3 in its fused check.  The waveform kernel
 ``csrc/waveform.cu`` (one launch renders every trace of a shot) is held
 against its plain version to atol 1e-5 (the same arithmetic;
 ``sincosf`` against ``sin`` and ``cos``), the
@@ -1868,3 +1870,56 @@ def test_fleet_on_card_matches_direct_calls(card, program):
         hcfg, engine='pallas'), device=card)
     for k, v in want.items():
         np.testing.assert_array_equal(g[k], v.cpu().numpy(), err_msg=k)
+
+
+def _kernel_wrappers() -> dict:
+    from distributed_processor_tpu_torch.ops.demod import demod_iq
+    from distributed_processor_tpu_torch.ops.exec_span import (
+        exec_blocks, exec_span, exec_span_fused)
+    from distributed_processor_tpu_torch.ops.waveform import render_shot
+    return {w.__name__: w for w in (exec_span, exec_blocks,
+                                    exec_span_fused, render_shot,
+                                    demod_iq)}
+
+
+def _launches_of(fn) -> dict:
+    wrappers = _kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    fn()
+    return {k: w.launches - before[k] for k, w in wrappers.items()}
+
+
+def test_kernel_parity_check_on_card(card):
+    """The self-test on the card: K5, K4, K1 span, K1 block and K3 held
+    against their plain versions, each launched."""
+    from distributed_processor_tpu_torch.ops.selftest import \
+        kernel_parity_check
+    launched = _launches_of(lambda: kernel_parity_check('cuda'))
+    assert all(n > 0 for n in launched.values()), launched
+    launched = _launches_of(kernel_parity_check)       # the default: the card
+    assert all(n > 0 for n in launched.values()), launched
+
+
+def test_fault_injection_on_card(card):
+    """The fault-injection harness on the card: K1 span and K1 block as
+    a fourth engine on every mutant, the feedback check on K1 and the
+    fused check on K3, with no failure."""
+    from distributed_processor_tpu_torch.sim import faultinject as fi
+    rep = None
+
+    def fuzz():
+        nonlocal rep
+        rep = fi.run_fuzz(seed=0, n=35, engines=fi.ENGINES + ('pallas',),
+                          device=card)
+    launched = _launches_of(fuzz)
+    assert rep.ok, rep.failures
+    assert launched['exec_span'] > 0 and launched['exec_blocks'] > 0
+    res = {}
+    launched = _launches_of(lambda: res.update(
+        feedback=fi.check_feedback_consistency(device=card),
+        fused=fi.check_fused_consistency(device=card)))
+    for name, r in res.items():
+        assert r['failures'] == [] and r['checked'] > 0, (name, r)
+    assert launched['exec_span'] > 0 and launched['exec_span_fused'] > 0
+    assert fi.check_vmap_consistency(device=card) == 0
+    assert fi.check_audit_consistency(device=card)['false_positives'] == 0

@@ -166,6 +166,58 @@ def test_gossip_staleness_marks_silent_replica_down():
         lis.close()
 
 
+def test_heartbeat_not_queued_behind_result_frame(monkeypatch):
+    """A replica whose result-frame write holds its connection's write
+    lock for ~1 s stays live under the router's default 250 ms window:
+    gossip travels on a connection of its own, so no heartbeat goes
+    stale and the request completes on its first attempt (with one
+    connection the heartbeat waits behind the frame, the replica is
+    declared stale and the request fails over)."""
+    from distributed_processor_tpu_torch.serve import ExecutionService
+    from distributed_processor_tpu_torch.serve.transport import \
+        ReplicaServer
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        simulate_batch
+    send_on_resolve = ReplicaServer._send_on_resolve
+
+    class HeldLock:
+        """The connection's write lock, held ~1 s before the frame is
+        written: a slow write of a large result frame."""
+
+        def __init__(self, lock):
+            self._lock = lock
+
+        def __enter__(self):
+            self._lock.acquire()
+            time.sleep(1.0)
+
+        def __exit__(self, *exc):
+            self._lock.release()
+
+    def slow_send(self, conn, wlock, *args, **kw):
+        return send_on_resolve(self, conn, HeldLock(wlock), *args, **kw)
+
+    monkeypatch.setattr(ReplicaServer, '_send_on_resolve', slow_send)
+    mp, bits = _tiny_mp(), np.zeros((2, 1, 2), np.int32)
+    cfg = InterpreterConfig(max_steps=32, max_meas=2)
+    svc = ExecutionService(devices=['cpu'], max_wait_ms=1.0)
+    server = ReplicaServer(svc)
+    try:
+        with FleetRouter(name='held') as router:
+            router.add_replica('r0', server.address)
+            out = router.submit(mp, bits, cfg=cfg).result(timeout=T)
+            s = router.stats()
+            kinds = [e['kind'] for e in router.flight_recorder.events()]
+    finally:
+        server.close()
+        svc.shutdown()
+    assert 'gossip_stale' not in kinds, kinds
+    assert (s['gossip_stale'], s['failovers'], s['retries'],
+            s['completed']) == (0, 0, 0, 1), s
+    want = simulate_batch(mp, bits, cfg=cfg, device='cpu')
+    _assert_same(out, {k: v.numpy() for k, v in want.items()})
+
+
 def test_router_shutdown_fails_parked_with_typed_error():
     """With no routable replica a request parks; shutdown fails it with
     ShutdownError, and later submissions are refused."""
@@ -214,13 +266,9 @@ def fleet(workload):
     f = Fleet(2, service={'devices': ['cpu'], 'max_batch_programs': 4,
                           'max_wait_ms': 5.0, 'max_queue': 256},
               env={'OMP_NUM_THREADS': '1'}, ready_timeout_s=T,
-              # a liveness window well past a loaded host's scheduling
-              # hiccups: a replica marked stale while it holds the strict
-              # request would retry it, which is not what is tested
               router_kwargs={'retry_policy':
                              RetryPolicy(max_attempts=10, backoff_s=0.05,
-                                         max_backoff_s=1.0),
-                             'liveness_window_ms': 1000.0})
+                                         max_backoff_s=1.0)})
     try:
         # warm every replica on the serving bucket (bucket affinity
         # would home all fleet.submit traffic on one)

@@ -103,10 +103,38 @@ def test_port_has_sources():
                  'distributed_processor_tpu_torch/serve/benchmark.py',
                  'distributed_processor_tpu_torch/cli.py',
                  'distributed_processor_tpu_torch/__main__.py',
+                 'distributed_processor_tpu_torch/models/golden_suite.py',
+                 'distributed_processor_tpu_torch/native/__init__.py',
+                 'distributed_processor_tpu_torch/ops/selftest.py',
+                 'distributed_processor_tpu_torch/sim/faultinject.py',
                  'tests/test_torch_spmd_worker.py'):
         assert want in names
     for kernel in ('resolve.cu', 'exec_span.cu', 'waveform.cu', 'demod.cu'):
         assert os.path.exists(os.path.join(PORT, 'csrc', kernel))
+
+
+# the JAX package's Pallas files: K1-K5 (csrc/*.cu) stand in for them
+PALLAS_FILES = ('ops/_pallas_common.py', 'ops/exec_pallas.py',
+                'ops/resolve_pallas.py', 'ops/waveform_pallas.py')
+
+
+def _package_files(root, exts):
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _dirs, files in os.walk(root) for f in files
+            if f.endswith(exts) and '__pycache__' not in d
+            and '_build' not in d}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """A file-by-file comparison of the two packages: every module and
+    source of the JAX package has a counterpart in the port, apart from
+    the Pallas files the hand kernels replace."""
+    jax_pkg = os.path.join(ROOT, 'distributed_processor_tpu')
+    exts = ('.py', '.cpp')
+    missing = sorted(_package_files(jax_pkg, exts)
+                     - _package_files(PORT, exts) - set(PALLAS_FILES))
+    assert not missing, missing
+    assert os.path.exists(os.path.join(PORT, 'native', 'soa_codec.cpp'))
 
 
 @pytest.mark.parametrize('path', _sources(),
@@ -189,3 +217,22 @@ def test_entry_points_default_to_cuda():
     out = simulate_batch(mp, np.zeros((4, 1, 1), np.int32), device='cpu')
     assert bool(out['done'].all())
     assert bool(Simulator(n_qubits=2, device='cpu').run(mp)['done'].all())
+
+
+def test_tooling_entry_points_default_to_cuda():
+    """The self-test and the fault-injection harness run on the card
+    unless the caller names the CPU, and raise without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip('this host has CUDA: the default device is usable')
+    from distributed_processor_tpu_torch.ops import selftest
+    from distributed_processor_tpu_torch.sim import faultinject as fi
+    m = fi.gen_mutants(0, 1)[0]
+    for fn, args in ((selftest.kernel_parity_check, ()),
+                     (fi.run_fuzz, (0, 1)), (fi.check_mutant, (m,)),
+                     (fi.check_vmap_consistency, (0, 1)),
+                     (fi.check_fused_consistency, (0, 1)),
+                     (fi.check_feedback_consistency, (0, 1)),
+                     (fi.check_audit_consistency, (0, 1)),
+                     (fi.check_mesh_consistency, (0, 1))):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            fn(*args)

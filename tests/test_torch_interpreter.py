@@ -22,10 +22,12 @@ import torch
 
 from distributed_processor_tpu import isa, models, pipeline
 from distributed_processor_tpu.decoder import machine_program_from_cmds
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.sim.interpreter import (
     InterpreterConfig as JCfg, simulate_batch as jax_simulate_batch)
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch.decoder import (
     machine_program_from_arrays, machine_program_to_arrays)
 from distributed_processor_tpu_torch.sim.interpreter import (
@@ -76,7 +78,7 @@ def _golden_cases():
 
 @pytest.mark.parametrize('name,fabric', _golden_cases())
 def test_golden_programs(name, fabric):
-    n, thunk = GOLDEN_PROGRAMS[name]
+    n, thunk = J_GOLDEN_PROGRAMS[name]      # the JAX compile
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')     # loop z-phase notices
         mp = pipeline.compile_to_machine(

@@ -33,7 +33,8 @@ from distributed_processor_tpu.hwconfig import FPGAConfig as JFPGA
 from distributed_processor_tpu.models import make_default_qchip
 from distributed_processor_tpu.models import qec as jqec
 from distributed_processor_tpu.models import repetition as jrep
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.ops.fabric import MeasLUT as JLUT
 from distributed_processor_tpu.pipeline import compile_to_machine
 from distributed_processor_tpu.sim import interpreter as jax_interp
@@ -43,6 +44,7 @@ from distributed_processor_tpu.sim.physics import (
     ReadoutPhysics as JPhysics, run_physics_batch as jax_run_physics)
 from distributed_processor_tpu.simulator import Simulator as JSimulator
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch import Simulator as TSimulator
 from distributed_processor_tpu_torch.hwconfig import FPGAConfig as TFPGA
 from distributed_processor_tpu_torch.ops.fabric import MeasLUT as TLUT
@@ -366,7 +368,7 @@ def test_time_indexed_slot_in_multiround():
 def _golden_lut_setup(name):
     """A golden program re-wired onto the fabric: a parity table over up
     to 4 masked cores, every core's output bit driven."""
-    n_qubits, thunk = GOLDEN_PROGRAMS[name]
+    n_qubits, thunk = J_GOLDEN_PROGRAMS[name]   # the JAX compile
     mp = compile_to_machine(thunk(), make_default_qchip(max(n_qubits, 2)),
                             n_qubits=n_qubits)
     C = mp.n_cores

@@ -34,15 +34,17 @@ from distributed_processor_tpu import models, pipeline
 from distributed_processor_tpu import ops as jops
 from distributed_processor_tpu.elements import ENV_CW_SENTINEL
 from distributed_processor_tpu.hwconfig import FPGAConfig as JFPGAConfig
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.ops.waveform_pallas import \
     synthesize_element_pallas
 from distributed_processor_tpu.sim.interpreter import (
     InterpreterConfig as JCfg, simulate as jax_simulate)
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu_torch import models as tmodels
 from distributed_processor_tpu_torch import ops as tops
-from distributed_processor_tpu_torch.decoder import (
-    machine_program_from_arrays, machine_program_to_arrays)
+from distributed_processor_tpu_torch import pipeline as tpipeline
 from distributed_processor_tpu_torch.hwconfig import FPGAConfig as TFPGAConfig
 from distributed_processor_tpu_torch.models.readout import (
     IQReadoutModel, apply_assignment_error, make_generator,
@@ -347,8 +349,10 @@ def test_simulate_matches_jax(name, with_inputs):
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
         mp = pipeline.compile_to_machine(
-            thunk(), models.make_default_qchip(max(n, 2)), n_qubits=n)
-    tmp = machine_program_from_arrays(machine_program_to_arrays(mp))
+            J_GOLDEN_PROGRAMS[name][1](),
+            models.make_default_qchip(max(n, 2)), n_qubits=n)
+        tmp = tpipeline.compile_to_machine(
+            thunk(), tmodels.make_default_qchip(max(n, 2)), n_qubits=n)
     rng = np.random.default_rng(len(name))
     kw = dict(max_meas=4, max_steps=300, opcode_histogram=True)
     args = {}

@@ -144,8 +144,16 @@ def multihost_stats(mp, cfg, bits, model, seed: int, phys_kw: dict):
                 inj=total, phys=phys_total, g_inj=g_inj, g_phys=g_phys)
 
 
+def mesh_consistency(seed: int = 0, n: int = 4):
+    """The fault-injection harness's mesh check over every rank."""
+    from distributed_processor_tpu_torch.sim.faultinject import \
+        check_mesh_consistency
+    return check_mesh_consistency(seed, n, device='cpu')
+
+
 CASES = {'call': call, 'lut_sharded_call': lut_sharded_call,
-         'multihost_stats': multihost_stats}
+         'multihost_stats': multihost_stats,
+         'mesh_consistency': mesh_consistency}
 
 
 def _main(job: str, rank: int, world: int, init: str) -> None:
@@ -165,6 +173,12 @@ def _main(job: str, rank: int, world: int, init: str) -> None:
         pickle.dump(results, f)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+    # the results are on disk: leave without the interpreter's teardown,
+    # where a loaded host once saw a rank abort ("terminate called
+    # without an active exception") after its case had passed
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == '__main__':

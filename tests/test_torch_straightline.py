@@ -27,13 +27,15 @@ import jax
 import bench
 from distributed_processor_tpu import isa, models, pipeline
 from distributed_processor_tpu.decoder import machine_program_from_cmds
-from distributed_processor_tpu.models.golden_suite import GOLDEN_PROGRAMS
+from distributed_processor_tpu.models.golden_suite import \
+    GOLDEN_PROGRAMS as J_GOLDEN_PROGRAMS
 from distributed_processor_tpu.sim import interpreter as jax_interp
 from distributed_processor_tpu.sim.interpreter import (
     InterpreterConfig as JCfg, simulate_batch as jax_simulate_batch)
 from distributed_processor_tpu.sim.physics import (
     ReadoutPhysics as JPhysics, run_physics_batch as jax_run_physics)
 
+from distributed_processor_tpu_torch.models.golden_suite import GOLDEN_PROGRAMS
 from distributed_processor_tpu_torch.sim import interpreter as torch_interp
 from distributed_processor_tpu_torch.sim.interpreter import (
     InterpreterConfig as TCfg, simulate_batch as torch_simulate_batch)
@@ -79,7 +81,7 @@ def _bits(rng, mp, m=4):
 
 
 def _golden(name):
-    n, thunk = GOLDEN_PROGRAMS[name]
+    n, thunk = J_GOLDEN_PROGRAMS[name]      # the JAX compile
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')     # loop z-phase notices
         return pipeline.compile_to_machine(

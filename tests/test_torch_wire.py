@@ -84,6 +84,55 @@ def test_send_frame_writes_jax_bytes():
     assert crc == __import__('zlib').crc32(frames[1][8:])
 
 
+class _Capture:
+    """A socket that keeps every ``sendall``."""
+
+    def __init__(self):
+        self.writes = []
+
+    def sendall(self, data):
+        self.writes.append(bytes(data))
+
+
+@pytest.mark.parametrize('obj', [
+    (3, True, {'rec': np.arange(1 << 18, dtype=np.int32).reshape(-1, 8),
+               'bits': np.ones((4096, 8, 2), np.int32),
+               'note': 'x' * 70000, 'n': 5}),
+    (9, False, ValueError('unknown wire op')),
+], ids=['result', 'error'])
+def test_send_frame_in_pieces_writes_jax_bytes(obj):
+    """A frame of arrays past the one-write size is pickled piece by
+    piece (several writes) and is still JAX's frame byte for byte; a
+    small one goes out in one write."""
+    frames = []
+    for mod in (jwire, wire):
+        cap = _Capture()
+        n = mod.send_frame(cap, obj, threading.Lock())
+        frames.append((b''.join(cap.writes), len(cap.writes)))
+        assert n == len(frames[-1][0])
+    data, writes = frames[1]
+    assert data == frames[0][0]
+    assert (writes > 1) == (len(data) > 8 + (1 << 16))
+    got = wire.recv_frame(_Replay(data))
+    assert got[:2] == obj[:2]
+    if isinstance(obj[2], dict):
+        for k in ('rec', 'bits'):
+            np.testing.assert_array_equal(got[2][k], obj[2][k])
+
+
+class _Replay:
+    """A socket that replays bytes to ``recv_into``."""
+
+    def __init__(self, data):
+        self.data = memoryview(data)
+
+    def recv_into(self, view, n):
+        k = min(n, len(self.data), 1 << 20)
+        view[:k] = self.data[:k]
+        self.data = self.data[k:]
+        return k
+
+
 @pytest.mark.parametrize('sender,receiver', [(jwire, wire), (wire, jwire)],
                          ids=['jax-to-port', 'port-to-jax'])
 def test_frames_cross_packages(sender, receiver):
