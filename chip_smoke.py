@@ -4999,7 +4999,7 @@ def rank_main(rank: int, world: int, init: str, out: str) -> int:
     import torch
     from distributed_processor_tpu_torch.parallel import (
         initialize_multihost, make_cores_mesh, make_mesh, run_physics_sweep,
-        sharded_cores_simulate)
+        sharded_cores_simulate, shutdown_multihost)
     from distributed_processor_tpu_torch.parallel.mesh import gather_cat
     from distributed_processor_tpu_torch.sim.interpreter import simulate_batch
     n_cards = torch.cuda.device_count()
@@ -5061,7 +5061,7 @@ def rank_main(rank: int, world: int, init: str, out: str) -> int:
                              wall=time.perf_counter() - t0)
     with open(f'{out}/rank{rank}.json', 'w') as f:
         json.dump(res, f)
-    torch.distributed.destroy_process_group()
+    shutdown_multihost()
     return 0
 
 
@@ -5170,8 +5170,9 @@ def main(argv: list) -> int:
     timed(phase_mesh_path, mp, loop_mp, env)
     torch.cuda.empty_cache()
     timed(phase_multi_rank, mp, env)
-    # the one-rank group of phase_mesh_path
-    torch.distributed.destroy_process_group()
+    # the one-rank group of phase_mesh_path, with its cached meshes
+    from distributed_processor_tpu_torch.parallel import shutdown_multihost
+    shutdown_multihost()
     print(f'[all phases: {time.perf_counter() - t_start:.1f} s]')
     print('lut paths (ms; events / device; launches on the path): '
           + '; '.join(f'K1 span, {label}: {r["ms"]:.4f} / '

@@ -10,7 +10,8 @@ from .sweep import (physics_batch_stats, multi_batch_stats,
                     run_spanned)
 from .param_sweep import (swept_pulse_machine_program, grid_init_regs,
                           sweep_cfg)
-from .multihost import (initialize_multihost, make_global_mesh,
+from .multihost import (initialize_multihost, shutdown_multihost,
+                        make_global_mesh,
                         host_local_batch, host_local_mesh,
                         dp_row_offset, cross_host_sum,
                         global_shot_array)

@@ -62,6 +62,7 @@ def _world(device: torch.device) -> int:
 def _device_mesh(device_type: str, shape: tuple, names: tuple) -> DeviceMesh:
     # one mesh (and one set of process groups) per shape for the life of
     # the process group: building one is a collective over every rank
+    # (``multihost.shutdown_multihost`` drops them with the group)
     return DeviceMesh(device_type,
                       torch.arange(shape[0] * shape[1]).reshape(shape),
                       mesh_dim_names=names)

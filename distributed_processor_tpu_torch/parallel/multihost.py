@@ -23,6 +23,7 @@ everything here falls back to the one-rank case.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 
 import numpy as np
@@ -31,7 +32,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..sim.interpreter import torch_device
-from .mesh import axis, make_mesh, shot_sharding
+from .mesh import _device_mesh, axis, make_mesh, shot_sharding
 
 
 def initialize_multihost(coordinator_address: str = None,
@@ -62,6 +63,18 @@ def initialize_multihost(coordinator_address: str = None,
             'process_count': world,
             'local_devices': 1,
             'global_devices': world}
+
+
+def shutdown_multihost() -> None:
+    """Destroy the default process group (if any) after dropping the
+    meshes cached for it.  A cached mesh holds its process groups; one
+    left alive past ``destroy_process_group`` is torn down in the
+    interpreter's finalization instead, where gloo can abort the
+    process (``terminate called without an active exception``)."""
+    _device_mesh.cache_clear()
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def make_global_mesh(n_mp: int = 1, device=None) -> DeviceMesh:

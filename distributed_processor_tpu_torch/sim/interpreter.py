@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import hashlib
 import os
 import threading
 import time
@@ -2831,12 +2832,11 @@ def simulate_multi_batch(mps, meas_bits, init_regs=None,
             init_regs = init_regs[:, None].expand(P, B, C, isa.N_REGS)
         if init_regs.ndim == 4:          # [P, B, C, R]
             init_regs = init_regs.reshape(P * B, C, isa.N_REGS)
-    if _aot_lookup(P, B, C, mmp.n_instr, _max_elems(mmp), cfg.max_meas,
-                   cfg, program_traits(mmp), device):
+    key = _aot_cache_key(P, B, C, mmp.n_instr, _max_elems(mmp),
+                         cfg.max_meas, cfg, program_traits(mmp), device)
+    if _aot_lookup(key):
         counter_inc('aot_hit')
-    _count_trace('multi_trace', _aot_cache_key(
-        P, B, C, mmp.n_instr, _max_elems(mmp), cfg.max_meas, cfg,
-        program_traits(mmp), device))
+    _count_trace('multi_trace', key)
     out = _run_injected(mmp, eng, meas_bits.reshape(P * B, C, -1),
                         init_regs, cfg, device, groups=P)
     return _check_strict(out, strict)
@@ -2878,16 +2878,19 @@ def _evict_aot_locked() -> None:
         counter_inc('aot_evictions')
 
 
+def _device_key(device) -> tuple:
+    """``(type, index)`` of ``device``, a CUDA device's index resolved
+    to the current one."""
+    device = torch.device(device)
+    index = device.index
+    if index is None and device.type == 'cuda':
+        index = torch.cuda.current_device()
+    return device.type, index
+
+
 def _aot_cache_key(P, B, C, N, E, max_meas, cfg, traits, device):
-    dev = None
-    if device is not None:
-        device = torch.device(device)
-        index = device.index
-        if index is None and device.type == 'cuda':
-            index = torch.cuda.current_device()
-        dev = (device.type, index)
     return (int(P), int(B), int(C), int(N), int(E), int(max_meas),
-            cfg, traits, dev)
+            cfg, traits, None if device is None else _device_key(device))
 
 
 def _aot_cfg(spec):
@@ -2904,9 +2907,8 @@ def _aot_cfg(spec):
     return _fault_policy(cfg)[0]
 
 
-def _aot_lookup(P, B, C, N, E, max_meas, cfg, traits, device) -> bool:
+def _aot_lookup(key) -> bool:
     with _AOT_LOCK:
-        key = _aot_cache_key(P, B, C, N, E, max_meas, cfg, traits, device)
         if key not in _AOT_CACHE:
             return False
         _AOT_CACHE.move_to_end(key)
@@ -2975,9 +2977,9 @@ def aot_batch_cached(spec, device=None) -> bool:
     cfg = _aot_cfg(spec)
     if cfg is None:
         return False
-    return _aot_lookup(spec.n_programs, spec.n_shots, spec.n_cores,
-                       spec.n_instr_bucket, spec.max_elems, cfg.max_meas,
-                       cfg, spec.traits, device)
+    return _aot_lookup(_aot_cache_key(
+        spec.n_programs, spec.n_shots, spec.n_cores, spec.n_instr_bucket,
+        spec.max_elems, cfg.max_meas, cfg, spec.traits, device))
 
 
 def aot_cache_size() -> int:
@@ -3024,17 +3026,15 @@ _TRACE_KEYS_CAP = 1024
 
 
 def _content_key(mp) -> tuple:
-    """The program's content as a key (JAX's ``_soa_static``, hashed)."""
-    arr = _soa_np(mp)
-    return arr.shape, hash(arr.tobytes())
-
-
-def _device_key(device) -> tuple:
-    device = torch.device(device)
-    index = device.index
-    if index is None and device.type == 'cuda':
-        index = torch.cuda.current_device()
-    return device.type, index
+    """The program's content as a key (JAX's ``_soa_static``, as a
+    digest), computed once per program object and kept on it."""
+    key = mp.__dict__.get('_content_key')
+    if key is None:
+        arr = _soa_np(mp)
+        key = arr.shape, hashlib.blake2b(arr.tobytes(),
+                                         digest_size=16).digest()
+        mp.__dict__['_content_key'] = key
+    return key
 
 
 def _count_trace(name: str, key) -> None:

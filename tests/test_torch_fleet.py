@@ -266,9 +266,13 @@ def fleet(workload):
     f = Fleet(2, service={'devices': ['cpu'], 'max_batch_programs': 4,
                           'max_wait_ms': 5.0, 'max_queue': 256},
               env={'OMP_NUM_THREADS': '1'}, ready_timeout_s=T,
+              # a liveness window well past a loaded host's scheduling
+              # hiccups: a replica marked stale while it holds the strict
+              # request would retry it, which is not what is tested
               router_kwargs={'retry_policy':
                              RetryPolicy(max_attempts=10, backoff_s=0.05,
-                                         max_backoff_s=1.0)})
+                                         max_backoff_s=1.0),
+                             'liveness_window_ms': 1000.0})
     try:
         # warm every replica on the serving bucket (bucket affinity
         # would home all fleet.submit traffic on one)

@@ -103,6 +103,8 @@ def fleet(workload):
                   'trace_keep': 64,
                   'slo_budgets': {'total': {'p99_ms': 1e-4}},
                   'slo_min_samples': 4,
+                  # past a loaded host's scheduling hiccups
+                  'liveness_window_ms': 1000.0,
               })
     try:
         for rid in f.replica_ids():

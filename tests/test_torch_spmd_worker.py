@@ -157,7 +157,8 @@ CASES = {'call': call, 'lut_sharded_call': lut_sharded_call,
 
 
 def _main(job: str, rank: int, world: int, init: str) -> None:
-    from distributed_processor_tpu_torch.parallel import initialize_multihost
+    from distributed_processor_tpu_torch.parallel import (
+        initialize_multihost, shutdown_multihost)
     info = initialize_multihost(init, num_processes=world, process_id=rank,
                                 backend='gloo')
     with open(job, 'rb') as f:
@@ -171,14 +172,7 @@ def _main(job: str, rank: int, world: int, init: str) -> None:
     results.append(info)
     with open(f'{job}.{rank}.out', 'wb') as f:
         pickle.dump(results, f)
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
-    # the results are on disk: leave without the interpreter's teardown,
-    # where a loaded host once saw a rank abort ("terminate called
-    # without an active exception") after its case had passed
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    shutdown_multihost()
 
 
 if __name__ == '__main__':

@@ -133,6 +133,61 @@ class _Replay:
         return k
 
 
+def _longest_hold(fn) -> float:
+    """The longest stretch (s) a busy probe thread went without the
+    interpreter lock while ``fn`` ran: the longest single hold of the
+    lock by ``fn``'s threads (plus the host's scheduling noise)."""
+    stop, gap = threading.Event(), [0.0]
+
+    def probe():
+        last = time.perf_counter()
+        while not stop.is_set():
+            now = time.perf_counter()
+            gap[0] = max(gap[0], now - last)
+            last = now
+
+    th = threading.Thread(target=probe)
+    th.start()
+    time.sleep(0.02)
+    try:
+        fn()
+    finally:
+        stop.set()
+        th.join(T)
+    return gap[0]
+
+
+def test_large_frame_never_holds_the_interpreter_lock_long():
+    """A 128 MB result frame sent and received over a socket holds the
+    interpreter lock at most a third as long as ``pickle.dumps`` +
+    ``pickle.loads`` of the same object hold it in one call each: the
+    heartbeat threads of a replica and of the router keep running while
+    a large frame is pickled, read and unpickled.  Best of two runs
+    each, in the same process under the same load."""
+    obj = (4, True, {'rec': np.arange(32 << 20, dtype=np.int32)})
+
+    def whole():
+        pickle.loads(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+
+    def wire_round_trip():
+        a, b = socket.socketpair()
+        got = {}
+        rd = threading.Thread(target=lambda: got.update(
+            v=wire.recv_frame(b)))
+        rd.start()
+        try:
+            wire.send_frame(a, obj, threading.Lock())
+            rd.join(T)
+        finally:
+            a.close()
+            b.close()
+        np.testing.assert_array_equal(got['v'][2]['rec'], obj[2]['rec'])
+
+    ref = min(_longest_hold(whole) for _ in range(2))
+    held = min(_longest_hold(wire_round_trip) for _ in range(2))
+    assert held * 3 < ref, (held, ref)
+
+
 @pytest.mark.parametrize('sender,receiver', [(jwire, wire), (wire, jwire)],
                          ids=['jax-to-port', 'port-to-jax'])
 def test_frames_cross_packages(sender, receiver):
