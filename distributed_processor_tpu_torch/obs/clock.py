@@ -22,11 +22,17 @@ Offsets are defined as ``remote - local``: ``to_local`` maps a
 replica-clock timestamp into the router's clock by subtracting the
 offset.  Gossip runs every ~25 ms, so the window refreshes fast enough
 that monotonic-clock drift (ppm-scale) never dominates the RTT bound.
+
+The same rule aligns two clocks of one process: :func:`wall_offset_s`
+is the offset of ``time.time()`` (the clock ``torch.profiler`` stamps
+its events with) from ``time.monotonic()`` (the request spans' clock),
+from paired reads.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 
 
@@ -77,3 +83,17 @@ class ClockOffsetEstimator:
     def to_remote(self, t_local: float) -> float:
         """Map a local-clock timestamp onto the remote clock."""
         return t_local + self.offset
+
+
+def wall_offset_s() -> float:
+    """``time.time() - time.monotonic()`` in seconds: 16 wall reads, each
+    bracketed by two monotonic reads, and the one with the smallest
+    bracket kept (:class:`ClockOffsetEstimator`'s rule; error under a
+    microsecond).  Measured anew on each call, since the wall clock may
+    be stepped."""
+    est = ClockOffsetEstimator(window=16)
+    for _ in range(16):
+        t_send = time.monotonic()
+        t_wall = time.time()
+        est.add_sample(t_send, t_wall, time.monotonic())
+    return est.offset

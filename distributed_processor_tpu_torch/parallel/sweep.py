@@ -37,6 +37,7 @@ import torch
 
 from .. import isa
 from ..decoder import MultiMachineProgram, stack_machine_programs
+from ..obs.trace import host_span
 from ..ops.demod import demod_iq
 from ..sim.interpreter import (FAULT_CODES, FaultError, InterpreterConfig,
                                _block_plan, _check_fabric,
@@ -60,17 +61,18 @@ def physics_batch_stats(out: dict) -> dict:
     clean shots (``allzero_sum``, the survival numerator of multi-qubit
     RB) with its denominator ``clean_shots`` — a shot is clean when no
     core has an error bit and every core's first slot was resolved."""
-    first = out['meas_bits'][:, :, 0]
-    errored = (out['err'] != 0).any(dim=1)
-    clean = ~errored & out['meas_bits_valid'][:, :, 0].all(dim=1)
-    return dict(
-        pulse_sum=out['n_pulses'].sum(0),
-        meas1_sum=first.sum(0),
-        allzero_sum=((first == 0).all(dim=1) & clean).sum(),
-        clean_shots=clean.sum(),
-        err_shots=errored.sum(),
-        fault_shots=fault_shot_counts(out['fault']),
-    )
+    with host_span('sweep.stats'):
+        first = out['meas_bits'][:, :, 0]
+        errored = (out['err'] != 0).any(dim=1)
+        clean = ~errored & out['meas_bits_valid'][:, :, 0].all(dim=1)
+        return dict(
+            pulse_sum=out['n_pulses'].sum(0),
+            meas1_sum=first.sum(0),
+            allzero_sum=((first == 0).all(dim=1) & clean).sum(),
+            clean_shots=clean.sum(),
+            err_shots=errored.sum(),
+            fault_shots=fault_shot_counts(out['fault']),
+        )
 
 
 def multi_batch_stats(out: dict) -> dict:

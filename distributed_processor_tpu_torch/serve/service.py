@@ -66,7 +66,8 @@ import torch
 from .. import isa
 from ..decoder import machine_program_from_cmds, stack_machine_programs
 from ..integrity import IntegrityError, diff_stats
-from ..obs import FlightRecorder, Histogram, Tracer, write_chrome_trace
+from ..obs import (HOST_SPANS, FlightRecorder, Histogram, Tracer, host_span,
+                   write_chrome_trace)
 from ..ops.decode import as_decode_spec
 from ..sim.interpreter import (ENGINES, InterpreterConfig, FaultError,
                                aot_batch_cached, aot_compile_batch,
@@ -2327,57 +2328,65 @@ class ExecutionService:
                                      'cold' if cold else 'warm', eng,
                                      1)
             t0 = time.monotonic()
-            out = simulate_batch(req.mp, req.meas_bits, req.init_regs,
-                                 cfg=scfg, device=ex.device)
-            res = [_to_host(out)]
+            with host_span('serve.enqueue'):
+                out = simulate_batch(req.mp, req.meas_bits, req.init_regs,
+                                     cfg=scfg, device=ex.device)
+            with host_span('serve.copy'):
+                res = [_to_host(out)]
             self._record_bucket_ms(key, cold, time.monotonic() - t0)
             return res
-        B = max(r.n_shots for r in batch)
-        P = _pow2(len(batch)) if self.pad_programs else len(batch)
-        pad = P - len(batch)
-        # program-count padding replicates the LAST request: its lanes
-        # are deterministic copies, and demux only reads the first
-        # len(batch) program slots — inert, but it keeps odd-sized
-        # remainders and stolen batches on the pow2-shaped buckets
-        meas = np.stack(
-            [_pad_shots(r.meas_bits, B) for r in batch]
-            + [_pad_shots(batch[-1].meas_bits, B)] * pad)
-        if any(r.init_regs is not None for r in batch):
-            rows = [_pad_shots(r.init_regs, B) if r.init_regs is not None
-                    else np.zeros((B, r.mp.n_cores, isa.N_REGS), np.int32)
-                    for r in batch]
-            init = np.stack(rows + [rows[-1]] * pad)
-        else:
-            init = None
-        mmp = stack_machine_programs(
-            [r.mp for r in batch] + [batch[-1].mp] * pad,
-            pad_to=key_bucket(batch))
-        self._count_engine_locked(ex, 'generic')
-        cold = self._classify_compile(ex, key,
-                                      ('multi', P, B, init is None))
-        # the catalog stores the EXACT dispatch identity: the stacked
-        # batch's trait union, not any one member's traits
-        bspec = replace(key, traits=program_traits(mmp)).bind(
-            n_programs=P, n_shots=B, has_init_regs=init is not None)
-        self._record_catalog(bspec)
-        if self._tracer.enabled:
-            # three-way dispatch classification: a shape warmed by
-            # aot_compile_batch beats the cold/warm split (the lookup
-            # the interpreter itself makes on dispatch)
-            klass = 'aot' if aot_batch_cached(bspec, ex.device) \
-                else ('cold' if cold else 'warm')
-            self._trace_dispatch(batch, ex, bspec.label(), klass,
-                                 'generic', P)
+        # everything before the enqueue: the stacked inputs and program,
+        # the bucket bookkeeping
+        with host_span('serve.pack'):
+            B = max(r.n_shots for r in batch)
+            P = _pow2(len(batch)) if self.pad_programs else len(batch)
+            pad = P - len(batch)
+            # program-count padding replicates the LAST request: its lanes
+            # are deterministic copies, and demux only reads the first
+            # len(batch) program slots — inert, but it keeps odd-sized
+            # remainders and stolen batches on the pow2-shaped buckets
+            meas = np.stack(
+                [_pad_shots(r.meas_bits, B) for r in batch]
+                + [_pad_shots(batch[-1].meas_bits, B)] * pad)
+            if any(r.init_regs is not None for r in batch):
+                rows = [_pad_shots(r.init_regs, B) if r.init_regs is not None
+                        else np.zeros((B, r.mp.n_cores, isa.N_REGS), np.int32)
+                        for r in batch]
+                init = np.stack(rows + [rows[-1]] * pad)
+            else:
+                init = None
+            mmp = stack_machine_programs(
+                [r.mp for r in batch] + [batch[-1].mp] * pad,
+                pad_to=key_bucket(batch))
+            self._count_engine_locked(ex, 'generic')
+            cold = self._classify_compile(ex, key,
+                                          ('multi', P, B, init is None))
+            # the catalog stores the EXACT dispatch identity: the stacked
+            # batch's trait union, not any one member's traits
+            bspec = replace(key, traits=program_traits(mmp)).bind(
+                n_programs=P, n_shots=B, has_init_regs=init is not None)
+            self._record_catalog(bspec)
+            if self._tracer.enabled:
+                # three-way dispatch classification: a shape warmed by
+                # aot_compile_batch beats the cold/warm split (the lookup
+                # the interpreter itself makes on dispatch)
+                klass = 'aot' if aot_batch_cached(bspec, ex.device) \
+                    else ('cold' if cold else 'warm')
+                self._trace_dispatch(batch, ex, bspec.label(), klass,
+                                     'generic', P)
         t0 = time.monotonic()
-        out = simulate_multi_batch(mmp, meas, init, cfg=cfg,
-                                   device=ex.device)
+        with host_span('serve.enqueue'):
+            out = simulate_multi_batch(mmp, meas, init, cfg=cfg,
+                                       device=ex.device)
         # the host copy waits for the kernels, so the timed window
         # covers the whole dispatch — the cold/warm latency split
         # stats() turns into a first-dispatch cost estimate per bucket
-        host = _to_host(out)
+        with host_span('serve.copy'):
+            host = _to_host(out)
         self._record_bucket_ms(key, cold, time.monotonic() - t0)
-        return [demux_multi_batch(host, i, n_shots=r.n_shots)
-                for i, r in enumerate(batch)]
+        with host_span('serve.demux'):
+            return [demux_multi_batch(host, i, n_shots=r.n_shots)
+                    for i, r in enumerate(batch)]
 
     def _run_stream_batch(self, ex: _DeviceExecutor, key, batch):
         """Execute streaming round chunks: one
@@ -2402,7 +2411,8 @@ class ExecutionService:
             out = simulate_rounds(req.mp, req.meas_bits, req.init_regs,
                                   cfg=rcfg, device=ex.device,
                                   decode=req.decode)
-            results.append(_to_host(out))
+            with host_span('serve.copy'):
+                results.append(_to_host(out))
             self._record_bucket_ms(key, cold, time.monotonic() - t0)
         return results
 
@@ -2749,13 +2759,20 @@ class ExecutionService:
 
     # -- observability export (docs/OBSERVABILITY.md) --------------------
 
-    def dump_trace(self, path: str) -> int:
+    def dump_trace(self, path: str, base_ns: int = None) -> int:
         """Export every retained sampled request trace as Chrome Trace
         Event JSON — loadable in Perfetto / ``chrome://tracing``, and
         summarized per stage by ``cli trace-view``
-        (tools/traceview.py).  Returns the event count written."""
-        return write_chrome_trace(path, self._tracer.contexts(),
-                                  pid=self.name)
+        (tools/traceview.py).  Returns the event count written.
+
+        With ``base_ns`` (a ``torch.profiler`` trace's
+        ``baseTimeNanoseconds``, as ``utils.profiling.device_profile``
+        yields it) the request spans go on the profiler's clock, with the
+        process's host spans (``obs.trace.HOST_SPANS``) beside them, so
+        the file opens on the profile's timeline."""
+        return write_chrome_trace(
+            path, self._tracer.contexts(), pid=self.name, base_ns=base_ns,
+            host_spans=HOST_SPANS.spans() if base_ns is not None else ())
 
     def dump_flight(self, path: str = None) -> str | None:
         """Write the flight-recorder ring to ``path``.  With no path,

@@ -75,6 +75,7 @@ import torch
 
 from .. import isa
 from ..decoder import MultiMachineProgram, stack_machine_programs
+from ..obs.trace import host_span
 from ..ops.decode import as_decode_spec, decode_history
 from ..ops.exec_span import (block_table, exec_blocks, exec_span,
                              lut_min_read, span_table)
@@ -189,8 +190,9 @@ def torch_device(device=None) -> torch.device:
 def fault_shot_counts(fault: torch.Tensor) -> torch.Tensor:
     """``fault [..., n_cores] -> [len(FAULT_CODES)]`` int64: shots where any
     core trapped with each code (any over cores, sum over shots)."""
-    bits = torch.tensor([bit for _, bit in FAULT_CODES], dtype=torch.int32,
-                        device=fault.device)
+    with host_span('h2d.wait'):
+        bits = torch.tensor([bit for _, bit in FAULT_CODES],
+                            dtype=torch.int32, device=fault.device)
     per_shot = ((fault[..., None] & bits) != 0).any(dim=-2)
     return per_shot.sum(dim=tuple(range(per_shot.ndim - 1)))
 
@@ -985,11 +987,13 @@ def _program_constants(mp, device):
     """The decoded program as device tensors: the packed ``[C, N, F]``
     instruction table, per-element samples-per-clock and interpolation
     ``[C, E]``, and the sync participants ``[C]``."""
-    soa = torch.as_tensor(_soa_np(mp), device=device)
     spc, interp = _element_geometry(mp)
-    return (soa, torch.as_tensor(spc, device=device),
-            torch.as_tensor(interp, device=device),
-            torch.as_tensor(np.asarray(mp.sync_participants), device=device))
+    with host_span('h2d.wait'):
+        return (torch.as_tensor(_soa_np(mp), device=device),
+                torch.as_tensor(spc, device=device),
+                torch.as_tensor(interp, device=device),
+                torch.as_tensor(np.asarray(mp.sync_participants),
+                                device=device))
 
 
 def _init_state(batch: int, n_cores: int, cfg: InterpreterConfig,
@@ -1821,7 +1825,8 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
     imm_vals = torch.stack([g('p_env'), g('p_phase'), g('p_freq'),
                             g('p_amp'), g('p_cfg')], dim=-1)     # [B, C, 5]
     five = torch.arange(5, dtype=i32, device=dev)
-    pmasks = torch.tensor(_PMASKS, dtype=i32, device=dev)
+    with host_span('h2d.wait'):
+        pmasks = torch.tensor(_PMASKS, dtype=i32, device=dev)
     wen = (g('p_wen')[..., None] >> five) & 1
     if any_regsel:
         rsel = (g('p_regsel')[..., None] >> five) & 1
@@ -2040,7 +2045,9 @@ def _exec_loop(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         settled = _all_cores(st['done'], cores)
         if cfg.physics:
             settled = settled | paused
-        if bool(settled.all()):
+        with host_span('step.wait'):
+            stop = bool(settled.all())
+        if stop:
             break
         if group_steps is not None:
             _count_group_step(group_steps, settled)
@@ -2149,7 +2156,9 @@ def _exec_blocks(st: dict, steps: int, paused, soa, spc, interp, sync_part,
         settled = _all_cores(st['done'], cores)
         if cfg.physics:
             settled = settled | paused
-        if bool(settled.all()):
+        with host_span('step.wait'):
+            stop = bool(settled.all())
+        if stop:
             break
         if group_steps is not None:
             _count_group_step(group_steps, settled)
@@ -2288,7 +2297,8 @@ def _sl_apply_instr(st: dict, stalled, i: int, N: int, f: dict, spc,
 
     def j(a):
         """A static per-core value as a ``[1, C, ...]`` tensor."""
-        return torch.as_tensor(np.asarray(a), device=dev)[None]
+        with host_span('h2d.wait'):
+            return torch.as_tensor(np.asarray(a), device=dev)[None]
 
     if act is None:
         active = (st['pc'] == i) & ~st['done'] & ~stalled
@@ -2587,7 +2597,8 @@ def _finalize(st: dict, steps, cfg: InterpreterConfig,
     if groups is None:
         if 'op_hist' in st:
             st['op_hist'] = st['op_hist'].sum((0, 1), dtype=torch.int32)
-        st['steps'] = torch.tensor(steps, dtype=torch.int32, device=dev)
+        with host_span('h2d.wait'):
+            st['steps'] = torch.tensor(steps, dtype=torch.int32, device=dev)
         st['incomplete'] = ~st['done'].all()
         return st
     G = groups
@@ -2810,8 +2821,10 @@ def simulate_multi_batch(mps, meas_bits, init_regs=None,
     eng = check_supported(mmp, cfg, device)
     cfg, strict = _fault_policy(cfg)
     P, C = mmp.n_progs, mmp.n_cores
-    meas_bits = _pad_meas(torch.as_tensor(meas_bits, dtype=torch.int32,
-                                          device=device), cfg.max_meas)
+    with host_span('h2d.wait'):
+        meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32,
+                                    device=device)
+    meas_bits = _pad_meas(meas_bits, cfg.max_meas)
     if meas_bits.ndim == 3:
         meas_bits = meas_bits[None].expand(P, *meas_bits.shape)
     if meas_bits.ndim != 4 or meas_bits.shape[0] != P \
@@ -3145,55 +3158,66 @@ def simulate_rounds(mp, meas_bits, init_regs=None,
     scheme's correction).  ``cfg.rounds`` may pre-declare the round
     count; it must then match the round axis.  ``init_regs`` is shared
     across rounds (``[n_cores, 16]`` or ``[n_shots, n_cores, 16]``)."""
-    device = torch_device(device)
-    cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
-    _check_no_cores_axis(cfg)
-    cfg, strict = _fault_policy(cfg)
-    meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32, device=device)
-    if meas_bits.ndim != 4 or meas_bits.shape[2] != mp.n_cores:
-        raise ValueError(
-            f'meas_bits must be [rounds, n_shots, n_cores='
-            f'{mp.n_cores}, n_meas]; got {tuple(meas_bits.shape)}')
-    R = int(meas_bits.shape[0])
-    if R < 1:
-        raise ValueError('meas_bits must carry >= 1 round')
-    if cfg.rounds != 1 and cfg.rounds != R:
-        raise ValueError(
-            f'cfg.rounds={cfg.rounds} contradicts the meas_bits round '
-            f'axis {R}')
-    cfg = replace(cfg, rounds=R)
-    if decode is not None:
-        decode = as_decode_spec(decode)
-        bad = [c for c in decode.cores if not 0 <= c < mp.n_cores]
-        if bad:
-            raise ValueError(
-                f'decode.cores {bad} out of range for n_cores='
-                f'{mp.n_cores}')
-        if not 0 <= decode.slot < cfg.max_meas:
-            raise ValueError(
-                f'decode.slot={decode.slot} out of range for '
-                f'max_meas={cfg.max_meas}')
-    eng = check_supported(mp, cfg, device)
-    meas_bits = _pad_meas(meas_bits, cfg.max_meas)
-    B, C = meas_bits.shape[1], mp.n_cores
-    if init_regs is not None:
-        init_regs = torch.as_tensor(init_regs, dtype=torch.int32,
-                                    device=device)
-        if init_regs.ndim == 3:          # [B, C, R] -> every round's lanes
-            init_regs = init_regs[None].expand(R, *init_regs.shape) \
-                .reshape(R * B, C, isa.N_REGS)
-    _count_trace('rounds_trace', (
-        R, tuple(meas_bits.shape[1:]), eng, cfg, decode,
-        _content_key(mp) if eng != 'generic' else program_traits(mp),
-        _device_key(device)))
-    out = _run_injected(mp, eng, meas_bits.reshape(R * B, C, -1), init_regs,
-                        cfg, device, groups=R)
-    if decode is not None:
-        hist = meas_bits[:, :, list(decode.cores), decode.slot] \
-            .permute(1, 0, 2).contiguous()
-        out['syndrome_hist'] = hist
-        out['decoded'] = decode_history(hist, decode.scheme)
-    return _check_strict(out, strict)
+    with host_span('rounds.call'):
+        with host_span('rounds.prepare'):
+            device = torch_device(device)
+            cfg = replace(cfg, **kw) if cfg else InterpreterConfig(**kw)
+            _check_no_cores_axis(cfg)
+            cfg, strict = _fault_policy(cfg)
+            meas_bits = torch.as_tensor(meas_bits, dtype=torch.int32,
+                                        device=device)
+            if meas_bits.ndim != 4 or meas_bits.shape[2] != mp.n_cores:
+                raise ValueError(
+                    f'meas_bits must be [rounds, n_shots, n_cores='
+                    f'{mp.n_cores}, n_meas]; got {tuple(meas_bits.shape)}')
+            R = int(meas_bits.shape[0])
+            if R < 1:
+                raise ValueError('meas_bits must carry >= 1 round')
+            if cfg.rounds != 1 and cfg.rounds != R:
+                raise ValueError(
+                    f'cfg.rounds={cfg.rounds} contradicts the meas_bits round '
+                    f'axis {R}')
+            cfg = replace(cfg, rounds=R)
+            if decode is not None:
+                decode = as_decode_spec(decode)
+                bad = [c for c in decode.cores if not 0 <= c < mp.n_cores]
+                if bad:
+                    raise ValueError(
+                        f'decode.cores {bad} out of range for n_cores='
+                        f'{mp.n_cores}')
+                if not 0 <= decode.slot < cfg.max_meas:
+                    raise ValueError(
+                        f'decode.slot={decode.slot} out of range for '
+                        f'max_meas={cfg.max_meas}')
+            eng = check_supported(mp, cfg, device)
+            meas_bits = _pad_meas(meas_bits, cfg.max_meas)
+            B, C = meas_bits.shape[1], mp.n_cores
+            if init_regs is not None:
+                init_regs = torch.as_tensor(init_regs, dtype=torch.int32,
+                                            device=device)
+                if init_regs.ndim == 3:    # [B, C, R] -> every round's lanes
+                    init_regs = init_regs[None].expand(R, *init_regs.shape) \
+                        .reshape(R * B, C, isa.N_REGS)
+            _count_trace('rounds_trace', (
+                R, tuple(meas_bits.shape[1:]), eng, cfg, decode,
+                _content_key(mp) if eng != 'generic' else program_traits(mp),
+                _device_key(device)))
+        with host_span('rounds.exec'):
+            out = _run_injected(mp, eng, meas_bits.reshape(R * B, C, -1),
+                                init_regs, cfg, device, groups=R)
+        if decode is not None:
+            with host_span('rounds.decode'):
+                # the list index is a blocking copy to the device
+                with host_span('h2d.wait'):
+                    hist = meas_bits[:, :, list(decode.cores),
+                                     decode.slot]
+                hist = hist.permute(1, 0, 2).contiguous()
+                out['syndrome_hist'] = hist
+                out['decoded'] = decode_history(hist, decode.scheme)
+        if strict:
+            with host_span('rounds.wait'):
+                out = _check_strict(out, strict)
+        return out
 
 
 def make_span_runner(step):

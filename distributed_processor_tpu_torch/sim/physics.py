@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..elements import ENV_CW_SENTINEL, IQ_SCALE
+from ..obs.trace import host_span
 from ..ops.exec_span import exec_span_fused
 from ..ops.resolve import build_energy_prefix, build_energy_tables, \
     build_fused_tables, fused_chunk, resolve_windows_fused
@@ -474,8 +475,9 @@ def _has_cross_core_freqs(mp, drive_elem: int = 0) -> bool:
 def _as_iq(g, C: int, device) -> torch.Tensor:
     """A complex response (scalar or per core) as ``[C, 2]`` float32."""
     g = np.broadcast_to(np.asarray(g, complex), (C,))
-    return torch.as_tensor(np.stack([g.real, g.imag], axis=-1)
-                           .astype(np.float32), device=device)
+    with host_span('h2d.wait'):
+        return torch.as_tensor(np.stack([g.real, g.imag], axis=-1)
+                               .astype(np.float32), device=device)
 
 
 def fused_readout(mp, model: ReadoutPhysics, tables: dict) -> dict:
@@ -568,7 +570,8 @@ def _validate_tables(mp, model: ReadoutPhysics, tables: dict, W: int) -> None:
     if model.resolve_mode in ('fused', 'persample'):
         rows = _static_meas_env_addrs(mp)
         want = [] if rows is None else list(rows)
-        have = tables['rows'].tolist() if 'rows' in tables else None
+        with host_span('physics.wait'):
+            have = tables['rows'].tolist() if 'rows' in tables else None
         if have != want:
             raise ValueError(
                 f'prebuilt tables were built for envelope addresses '
@@ -722,137 +725,162 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     (statevec), with ``meas_p1`` (pre-projection P(1) per slot) and
     ``phys_t``; with ``classify3``, ``meas_class``.  Tensors on
     ``device``."""
-    device = torch_device(device)
-    # a caller-built cfg or max_steps counts as a sized budget; only the
-    # default one is scaled for the statevec event gate below
-    explicit_steps = 'max_steps' in kw or cfg is not None
-    cfg = physics_config(cfg, model, **kw)
-    cfg, strict = _fault_policy(cfg)
-    _check_fabric(cfg, mp.n_cores)
-    _env, freq_stack, spc_m, interp_m, w_auto = \
-        _physics_tables(mp, model.meas_elem)
-    W = int(model.window_samples or w_auto)
-    C, M = mp.n_cores, cfg.max_meas
-    dm = _device_params(mp, model, seed, shots, M, device)
-    if not explicit_steps:
-        cfg = statevec_step_budget(cfg, model, C)
-    _check_model(model, W)
-    eng = check_supported(mp, cfg, device)
-    if eng == 'fused':
-        _fused_blockers(model, _static_meas_env_addrs(mp))
-    soa, spc, interp, sync_part = _program_constants(mp, device)
-    if tables is None:
-        tables = prepare_physics_tables(mp, model, device)
-    else:
-        _validate_tables(mp, model, tables, W)
-    Lp = tables['env'].shape[2]
-    ck = fused_chunk(model.resolve_chunk, W)
+    with host_span('physics.batch', 'shots', shots) as batch:
+        with host_span('physics.prepare'):
+            device = torch_device(device)
+            # a caller-built cfg or max_steps counts as a sized budget;
+            # only the default one is scaled for the statevec event gate
+            # below
+            explicit_steps = 'max_steps' in kw or cfg is not None
+            cfg = physics_config(cfg, model, **kw)
+            cfg, strict = _fault_policy(cfg)
+            _check_fabric(cfg, mp.n_cores)
+            _env, freq_stack, spc_m, interp_m, w_auto = \
+                _physics_tables(mp, model.meas_elem)
+            W = int(model.window_samples or w_auto)
+            C, M = mp.n_cores, cfg.max_meas
+            dm = _device_params(mp, model, seed, shots, M, device)
+            if not explicit_steps:
+                cfg = statevec_step_budget(cfg, model, C)
+            _check_model(model, W)
+            eng = check_supported(mp, cfg, device)
+            batch.arg('engine', eng)
+            if eng == 'fused':
+                _fused_blockers(model, _static_meas_env_addrs(mp))
+            soa, spc, interp, sync_part = _program_constants(mp, device)
+            if tables is None:
+                tables = prepare_physics_tables(mp, model, device)
+            else:
+                _validate_tables(mp, model, tables, W)
+            Lp = tables['env'].shape[2]
+            ck = fused_chunk(model.resolve_chunk, W)
 
-    if init_states is None:
-        p1 = torch.as_tensor(np.broadcast_to(
-            np.asarray(model.p1_init, np.float32), (C,)).copy(),
-            device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(derive_seed(seed, 1) >> 1)
-        init_states = (torch.rand((shots, C), generator=gen, device=device)
-                       < p1[None, :]).to(torch.int32)
-    init_states = torch.as_tensor(init_states, dtype=torch.int32,
-                                  device=device)
+            if init_states is None:
+                p1 = torch.as_tensor(np.broadcast_to(
+                    np.asarray(model.p1_init, np.float32), (C,)).copy(),
+                    device=device)
+                gen = torch.Generator(device=device)
+                gen.manual_seed(derive_seed(seed, 1) >> 1)
+                init_states = (torch.rand((shots, C), generator=gen,
+                                          device=device)
+                               < p1[None, :]).to(torch.int32)
+            init_states = torch.as_tensor(init_states, dtype=torch.int32,
+                                          device=device)
 
-    g0, g1 = _as_iq(model.g0, C, device), _as_iq(model.g1, C, device)
-    g2 = None if model.g2 is None else _as_iq(model.g2, C, device)
-    leak_bit = int(dm['static'][6]) if model.device.kind == 'statevec' \
-        else 1
-    iq3 = (g2, bool(model.classify3), leak_bit) if g2 is not None else None
-    sigma = float(np.float32(model.sigma))
-    inv_ring = float(np.float32(0.0 if model.ring_tau <= 0
-                                else 1.0 / model.ring_tau))
-    noise_seed = derive_seed(seed, 2)
-    window_tables = (torch.as_tensor(freq_stack, device=device),
-                     torch.as_tensor(spc_m, device=device),
-                     torch.as_tensor(interp_m, device=device))
-    traits = program_traits(mp)
-    soa_np = _soa_np(mp)
-    fused = fused_readout(mp, model, tables) if eng == 'fused' else None
-    span = _span_table(mp, cfg, device, fused=True) if eng == 'fused' \
-        else None
-    cw = int(model.cw_horizon)
+            g0, g1 = _as_iq(model.g0, C, device), _as_iq(model.g1, C, device)
+            g2 = None if model.g2 is None else _as_iq(model.g2, C, device)
+            leak_bit = int(dm['static'][6]) \
+                if model.device.kind == 'statevec' else 1
+            iq3 = (g2, bool(model.classify3), leak_bit) \
+                if g2 is not None else None
+            sigma = float(np.float32(model.sigma))
+            inv_ring = float(np.float32(0.0 if model.ring_tau <= 0
+                                        else 1.0 / model.ring_tau))
+            noise_seed = derive_seed(seed, 2)
+            with host_span('h2d.wait'):
+                window_tables = (
+                    torch.as_tensor(freq_stack, device=device),
+                    torch.as_tensor(spc_m, device=device),
+                    torch.as_tensor(interp_m, device=device))
+            traits = program_traits(mp)
+            soa_np = _soa_np(mp)
+            fused = fused_readout(mp, model, tables) \
+                if eng == 'fused' else None
+            span = _span_table(mp, cfg, device, fused=True) \
+                if eng == 'fused' else None
+            cw = int(model.cw_horizon)
 
-    B = init_states.shape[0]
-    if eng == 'fused':
-        _count_trace('pallas_trace', ('fused', B, cfg, _content_key(mp),
-                                      _device_key(device)))
-    st = _init_state(B, C, cfg, init_regs, device)
-    _init_device(st, model.device.kind, init_states)
-    bits = torch.zeros((B, C, M), dtype=torch.int32, device=device)
-    valid = torch.zeros((B, C, M), dtype=torch.bool, device=device)
-    cls = torch.zeros((B, C, M), dtype=torch.int32, device=device) \
-        if model.classify3 else None
-    xi = _analytic_xi(seed, B, C, M, device) \
-        if model.resolve_mode == 'analytic' and sigma != 0 else None
-    paused = torch.zeros((B,), dtype=torch.bool, device=device)
-    slots = torch.arange(M, device=device)[None, None, :]
-    # epoch bound: each epoch resolves at least one measurement and a
-    # cross-core dependency chain can serialize them
-    max_epochs, steps, ep = C * M + 1, 0, 0
-    while ep < max_epochs:
-        more = ((slots < st['n_meas'][..., None]) & ~valid).any()
-        # the straight-line engines end by structure (one visit per
-        # index), so only the generic and block engines spend the step
-        # budget
-        if eng in ('straightline', 'fused') or steps < cfg.max_steps:
-            more = more | ~st['done'].all()
-        if not bool(more):
-            break
-        if eng == 'fused':
-            # the K3 kernel: exec and resolve in one pass, every bit
-            # landing in its slot at its trigger
-            st, bits, valid = exec_span_fused(st, span, bits, valid, cfg,
-                                              fused)
-            steps += soa_np.shape[1]
-            ep += 1
-            continue
-        if eng == 'straightline':
-            st = _exec_straightline(st, soa_np, spc, interp, bits, valid,
-                                    cfg, dm=dm)
-            steps += soa_np.shape[1]
-        elif eng == 'block':
-            # a fproc read pauses only in the boundary step, as in the
-            # generic engine
-            st, steps, paused = _exec_blocks(st, steps, paused, soa, spc,
-                                             interp, sync_part, bits, valid,
-                                             cfg, traits, dm)
-        else:
-            st, steps, paused = _exec_loop(st, steps, paused, soa, spc,
-                                           interp, sync_part, bits, valid,
-                                           cfg, traits, dm)
-        if model.resolve_mode == 'analytic':
-            bits, valid, cls = _resolve_analytic(
-                st, bits, valid, xi, window_tables, tables['env'],
-                (g0, g1, g2), sigma, W, cw, iq3, cls)
-        else:
-            sc, state_sel, slot, has_pending = \
-                _compact_pending_slot(st, valid, window_tables, cw)
-            gs = _channel(state_sel, g0[None], g1[None],
-                          None if g2 is None else g2[None])   # [B, C, 2]
-            acc_i, acc_q, energy = resolve_windows_fused(
-                sc, tables, gs[..., 0].contiguous(),
-                gs[..., 1].contiguous(), sigma, inv_ring, noise_seed, W, Lp,
-                ring=model.ring_tau > 0, epoch=ep, ck=ck,
-                rho=float(np.float32(model.noise_ar1)))
-            new_bit, new_cls = _acc_to_bit(acc_i, acc_q, energy, g0, g1,
-                                           iq3)
-            if new_cls is not None:
-                cls, _ = _scatter_slot_bit(cls, valid, new_cls, slot,
-                                           has_pending)
-            bits, valid = _scatter_slot_bit(bits, valid, new_bit, slot,
-                                            has_pending)
-        paused = torch.zeros_like(paused)
-        ep += 1
-    out = _finalize(st, steps, cfg)
-    out['meas_bits'] = bits
-    out['meas_bits_valid'] = valid
-    out['epochs'] = torch.tensor(ep, dtype=torch.int32, device=device)
-    if cls is not None:
-        out['meas_class'] = cls
-    return _check_strict(out, strict)
+            B = init_states.shape[0]
+            if eng == 'fused':
+                _count_trace('pallas_trace', ('fused', B, cfg,
+                                              _content_key(mp),
+                                              _device_key(device)))
+            st = _init_state(B, C, cfg, init_regs, device)
+            _init_device(st, model.device.kind, init_states)
+            bits = torch.zeros((B, C, M), dtype=torch.int32, device=device)
+            valid = torch.zeros((B, C, M), dtype=torch.bool, device=device)
+            cls = torch.zeros((B, C, M), dtype=torch.int32, device=device) \
+                if model.classify3 else None
+            xi = _analytic_xi(seed, B, C, M, device) \
+                if model.resolve_mode == 'analytic' and sigma != 0 else None
+            paused = torch.zeros((B,), dtype=torch.bool, device=device)
+            slots = torch.arange(M, device=device)[None, None, :]
+            # epoch bound: each epoch resolves at least one measurement
+            # and a cross-core dependency chain can serialize them
+            max_epochs, steps, ep = C * M + 1, 0, 0
+        while ep < max_epochs:
+            with host_span('physics.epoch', 'ep', ep):
+                more = ((slots < st['n_meas'][..., None]) & ~valid).any()
+                # the straight-line engines end by structure (one visit
+                # per index), so only the generic and block engines spend
+                # the step budget
+                if eng in ('straightline', 'fused') \
+                        or steps < cfg.max_steps:
+                    more = more | ~st['done'].all()
+                with host_span('physics.wait'):
+                    more = bool(more)
+                if not more:
+                    break
+                if eng == 'fused':
+                    # the K3 kernel: exec and resolve in one pass, every
+                    # bit landing in its slot at its trigger
+                    with host_span('physics.exec'):
+                        st, bits, valid = exec_span_fused(
+                            st, span, bits, valid, cfg, fused)
+                    steps += soa_np.shape[1]
+                    ep += 1
+                    continue
+                with host_span('physics.exec'):
+                    if eng == 'straightline':
+                        st = _exec_straightline(st, soa_np, spc, interp,
+                                                bits, valid, cfg, dm=dm)
+                        steps += soa_np.shape[1]
+                    elif eng == 'block':
+                        # a fproc read pauses only in the boundary step, as
+                        # in the generic engine
+                        st, steps, paused = _exec_blocks(
+                            st, steps, paused, soa, spc, interp, sync_part,
+                            bits, valid, cfg, traits, dm)
+                    else:
+                        st, steps, paused = _exec_loop(
+                            st, steps, paused, soa, spc, interp, sync_part,
+                            bits, valid, cfg, traits, dm)
+                with host_span('physics.resolve'):
+                    if model.resolve_mode == 'analytic':
+                        bits, valid, cls = _resolve_analytic(
+                            st, bits, valid, xi, window_tables, tables['env'],
+                            (g0, g1, g2), sigma, W, cw, iq3, cls)
+                    else:
+                        sc, state_sel, slot, has_pending = \
+                            _compact_pending_slot(st, valid, window_tables,
+                                                  cw)
+                        gs = _channel(state_sel, g0[None], g1[None],
+                                      None if g2 is None else g2[None])
+                        acc_i, acc_q, energy = resolve_windows_fused(
+                            sc, tables, gs[..., 0].contiguous(),
+                            gs[..., 1].contiguous(), sigma, inv_ring,
+                            noise_seed, W, Lp, ring=model.ring_tau > 0,
+                            epoch=ep, ck=ck,
+                            rho=float(np.float32(model.noise_ar1)))
+                        new_bit, new_cls = _acc_to_bit(acc_i, acc_q, energy,
+                                                       g0, g1, iq3)
+                        if new_cls is not None:
+                            cls, _ = _scatter_slot_bit(cls, valid, new_cls,
+                                                       slot, has_pending)
+                        bits, valid = _scatter_slot_bit(bits, valid, new_bit,
+                                                        slot, has_pending)
+                paused = torch.zeros_like(paused)
+                ep += 1
+        with host_span('physics.finalize'):
+            out = _finalize(st, steps, cfg)
+            out['meas_bits'] = bits
+            out['meas_bits_valid'] = valid
+            with host_span('h2d.wait'):
+                out['epochs'] = torch.tensor(ep, dtype=torch.int32,
+                                             device=device)
+            if cls is not None:
+                out['meas_class'] = cls
+            if strict:
+                with host_span('physics.wait'):
+                    out = _check_strict(out, strict)
+        return out

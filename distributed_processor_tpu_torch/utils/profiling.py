@@ -9,11 +9,15 @@ PyTorch profiler wrapped below.
 from __future__ import annotations
 
 import contextlib
+import os
+import re
+import socket
 import time
+import types
 
 import torch
 
-from .results import host_array
+from ..obs.trace import HOST_SPANS, write_chrome_trace
 
 
 # ---------------------------------------------------------------------------
@@ -77,16 +81,43 @@ def prometheus_text() -> str:
 def device_profile(logdir: str):
     """Capture a device profile of the enclosed work with
     ``torch.profiler`` (host and, where CUDA is available, the card's
-    kernels) and write it to ``logdir`` as a Chrome trace (view with
-    Perfetto or TensorBoard)."""
+    kernels) and write it to ``logdir`` as a Chrome trace
+    (``<host>_<pid>.<ns>.pt.trace.json``, as TensorBoard's handler names
+    it; view with Perfetto or TensorBoard).  The port's host spans of the
+    profile (``obs.trace.host_span``, recorded while it collects) go
+    beside it, in ``<host>_<pid>.<ns>.host_spans.json`` on the trace's
+    time base, so the two files' events share one timeline.
+
+    Yields a namespace whose ``base_ns`` (the trace's
+    ``baseTimeNanoseconds``) and ``trace`` (its path) are set once the
+    profile is written; ``ExecutionService.dump_trace(path,
+    base_ns=...)`` puts a service's request spans on the same timeline::
+
+        with device_profile(logdir) as prof:
+            ...                                   # traffic
+        svc.dump_trace('requests.json', base_ns=prof.base_ns)
+    """
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                logdir)):
-        yield
+    t0 = time.time_ns()
+
+    def ready(prof):
+        os.makedirs(logdir, exist_ok=True)
+        stem = os.path.join(logdir, f'{socket.gethostname()}_{os.getpid()}'
+                                    f'.{time.time_ns()}')
+        prof.export_chrome_trace(stem + '.pt.trace.json')
+        with open(stem + '.pt.trace.json') as f:
+            base = re.search(r'"baseTimeNanoseconds":\s*(\d+)', f.read())
+        out.base_ns = int(base.group(1)) if base else 0
+        out.trace = stem + '.pt.trace.json'
+        write_chrome_trace(stem + '.host_spans.json', [], pid='port host',
+                           base_ns=out.base_ns,
+                           host_spans=HOST_SPANS.spans(t0, time.time_ns()))
+
+    out = types.SimpleNamespace(base_ns=None, trace=None)
+    with torch.profiler.profile(activities=acts, on_trace_ready=ready):
+        yield out
         _synchronize()
 
 
@@ -95,18 +126,6 @@ def _synchronize() -> None:
     CUDA: CPU tensors are computed when their call returns)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-def _to_host(tree):
-    """Every tensor leaf of a dict / list / tuple tree as a host numpy
-    array."""
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return host_array(tree)
-    return tree
 
 
 class StageTimer:
@@ -136,54 +155,3 @@ class StageTimer:
                  for name, dt in sorted(self.times.items(),
                                         key=lambda kv: -kv[1])]
         return '\n'.join(lines)
-
-
-class DispatchTimer:
-    """Per-step wall-clock split into the three host-visible phases of
-    an asynchronously dispatched device step: DISPATCH (the call
-    returning its tensors — kernel enqueue, plus whatever the host waits
-    on inside the call), DEVICE (``torch.cuda.synchronize`` after it),
-    TRANSFER (the host copy of every output tensor).  A dispatch-bound
-    loop shows the first segment dominating while the device sits idle —
-    the diagnosis that motivates folding batches into one dispatch
-    (``parallel.sweep.run_spanned``).
-
-    Example::
-
-        t = DispatchTimer()
-        for seed in seeds:
-            stats = t.step(lambda: run_batch(seed))
-        print(t.breakdown())
-    """
-
-    def __init__(self):
-        self.dispatch_s = 0.0
-        self.device_s = 0.0
-        self.transfer_s = 0.0
-        self.steps = 0
-
-    def step(self, fn):
-        """Run ``fn() -> tree of tensors``; returns the host numpy tree,
-        charging each phase to its counter."""
-        t0 = time.perf_counter()
-        out = fn()
-        t1 = time.perf_counter()
-        _synchronize()
-        t2 = time.perf_counter()
-        host = _to_host(out)
-        t3 = time.perf_counter()
-        self.dispatch_s += t1 - t0
-        self.device_s += t2 - t1
-        self.transfer_s += t3 - t2
-        self.steps += 1
-        return host
-
-    def breakdown(self) -> dict:
-        """Totals + per-step means in ms, JSON-able for bench rows."""
-        n = max(self.steps, 1)
-        out = {'steps': self.steps}
-        for name in ('dispatch', 'device', 'transfer'):
-            s = getattr(self, name + '_s')
-            out[name + '_s'] = round(s, 6)
-            out[name + '_ms_per_step'] = round(1e3 * s / n, 4)
-        return out

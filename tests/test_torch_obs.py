@@ -270,22 +270,12 @@ def test_compile_cache_counters_on_registry():
 
 
 def test_timers_return_host_arrays(tmp_path):
-    """``StageTimer`` and ``DispatchTimer`` on CPU tensors: the stage's
-    own output, the step's as a host numpy tree, every phase charged."""
+    """``StageTimer`` on CPU tensors returns the stage's own output and
+    charges its time; ``device_profile`` writes its trace."""
     st = t_profiling.StageTimer()
     x = st.stage('add', lambda: torch.arange(4) + 1)
     assert torch.equal(x, torch.arange(1, 5))
     assert st.times['add'] >= 0.0 and 'add' in st.report()
-    dt = t_profiling.DispatchTimer()
-    for i in range(3):
-        host = dt.step(lambda: {'a': torch.full((2,), i),
-                                'b': (torch.ones(1), 5)})
-    assert isinstance(host['a'], np.ndarray) and host['a'].tolist() == [2, 2]
-    assert isinstance(host['b'], tuple) and host['b'][1] == 5
-    bd = dt.breakdown()
-    assert bd['steps'] == 3 and set(bd) == {
-        'steps', 'dispatch_s', 'dispatch_ms_per_step', 'device_s',
-        'device_ms_per_step', 'transfer_s', 'transfer_ms_per_step'}
     with t_profiling.device_profile(str(tmp_path)):
         torch.ones(8).sum()
     assert any(p.name.endswith('.json') for p in tmp_path.iterdir())
