@@ -26,7 +26,10 @@ Phases, in order (any failure exits nonzero):
    timed on the same inputs, CUDA events around the wrapper and device
    time under the profiler; the span kernel K3
    (``engine='fused'``) against its plain version and against the
-   generic engine at sigma = 0, with both times; the
+   generic engine at sigma = 0, with both times; K3's physics pass with
+   its readout left to K2 (the main path's exec hop) against the
+   straight-line engine's eager pass, both passes of a headline batch,
+   with both times; the
    waveform kernel K4 rendering every (core, element) trace of a headline
    shot in one launch, and a 1,048,576-sample capture (64 seeded pulses,
    one CW, one overrunning its table, interp 1 and 16) as a one-trace
@@ -43,8 +46,9 @@ Phases, in order (any failure exits nonzero):
    just before it and read just after: the main path (the headline
    program, 8-qubit active reset + depth-12 RB, compiled by the port and
    run physics-closed by ``run_physics_batch`` at 262144 shots; its
-   config resolves to the straight-line engine, and the generic engine's
-   batch is timed beside it), the K1 path (``simulate_batch`` with
+   config resolves to the straight-line engine, whose pass is one launch
+   of K3's physics pass an epoch, and the generic engine's batch is timed
+   beside it), the K1 path (``simulate_batch`` with
    ``engine='pallas'``, then ``'auto'``) and the K3 path
    (``run_physics_batch`` with ``engine='fused'``, sigma = 0), and the
    render-and-readout path (``Simulator``: compile, run 4096 shots with
@@ -504,13 +508,16 @@ def phase_selftest(env) -> None:
     """Phase 2's first check: the port's kernel self-test
     (``ops.selftest``) on the card, on the JAX package's own inputs and
     tolerances: K5 and K4 against their plain versions, K1 span, K1 block
-    and K3 against the generic engine.  Each check runs alone, with its
-    wall time and the launches it made, then ``kernel_parity_check
-    ('cuda')`` runs them all again and must launch all five kernels."""
+    and K3 against the generic engine, K3's physics pass with its readout
+    left to K2 against the straight-line engine's eager pass.  Each check
+    runs alone, with its wall time and the launches it made, then
+    ``kernel_parity_check('cuda')`` runs them all again and must launch
+    all six kernels."""
     from distributed_processor_tpu_torch.ops import selftest
     names = (('exec_span', 'K1 span'), ('exec_blocks', 'K1 block'),
-             ('exec_span_fused', 'K3'), ('render_shot', 'K4'),
-             ('demod_iq', 'K5'))
+             ('exec_span_fused', 'K3'),
+             ('exec_span_physics', 'K3 physics pass'),
+             ('render_shot', 'K4'), ('demod_iq', 'K5'))
 
     def run(fn) -> tuple:
         _reset_launches()
@@ -525,7 +532,7 @@ def phase_selftest(env) -> None:
 
     for label, fn in (('K5 demod', selftest.check_demod_parity),
                       ('K4 render', selftest.check_waveform_parity),
-                      ('K1 span, K1 block, K3',
+                      ('K1 span, K1 block, K3, K3 physics pass',
                        selftest.check_exec_parity)):
         wall, _counts, text = run(fn)
         print(f'self-test {label} ({fn.__name__}): {wall * 1e3:.1f} ms '
@@ -862,12 +869,13 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count goes by."""
     from distributed_processor_tpu_torch.ops.demod import demod_iq
     from distributed_processor_tpu_torch.ops.exec_span import (
-        exec_blocks, exec_span, exec_span_fused)
+        exec_blocks, exec_span, exec_span_fused, exec_span_physics)
     from distributed_processor_tpu_torch.ops.resolve import \
         resolve_windows_fused
     from distributed_processor_tpu_torch.ops.waveform import render_shot
     return {'resolve_windows': resolve_windows_fused,
             'exec_span': exec_span, 'exec_span_fused': exec_span_fused,
+            'exec_span_physics': exec_span_physics,
             'render_shot': render_shot, 'demod_iq': demod_iq,
             'exec_blocks': exec_blocks}
 
@@ -1139,6 +1147,95 @@ def phase_k3(mp, env) -> dict:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                library_ms=None)
+
+
+def phase_k3_physics(mp, env) -> dict:
+    """K3's physics pass with its readout left to K2 (the main path's exec
+    hop, one launch an epoch) against the straight-line engine's eager
+    pass on the card at the main path's batch and readout, every leaf,
+    pass by pass: the first pass from the initial carry (every lane
+    stalls at its reset read), then the resumed pass once the fired
+    windows' bits are set and valid.  Each pass timed at the path's
+    config, CUDA events around the wrapper and device time under the
+    profiler, beside the eager pass's time and the bound."""
+    import torch
+    from distributed_processor_tpu_torch.ops.exec_span import \
+        exec_span_physics
+    from distributed_processor_tpu_torch.sim.interpreter import \
+        _exec_straightline
+    from distributed_processor_tpu_torch.sim.physics import physics_config
+    B, C = HEADLINE['batch'], mp.n_cores
+    model = headline_model()
+
+    def passes(**kw) -> list:
+        """The two passes' inputs ``(carry, bits, valid)``, the second
+        from the plain version's first pass, and the plain outputs."""
+        cfg = physics_config(headline_config(mp, **kw), model)
+        st, table, init = _span_inputs(mp, cfg, B, seed=41, physics=True)
+        bits = torch.zeros(init.shape, dtype=torch.int32, device=DEV)
+        valid = torch.zeros(init.shape, dtype=torch.bool, device=DEV)
+        out = []
+        for _ in range(2):
+            want = _exec_straightline(st, table.soa_np, table.spc,
+                                      table.interp, bits, valid, cfg)
+            out.append((st, bits, valid, want))
+            fired = torch.arange(cfg.max_meas, device=DEV)[None, None, :] \
+                < want['n_meas'][..., None]
+            bits = torch.where(fired & ~valid, init, bits)
+            valid = valid | fired
+            st = want
+        return cfg, table, out
+
+    cfg, table, runs = passes(opcode_histogram=True)
+    worst, retired = 0.0, []
+    for n, (st, bits, valid, want) in enumerate(runs):
+        got = exec_span_physics(st, table, bits, valid, cfg)
+        sync()
+        worst = max(worst, _max_abs_diff(got, want,
+                                         f'K3 physics pass {n} vs plain'))
+        retired.append(int(got['op_hist'].sum()))
+        stalled = int(got['phys_wait'].sum())
+        check(stalled == (B * C if n == 0 else 0),
+              f'K3 physics pass {n}: {stalled} lanes stalled')
+    check(bool(runs[1][3]['done'].all()),
+          'K3 physics passes left lanes undone')
+    print(f'K3 physics pass vs plain (B={B}, two passes): every leaf '
+          f'identical; {retired} instructions retired; every lane stalls at '
+          f'its reset read in the first pass, none in the second')
+    del runs
+    # time at the path's config (no histogram) on the same inputs
+    cfg, table, runs = passes()
+    per = []
+    for n, (st, bits, valid, want) in enumerate(runs):
+        def kernel():
+            return exec_span_physics(st, table, bits, valid, cfg)
+        ms = cuda_time_ms(kernel, reps=20)
+        dev_ms = _kernel_ms(kernel, reps=20, match='exec_span_physics')
+        plain_ms = cuda_time_ms(lambda: _exec_straightline(
+            st, table.soa_np, table.spc, table.interp, bits, valid, cfg),
+            reps=1)
+        nbytes = _carry_bytes(st) + _carry_bytes(want) + sum(
+            t.numel() * t.element_size() for t in
+            (bits, valid, table.spc, table.interp)) + table.soa_np.nbytes
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = retired[n] * SPAN_OPS_PER_INSTR / PEAK_INT32_OPS * 1e3
+        per.append((ms, dev_ms, plain_ms, max(t_bytes, t_ops), t_ops,
+                    t_bytes))
+        print(f'K3 physics pass {n} at B={B} C={C}: kernel {ms:.4f} ms '
+              f'events / {_device_note(dev_ms)} ms device, plain '
+              f'{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms '
+              f'(bytes {nbytes / 1e9:.3f} GB = {t_bytes:.4f} ms, operations '
+              f'{retired[n]} rows x {SPAN_OPS_PER_INSTR} = {t_ops:.4f} ms) '
+              f'on {env["smi"]}')
+    mean = [sum(p[k] for p in per) / len(per) for k in range(6)]
+    return dict(name='exec_span_physics', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/exec_span.cu',
+                replaces='none: the JAX package runs this pass on its XLA '
+                'engines (distributed_processor_tpu/sim/interpreter.py:1864)',
+                max_abs_err=worst, ms=mean[0], dev_ms=mean[1],
+                plain_ms=mean[2], bound_ms=mean[3],
+                bound_by='operations' if mean[4] >= mean[5] else 'bytes',
                 library_ms=None)
 
 
@@ -1670,11 +1767,12 @@ def phase_render_path(env) -> dict:
     return counts
 
 
-def phase_main_path(mp, env) -> int:
+def phase_main_path(mp, env) -> tuple:
     """The headline physics-closed batch on the card: the bench's config
-    resolves to the straight-line engine, with K2 resolving each epoch;
-    the generic engine's batch is timed beside it.  Returns K2's
-    launches in the main path's run."""
+    resolves to the straight-line engine, whose pass is one launch of
+    K3's physics pass an epoch, with K2 resolving each epoch; the generic
+    engine's batch is timed beside it.  Returns K2's and the physics
+    pass's launches in the main path's run."""
     from distributed_processor_tpu_torch.parallel import physics_batch_stats
     from distributed_processor_tpu_torch.sim.interpreter import \
         resolve_engine
@@ -1703,7 +1801,10 @@ def phase_main_path(mp, env) -> int:
           f'main path faulted shots: {stats["fault_shots"]}')
     check(launches == epochs and epochs > 0,
           f'resolve kernel launched {launches} times in {epochs} epochs')
-    check(_only_launched(counts, 'resolve_windows'),
+    check(counts['exec_span_physics'] == epochs,
+          f"K3's physics pass launched {counts['exec_span_physics']} times "
+          f'in {epochs} epochs')
+    check(_only_launched(counts, 'resolve_windows', 'exec_span_physics'),
           f'main path launched other kernels: {counts}')
     check(int(out['steps']) == epochs * mp.n_instr,
           f"straight-line steps {int(out['steps'])}, want {epochs} x "
@@ -1715,7 +1816,9 @@ def phase_main_path(mp, env) -> int:
     check(stats['err_shots'] == 0, f'{stats["err_shots"]} errored shots')
     meas1 = out['meas_bits'].float().mean(0)                 # [C, 2]
     print(f'main path: {B} shots, epochs {epochs}, resolve launches '
-          f'{launches}, {dt:.3f} s ({B / dt:.1f} shots/s, first call)')
+          f"{launches}, K3 physics pass launches "
+          f"{counts['exec_span_physics']}, {dt:.3f} s ({B / dt:.1f} "
+          f'shots/s, first call)')
     print('main path stats: ' + json.dumps(stats))
     print('main path P(1) per core and slot: '
           + json.dumps([[round(x, 5) for x in r] for r in meas1.tolist()]))
@@ -1739,7 +1842,7 @@ def phase_main_path(mp, env) -> int:
               f'on {env["smi"]}')
         profile_batch(lambda: int(run_physics_batch(
             mp, model, 2028, B, cfg=run_cfg, device=DEV)['epochs']), label)
-    return launches
+    return launches, counts['exec_span_physics']
 
 
 def phase_k1_path(mp, env) -> int:
@@ -2428,7 +2531,7 @@ def phase_lut_physics(env) -> dict:
     counts = _launches()
     epochs = int(out['epochs'])
     check(counts['resolve_windows'] == epochs > 0
-          and _only_launched(counts, 'resolve_windows'),
+          and _only_launched(counts, 'resolve_windows', 'exec_span_physics'),
           f'lut physics (sigma={model.sigma}) launches {counts} in {epochs} '
           f'epochs')
     check(not bool(out['incomplete']) and sum(stats['fault_shots']) == 0,
@@ -2483,7 +2586,7 @@ def _steady(label: str, run, env, k2_expected: bool = True) -> dict:
               f'{label}: K2 launched {k2} times in {epochs} epochs')
     else:
         check(k2 == 0, f'{label}: K2 launched {k2} times')
-    check(_only_launched(counts, 'resolve_windows'),
+    check(_only_launched(counts, 'resolve_windows', 'exec_span_physics'),
           f'{label}: other kernels launched: {counts}')
     pwall, kernels = device_kernel_times(lambda: int(run(2)['epochs']))
     busy = sum(us for us, _n in kernels.values()) / 1e6
@@ -3305,7 +3408,7 @@ def phase_qasm_path(mp, env) -> None:
         epochs = int(res['epochs'])
         want_launches = epochs if kernel == 'resolve_windows' else 1
         check(counts[kernel] == want_launches
-              and _only_launched(counts, kernel),
+              and _only_launched(counts, kernel, 'exec_span_physics'),
               f'qasm path {label}: launches {counts} in {epochs} epochs')
         check(not bool(res['incomplete']) and sum(stats['fault_shots']) == 0
               and stats['err_shots'] == 0
@@ -4382,7 +4485,9 @@ def phase_cli(env) -> dict:
 
     text, counts, _ = _cli(['run', qasm, '--physics', '--shots',
                             str(CLI['shots']), '--p1-init', str(CLI['p1'])],
-                           {'resolve_windows': pos}, 'run --physics')
+                           {'resolve_windows': pos,
+                            'exec_span_physics': lambda c: c >= 0},
+                           'run --physics')
     r = json.loads(text)
     check(r['error_shots'] == 0 and not any(r['fault_shots'].values())
           and counts['resolve_windows'] == r['epochs'],
@@ -4427,7 +4532,8 @@ def phase_cli(env) -> dict:
     text, counts, _ = _cli(['sweep', qasm, '--shots',
                             str(CLI['sweep_shots']), '--batch',
                             str(CLI['sweep_batch'])],
-                           {'resolve_windows': pos}, 'sweep')
+                           {'resolve_windows': pos,
+                            'exec_span_physics': lambda c: c >= 0}, 'sweep')
     r = json.loads(text)
     check(r['shots'] == CLI['sweep_shots'] and r['err_shots'] == 0
           and not any(r['fault_shots'].values()), f'cli sweep: {r}')
@@ -4812,7 +4918,8 @@ def phase_mesh_path(mp, loop_mp, env) -> dict:
     wall = time.perf_counter() - t0
     counts = _launches()
     launches['K2'] = counts['resolve_windows']
-    check(launches['K2'] > 0 and _only_launched(counts, 'resolve_windows'),
+    check(launches['K2'] > 0
+          and _only_launched(counts, 'resolve_windows', 'exec_span_physics'),
           f'mesh sweep launches: {counts}')
     acc = None
     for i in range(n):
@@ -5111,6 +5218,8 @@ def main(argv: list) -> int:
     k1 = timed(phase_k1, mp, env)
     k3 = timed(phase_k3, mp, env)
     torch.cuda.empty_cache()
+    k3_phys = timed(phase_k3_physics, mp, env)
+    torch.cuda.empty_cache()
     from distributed_processor_tpu_torch import Simulator
     sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)
     k4 = timed(phase_k4, sim, render_run(sim, mp, 256, seed=50), env)
@@ -5118,7 +5227,8 @@ def main(argv: list) -> int:
     loop_mp = loop_program()
     k1_block = timed(phase_k1_block, loop_mp, env)
     torch.cuda.empty_cache()
-    resolve['launches'] = timed(phase_main_path, mp, env)
+    resolve['launches'], k3_phys['launches'] = timed(phase_main_path, mp,
+                                                     env)
     k1['launches'] = timed(phase_k1_path, mp, env)
     k3['launches'] = timed(phase_k3_path, mp, env)
     k1_block['launches'] = timed(phase_loop_path, loop_mp, env)
@@ -5209,7 +5319,8 @@ def main(argv: list) -> int:
              'library_ms')
     print(json.dumps({'kernels': [{k: kernel[k] for k in order}
                                   for kernel in (resolve, resolve_ar1, k1,
-                                                 k3, k4, k5, k1_block)]}))
+                                                 k3, k3_phys, k4, k5,
+                                                 k1_block)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -13,6 +13,9 @@
 //   K1 block  interpreter._exec_block_body_pallas (inside _exec_blocks): the
 //       block engine's superinstructions, deduplicated straight-line bodies
 //       retired by the lanes whose block id selects them.
+// One kernel here replaces no TPU kernel: exec_span_physics_kernel, K3's
+// pass with its readout left to the epoch resolver K2, which the physics
+// loop runs once per epoch (see its note).
 // The semantics are those of interpreter._sl_apply_instr and
 // _blk_apply_row, whose ports are the plain versions
 // (distributed_processor_tpu_torch/sim/interpreter.py _exec_straightline and
@@ -544,13 +547,12 @@ __device__ __forceinline__ void parity_step(Lane& s, int elem,
     s.qturns = wadd(s.qturns, (2 * s.pp[3] + x90) / (2 * x90));
 }
 
-// K3 at a measurement into `slot` on core `c`: the sigma = 0 readout of
-// its window (physics mode without CW windows flags a CW readout)
-__device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
-                                              int env_len, int nsamp, int c,
-                                              const Params& prm,
-                                              const Readout& ro) {
-  const int* pv = prm.v;
+// physics mode at a measurement into `slot`: latch the window the epoch
+// resolver reads (the state the parity device holds, the pulse registers,
+// the trigger time); physics mode without CW windows flags a CW readout.
+// Returns the state bit.
+__device__ __forceinline__ int latch_window(Lane& s, int slot, int trig,
+                                            int env_len) {
   const int state_bit = (s.qturns >> 1) & 1;
   if (env_len == 0xfff) s.err |= ERR_CW_MEAS;
   s.m_state[slot] = state_bit;
@@ -559,6 +561,17 @@ __device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
   s.m_freq[slot] = s.pp[2];
   s.m_env[slot] = s.pp[0];
   s.m_gtime[slot] = trig;
+  return state_bit;
+}
+
+// K3 at a measurement into `slot` on core `c`: the window latched, then
+// its sigma = 0 readout
+__device__ __forceinline__ void fused_readout(Lane& s, int slot, int trig,
+                                              int env_len, int nsamp, int c,
+                                              const Params& prm,
+                                              const Readout& ro) {
+  const int* pv = prm.v;
+  const int state_bit = latch_window(s, slot, trig, env_len);
   const int count = env_len == 0xfff ? 0 : min(nsamp, pv[P_W]);
   const int addr = (s.pp[0] & 0xfff) * 4;
   const int n_addrs = pv[P_N_ADDRS], Wp = pv[P_WP];
@@ -629,8 +642,11 @@ __device__ __forceinline__ int lut_read(const Peers& pr, int c, int req,
 // either).
 // HIST: the carry may hold pulse records or the opcode histogram (the
 // tile kernel is specialised on it; without either it carries no code
-// for them).
-template <bool FUSED, bool HIST, bool LUT, class Regs, class DurOf>
+// for them).  READOUT (physics mode): a measurement resolves its window's
+// bit (K3), or only latches the window and leaves the bit, and its valid
+// flag, to the epoch resolver (K3 with its readout left to K2).
+template <bool FUSED, bool HIST, bool LUT, bool READOUT = FUSED, class Regs,
+          class DurOf>
 __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
                                          const int* f, int c,
                                          const Params& prm, const DurOf& du,
@@ -687,9 +703,11 @@ __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
         s.meas_avail[slot] = wadd(wadd(trig, dur), pv[P_MEAS_LATENCY]);
         // the lut fabric's production clock: the trigger time
         if (LUT && s.meas_time != nullptr) s.meas_time[slot] = trig;
-        if (FUSED)
+        if (FUSED && READOUT)
           fused_readout(s, slot, trig, env_len, du.nsamp(e, env_len), c, prm,
                         ro);
+        else if (FUSED)
+          latch_window(s, slot, trig, env_len);
         s.n_meas += 1;
       }
       s.time = wadd(trig, pv[P_LOAD_CLKS]);
@@ -798,8 +816,8 @@ __device__ __forceinline__ bool exec_row(Lane& s, const Regs& regs,
 
 // retire lane `s` of core `c` along its pc, index by index, while the pc
 // moves forward past `last` and lies below `lim`; returns false when an
-// fproc read's bit is not resolved yet (K3: phys_wait)
-template <bool FUSED, bool LUT, class DurOf>
+// fproc read's bit is not resolved yet (physics mode: phys_wait)
+template <bool FUSED, bool LUT, bool READOUT = FUSED, class DurOf>
 __device__ __forceinline__ bool run_rows(Lane& s, int* regs, int& last,
                                          int lim, int c, const int* prog,
                                          const Params& prm, const DurOf& du,
@@ -807,9 +825,9 @@ __device__ __forceinline__ bool run_rows(Lane& s, int* regs, int& last,
   const int N = prm.v[P_N];
   while (!s.done && s.pc > last && s.pc < lim) {
     last = s.pc;
-    if (!exec_row<FUSED, true, LUT>(s, LocalRegs{regs},
-                               prog + ((size_t)c * N + s.pc) * N_FIELDS, c,
-                               prm, du, ro, pr))
+    if (!exec_row<FUSED, true, LUT, READOUT>(
+            s, LocalRegs{regs}, prog + ((size_t)c * N + s.pc) * N_FIELDS, c,
+            prm, du, ro, pr))
       return false;
   }
   return true;
@@ -845,8 +863,9 @@ __device__ __forceinline__ const int* stage_program(const int* gprog,
   return sprog;
 }
 
-// span mode, one thread per lane (K3, and K1 where the tile would not
-// fit): each lane walks the program index by index along its pc.  A block
+// span mode, one thread per lane (K3, its physics pass with the readout
+// left to K2, and K1 where the tile would not fit): each lane walks the
+// program index by index along its pc.  A block
 // holds whole shots (blockDim.x / C of them on its first threads; the rest
 // only help copy the slot rows) and strides over groups of them.  Under the 'lut' fabric
 // (`lut` set) the pass splits at the first read index P_MIN_READ: every
@@ -854,14 +873,13 @@ __device__ __forceinline__ const int* stage_program(const int* gprog,
 // measurement count, the block synchronises, and the rest of the program
 // runs, its LUT reads over final planes of the shot's masked cores (the
 // eligibility rule puts every masked core's measurements below the split).
-template <bool FUSED, bool LUT>
-__global__ void __launch_bounds__(THREADS) exec_span_kernel(
-    Leaves lv, Params prm, const int* __restrict__ gprog,
+// `prog`: the program table, staged in shared memory where it fits.
+template <bool FUSED, bool LUT, bool READOUT>
+__device__ __forceinline__ void span_lanes(
+    const Leaves& lv, const Params& prm, const int* prog,
     const int* __restrict__ spc, const int* __restrict__ interp,
-    const int* __restrict__ bits_in, Readout ro, const int* __restrict__ lut,
-    int prog_in_smem) {
-  extern __shared__ int sprog[];
-  const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
+    const int* __restrict__ bits_in, const Readout& ro,
+    const int* __restrict__ lut) {
   const int C = prm.v[P_C], N = prm.v[P_N], E = prm.v[P_E];
   const int split = prm.v[P_MIN_READ];
   const bool two = LUT && lut != nullptr && split < N;
@@ -890,8 +908,8 @@ __global__ void __launch_bounds__(THREADS) exec_span_kernel(
     bool ok = true;
     if (act) {
       load_lane<FUSED>(s, regs, lane, lv, prm, bits_in, true);
-      ok = run_rows<FUSED, LUT>(s, regs, last, two ? split : N, c, prog,
-                                prm, du, ro, Peers{});
+      ok = run_rows<FUSED, LUT, READOUT>(s, regs, last, two ? split : N, c,
+                                         prog, prm, du, ro, Peers{});
     }
     if (two) {
       // the LUT reads below read the shot's counts and planes
@@ -899,9 +917,9 @@ __global__ void __launch_bounds__(THREADS) exec_span_kernel(
       __syncthreads();
       if (act && ok) {
         last = max(last, split - 1);
-        ok = run_rows<FUSED, LUT>(s, regs, last, N, c, prog, prm, du, ro,
-                                  lane_peers<FUSED>(lv, lane, c, prm,
-                                                    bits_in, lut));
+        ok = run_rows<FUSED, LUT, READOUT>(
+            s, regs, last, N, c, prog, prm, du, ro,
+            lane_peers<FUSED>(lv, lane, c, prm, bits_in, lut));
       }
     }
     if (act) {
@@ -910,6 +928,49 @@ __global__ void __launch_bounds__(THREADS) exec_span_kernel(
       if (FUSED) static_cast<uint8_t*>(lv.out[L_PHYS_WAIT])[lane] = !ok;
     }
   }
+}
+
+// K1 (FUSED = false) and K3 (FUSED = true), one thread per lane
+template <bool FUSED, bool LUT>
+__global__ void __launch_bounds__(THREADS) exec_span_kernel(
+    Leaves lv, Params prm, const int* __restrict__ gprog,
+    const int* __restrict__ spc, const int* __restrict__ interp,
+    const int* __restrict__ bits_in, Readout ro, const int* __restrict__ lut,
+    int prog_in_smem) {
+  extern __shared__ int sprog[];
+  const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
+  span_lanes<FUSED, LUT, FUSED>(lv, prm, prog, spc, interp, bits_in, ro,
+                                lut);
+}
+
+// K3 with its readout left to K2: the straight-line pass of one epoch of
+// the physics loop (sim/physics.py run_physics_batch).  It replaces no TPU
+// kernel: the JAX package refuses its megastep kernel in physics mode
+// (distributed_processor_tpu/sim/interpreter.py:1864, pallas_ineligible)
+// and runs this pass on its XLA engines.
+// It shares K3's design because it is K3's pass in all but the readout:
+// the parity co-state and the stall at an fproc read whose bit is not
+// valid are K3's own, and a measurement latches its window (meas_state,
+// amp, phase, freq, env, gtime, meas_avail, n_meas) for the epoch
+// resolver and writes no bit.  The carry's meas_bits and meas_valid are
+// read in place (the wrapper passes the same pointer in and out), and a
+// lane stalled at a read resumes there on the next epoch's launch.  It
+// takes no readout tables (P_N_ADDRS = 0).  Bound: K1's ~40 integer
+// operations a retired row, or the physics carry's bytes, each lane's read
+// once and written once, whichever is larger; at the headline (262144 x 8
+// lanes, M = 2) the carry is 0.80 GB a pass (0.24 ms at 3.35 TB/s) and the
+// resumed pass retires 74.4M rows (0.18 ms), so it is bound by bytes.
+// The one-thread-per-lane design keeps each lane's carry in registers
+// between one load and one store, which is what that bound asks for.
+template <bool LUT>
+__global__ void __launch_bounds__(THREADS) exec_span_physics_kernel(
+    Leaves lv, Params prm, const int* __restrict__ gprog,
+    const int* __restrict__ spc, const int* __restrict__ interp,
+    const int* __restrict__ bits_in, Readout ro, const int* __restrict__ lut,
+    int prog_in_smem) {
+  extern __shared__ int sprog[];
+  const int* prog = stage_program(gprog, prog_in_smem, prm, sprog);
+  span_lanes<true, LUT, false>(lv, prm, prog, spc, interp, bits_in, ro, lut);
 }
 
 // block mode, one thread per lane (where the tile would not fit): every
@@ -1479,7 +1540,10 @@ int launch_tile(const Leaves& lv, const Params& prm, const Tile& tg,
 // reads the injected bits_in [B, C, M] int32; K3 (fused = 1) carries the
 // bits in the L_MEAS_BITS/L_MEAS_VALID leaves and reads the energy prefix
 // e2p [C, n_addrs, Wp] float32 (Wp = params[P_WP] > W), g0/g1 [C, 2]
-// float32 and addrs [n_addrs] int32.  lut: under the 'lut' fabric, int32
+// float32 and addrs [n_addrs] int32.  fused = 2: K3's physics pass with
+// the readout left to K2, which reads those two leaves and writes neither
+// (the wrapper passes them in place, in = out) and takes no readout tables
+// (n_addrs = 0).  lut: under the 'lut' fabric, int32
 // [C + params[P_LUT_N]]: each core's address shift (-1: not masked), then
 // the table; the carry then holds L_MEAS_TIME and the pass splits at
 // params[P_MIN_READ]; null under the sticky fabric.  tile: the tile's sub,
@@ -1496,7 +1560,8 @@ extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
                             float amp_scale, int fused, const int* tile,
                             void* stream) {
   const Tile tg = {tile[0], tile[1], tile[2], tile[3]};
-  if (n_leaves != N_LEAVES || n_params != N_PARAMS || (fused && tg.sub != 0))
+  if (n_leaves != N_LEAVES || n_params != N_PARAMS || fused < 0 ||
+      fused > 2 || (fused && tg.sub != 0))
     return (int)cudaErrorInvalidValue;
   const Leaves lv = leaves(in_ptrs, out_ptrs);
   const Params prm = params_of(params);
@@ -1509,10 +1574,12 @@ extern "C" int dp_exec_span(const unsigned long long* in_ptrs,
     const int threads = span_threads(prm, lut);
     if (threads < 0) return (int)cudaErrorInvalidConfiguration;
     const auto kernel =
-        fused ? (lut ? exec_span_kernel<true, true>
-                     : exec_span_kernel<true, false>)
-              : (lut ? exec_span_kernel<false, true>
-                     : exec_span_kernel<false, false>);
+        fused == 2 ? (lut ? exec_span_physics_kernel<true>
+                          : exec_span_physics_kernel<false>)
+        : fused    ? (lut ? exec_span_kernel<true, true>
+                          : exec_span_kernel<true, false>)
+                   : (lut ? exec_span_kernel<false, true>
+                          : exec_span_kernel<false, false>);
     return launch_lanes(kernel, prm, threads, s, lv, prm, prog, spc, interp,
                         bits_in, ro, lut);
   }

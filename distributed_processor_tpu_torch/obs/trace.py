@@ -42,8 +42,11 @@ Taxonomy (every span that blocks on the device is named ``*.wait``;
 PERF.md section 3 names the benchmark metric that reads each):
 
     ``physics.batch``   ``sim.physics.run_physics_batch`` (args: shots,
-                        engine), with ``physics.prepare``, then per epoch
-                        ``physics.epoch`` (arg: ep) over ``physics.wait``,
+                        engine, exec: ``'kernel'`` where the exec hop is
+                        one span-kernel launch an epoch, else
+                        ``'plain'``), with ``physics.prepare``, then per
+                        epoch ``physics.epoch`` (arg: ep) over
+                        ``physics.wait``,
                         ``physics.exec`` and ``physics.resolve``, and
                         ``physics.finalize``
     ``sweep.stats``     ``parallel.sweep.physics_batch_stats``
@@ -57,9 +60,9 @@ PERF.md section 3 names the benchmark metric that reads each):
                         step loop, a host read once a step
     ``h2d.wait``        a blocking copy of a host constant or input to the
                         device, which first waits for the stream's queued
-                        work: in the straight-line engine once a
-                        constant, in ``_step`` once a step, and around
-                        each call's program constants and inputs
+                        work: in the straight-line engine's eager pass
+                        once a constant, in ``_step`` once a step, and
+                        around each call's program constants and inputs
 
 The ``*.wait`` spans nest under the span whose work they interrupt.
 """

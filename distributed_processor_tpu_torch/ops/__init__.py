@@ -7,5 +7,5 @@ from .demod import (demod_iq, demod_iq_reference, discriminate,
 from .resolve import (build_energy_prefix, build_energy_tables,
                       build_fused_tables, build_prefix_tables,
                       resolve_windows_fused, resolve_windows_reference)
-from .exec_span import exec_span, exec_span_fused
+from .exec_span import exec_span, exec_span_fused, exec_span_physics
 from .fabric import MeasLUT

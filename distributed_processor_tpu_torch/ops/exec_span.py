@@ -13,6 +13,13 @@ with its three bodies, all in ``csrc/exec_span.cu``:
   the same in physics mode on the parity device; each measurement
   trigger resolves its window's sigma = 0 bit in the kernel, so one
   launch replaces the epoch loop's exec -> resolve round trips.
+* :func:`exec_span_physics` — K3 with its readout left to the epoch
+  resolver K2: the physics loop's straight-line pass on the parity
+  device, one launch an epoch; a measurement trigger latches its window
+  and writes no bit, an fproc read whose bit is not valid stalls the
+  lane (``phys_wait``) and the next epoch's launch resumes it there.
+  It replaces no TPU kernel (the JAX package runs this pass on its XLA
+  engines).
 * :func:`exec_blocks` — K1 block mode
   (``interpreter._exec_block_body_pallas``): one launch per iteration of
   the block engine retires, for every lane at a block start, that
@@ -178,6 +185,35 @@ def exec_span_fused(st: dict, table, bits, valid, cfg, fused: dict):
 
 
 exec_span_fused.launches = 0
+
+
+def exec_span_physics(st: dict, table, bits, valid, cfg) -> dict:
+    """K3 with its readout left to K2: one straight-line pass of the
+    program of ``table`` (:func:`span_table`, built with ``fused=True``)
+    over the physics carry ``st`` of the parity device, reading the bits
+    ``bits`` int32 / ``valid`` bool ``[B, C, M]`` that the epoch resolver
+    wrote, and writing neither.  A measurement trigger latches its window
+    (``meas_state``, ``meas_amp``, ``meas_phase``, ``meas_freq``,
+    ``meas_env``, ``meas_gtime``), ``meas_avail`` and ``n_meas``; an fproc
+    read whose bit is not valid stalls the lane.  Returns the new carry
+    with ``phys_wait``, as the plain version
+    (:func:`..sim.interpreter._exec_straightline`, taken for a CPU
+    carry) does."""
+    if not cfg.physics or cfg.device != 'parity' or cfg.cw_horizon:
+        raise ValueError('exec_span_physics runs physics mode on the '
+                         'parity device without CW windows')
+    if st['pc'].device.type == 'cpu':
+        from ..sim.interpreter import _exec_straightline
+        return _exec_straightline(st, table.soa_np, table.spc, table.interp,
+                                  bits, valid, cfg)
+    out = _launch(dict(st, meas_bits=bits, meas_valid=valid), table, cfg,
+                  physics=True)
+    _cuda.count_launch(exec_span_physics)
+    del out['meas_bits'], out['meas_valid']
+    return out
+
+
+exec_span_physics.launches = 0
 
 
 class SpanTable(NamedTuple):
@@ -481,12 +517,17 @@ def _tile_arg(B: int, C: int, blocks: bool, per_lane: bool = False):
 
 
 def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
-            fused: dict = None, per_lane: bool = False) -> dict:
+            fused: dict = None, physics: bool = False,
+            per_lane: bool = False) -> dict:
     """Check the carry, allocate the output carry and launch a span
-    kernel on the current stream; returns the output carry.  Host work
-    only: the table's checks ran when it was built."""
+    kernel on the current stream; returns the output carry.  ``fused``:
+    K3's readout; ``physics``: K3 with its readout left to K2, whose
+    output carry holds the input's ``meas_bits`` and ``meas_valid``
+    tensors (read in place).  Host work only: the table's checks ran when
+    it was built."""
     device = st['pc'].device
-    if fused is not None and 'phys_wait' not in st:
+    phys = fused is not None or physics
+    if phys and 'phys_wait' not in st:
         st = dict(st, phys_wait=torch.zeros(st['pc'].shape, dtype=torch.bool,
                                             device=device))
     B, C = _check_leaves(st, cfg)
@@ -501,7 +542,8 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
     shapes = _leaf_shapes(B, C, cfg)
     ins, outs, out = [0] * len(LEAVES), [0] * len(LEAVES), {}
     for k, v in st.items():
-        out[k] = torch.empty_like(v)
+        out[k] = v if physics and k in ('meas_bits', 'meas_valid') \
+            else torch.empty_like(v)
         ins[_LEAF_INDEX[k]] = v.data_ptr()
         outs[_LEAF_INDEX[k]] = out[k].data_ptr()
     ptr = lambda t: t.data_ptr() if t is not None else None
@@ -509,12 +551,13 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
     n_addrs = W = Wp = 0
     e2p = g0 = g1 = addrs = None
     amp_scale = 1.0
-    if fused is None:
+    if not phys:
         _check('meas_bits', bits_in, torch.int32, shapes['meas_bits'], device)
     else:
         for k in ('qturns', 'meas_bits', 'meas_valid', 'meas_state'):
             if k not in st:
                 raise ValueError(f'exec_span kernel: physics carry lacks {k}')
+    if fused is not None:
         e2p = fused['e2p']
         n_addrs, Wp = len(fused['addrs']), e2p.shape[2]
         W = int(fused['w'])
@@ -534,12 +577,11 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
                          f"{cfg.fabric!r} needs a span table built for it "
                          f"and, under 'lut', the meas_time plane")
     if table.lut is not None and table.min_read < N and C > _LANE_THREADS \
-            and (per_lane or fused is not None
-                 or tile_geometry(B, C, False) is None):
+            and (per_lane or phys or tile_geometry(B, C, False) is None):
         raise ValueError(f'exec_span kernel: a LUT read over {C} cores '
                          f'needs whole shots in one block of at most '
                          f'{_LANE_THREADS} threads')
-    tile = _tile_arg(B, C, False, per_lane or fused is not None)
+    tile = _tile_arg(B, C, False, per_lane or phys)
     pvals = _param_values(B, C, N, E, cfg, n_addrs=n_addrs, W=W, Wp=Wp,
                           min_read=table.min_read,
                           lut_n=len(cfg.lut_table) if table.lut is not None
@@ -549,7 +591,8 @@ def _launch(st: dict, table: SpanTable, cfg, bits_in=None,
         (ctypes.c_uint64 * len(LEAVES))(*outs), len(LEAVES), pvals,
         len(PARAMS), ptr(table.prog), ptr(table.spc), ptr(table.interp),
         ptr(bits_in), ptr(e2p), ptr(g0), ptr(g1), ptr(addrs), ptr(table.lut),
-        amp_scale, int(fused is not None), tile, stream)
+        amp_scale, 1 if fused is not None else 2 if physics else 0, tile,
+        stream)
     if rc != 0:
         raise RuntimeError(f'exec_span kernel launch failed: cudaError {rc}')
     # the cached table may have been made on another stream (the serving

@@ -9,7 +9,10 @@ its plain torch version on the same card: K5 (``csrc/demod.cu``,
 (``csrc/waveform.cu``, :func:`.waveform.synthesize_element`) against
 :func:`.waveform.synthesize_element_reference`, and K1 span, K1 block
 and K3 (``csrc/exec_span.cu``: ``engine='pallas'`` and
-``engine='fused'``) against the generic engine.  On ``'cpu'`` both
+``engine='fused'``) against the generic engine, and K3's physics pass
+with its readout left to K2 (:func:`.exec_span.exec_span_physics`)
+against its plain version, the straight-line engine's eager pass, pass
+by pass on the same card.  On ``'cpu'`` both
 sides are plain, so tier-1 runs the checks themselves.  The device is
 the caller's: with none named it is the card, and the check raises when
 there is no card rather than running on the CPU.
@@ -22,6 +25,7 @@ import torch
 
 from ..elements import ENV_CW_SENTINEL
 from .demod import demod_iq, demod_iq_reference
+from .exec_span import exec_span_physics
 from .waveform import synthesize_element, synthesize_element_reference
 
 
@@ -148,6 +152,49 @@ def check_exec_parity(device=None) -> None:
     _assert_equal(got, want, ('steps', 'epochs'))
     assert int(got['epochs']) == 1, \
         'fused engine did not collapse the epoch loop'
+    check_physics_pass_parity(d)
+
+
+def check_physics_pass_parity(device=None) -> None:
+    """K3's physics pass with its readout left to K2 against the
+    straight-line engine's eager pass on ``device``: ``active_reset`` on 2
+    qubits, a first pass from the initial carry that stalls every lane at
+    its reset read (``phys_wait``), then, with every fired window's bit
+    set and valid, the resumed pass that retires the program.  Exact on
+    every leaf of both passes; raises on mismatch."""
+    from ..models.experiments import active_reset
+    from ..sim.interpreter import (InterpreterConfig, _exec_straightline,
+                                   _init_state, _span_table)
+    from ..simulator import Simulator
+    d = _device(device)
+    rng = np.random.default_rng(3)
+    mp = Simulator(n_qubits=2, device=d).compile(active_reset(['Q0', 'Q1']))
+    cfg = InterpreterConfig(physics=True, max_steps=mp.n_instr * 4 + 64,
+                            max_pulses=16, max_meas=4, x90_amp=31457)
+    B, C, M = 5, mp.n_cores, cfg.max_meas
+    st = _init_state(B, C, cfg, None, d)
+    st['qturns'] = 2 * torch.as_tensor(rng.integers(0, 2, (B, C)),
+                                       dtype=torch.int32, device=d)
+    table = _span_table(mp, cfg, d, fused=True)
+    bits = torch.zeros((B, C, M), dtype=torch.int32, device=d)
+    valid = torch.zeros((B, C, M), dtype=torch.bool, device=d)
+    want = st
+    for n in range(2):
+        got = exec_span_physics(want, table, bits, valid, cfg)
+        want = _exec_straightline(want, table.soa_np, table.spc,
+                                  table.interp, bits, valid, cfg)
+        _assert_equal(got, want, ())
+        assert set(got) == set(want)
+        stalled = bool(want['phys_wait'].any())
+        assert stalled == (n == 0), 'the reset read did not stall, then ' \
+            'resume'
+        fired = torch.arange(M, device=d)[None, None] \
+            < want['n_meas'][..., None]
+        bits = torch.where(fired & ~valid, torch.as_tensor(
+            rng.integers(0, 2, (B, C, M)), dtype=torch.int32, device=d),
+            bits)
+        valid = valid | fired
+    assert bool(want['done'].all()), 'the resumed pass did not retire'
 
 
 def kernel_parity_check(device=None) -> None:

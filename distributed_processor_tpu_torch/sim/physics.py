@@ -17,8 +17,12 @@ hdl/core_state_mgr.sv:45-56).  Here, as in the JAX package, each epoch
 
 ``engine='fused'`` (sigma = 0 only) collapses the loop to one pass of
 the span kernel K3 (:func:`..ops.exec_span.exec_span_fused`), which
-resolves each window at its trigger.  The epoch loop is a Python
-``while`` whose condition is read with one ``.item()`` per epoch.
+resolves each window at its trigger.  On a CUDA device the straight-line
+engine's pass is one launch of K3 with its readout left to the resolver
+(:func:`..ops.exec_span.exec_span_physics`) wherever K3 takes the
+program and configuration (:func:`exec_path`).  The epoch loop is a
+Python ``while`` whose condition is read with one ``.item()`` per
+epoch.
 ``resolve_mode='fused'`` and ``'persample'`` select the same per-sample
 chain here (the JAX package holds its two formulations bit-identical at
 sigma = 0), over the program's static envelope rows where it has them;
@@ -43,7 +47,7 @@ import torch
 
 from ..elements import ENV_CW_SENTINEL, IQ_SCALE
 from ..obs.trace import host_span
-from ..ops.exec_span import exec_span_fused
+from ..ops.exec_span import exec_span_fused, exec_span_physics
 from ..ops.resolve import build_energy_prefix, build_energy_tables, \
     build_fused_tables, fused_chunk, resolve_windows_fused
 from ..ops.waveform import PHASE_BITS, AMP_SCALE, complex_to_iq, \
@@ -54,7 +58,8 @@ from .interpreter import (InterpreterConfig, _program_constants,
                           _content_key, _count_trace, _device_key,
                           _exec_straightline, _finalize, _fault_policy,
                           _check_fabric, _check_strict, _soa_np,
-                          check_supported, program_traits, torch_device)
+                          check_supported, fused_ineligible, program_traits,
+                          torch_device)
 
 # default-qchip X90 amplitude word: round(0.48 * (2^16 - 1))
 X90_AMP_DEFAULT = 31457
@@ -704,6 +709,29 @@ def _init_device(st: dict, kind: str, init_states) -> None:
             1 << C, device=init_states.device)[None, :]).to(torch.complex64)
 
 
+def exec_path(mp, cfg: InterpreterConfig, eng: str, device) -> str:
+    """How the exec hop of a physics run on ``device`` retires an epoch
+    on its resolved engine ``eng``: ``'kernel'`` — one launch of a span
+    kernel (K3 for ``'fused'``; for ``'straightline'``, K3 with its readout
+    left to the resolver, :func:`..ops.exec_span.exec_span_physics`) — on
+    a CUDA device where K3 takes the program and the configuration
+    (:func:`..sim.interpreter.fused_ineligible`: the parity device, no CW
+    windows, no trace mode, a span-shaped program, a static measurement
+    bound within ``max_meas``); ``'plain'`` — the engine's eager torch
+    pass, or on the CPU the kernels' plain versions — otherwise."""
+    if torch.device(device).type != 'cuda' \
+            or eng not in ('straightline', 'fused'):
+        return 'plain'
+    if eng == 'fused':
+        return 'kernel'
+    # asked once per program object and configuration (a campaign asks
+    # every batch; the analysis takes milliseconds of host time)
+    known = mp.__dict__.setdefault('_k3_takes', {})
+    if cfg not in known:
+        known[cfg] = fused_ineligible(mp, cfg) is None
+    return 'kernel' if known[cfg] else 'plain'
+
+
 def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                       init_states=None, init_regs=None,
                       cfg: InterpreterConfig = None, tables: dict = None,
@@ -744,7 +772,9 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                 cfg = statevec_step_budget(cfg, model, C)
             _check_model(model, W)
             eng = check_supported(mp, cfg, device)
+            path = exec_path(mp, cfg, eng, device)
             batch.arg('engine', eng)
+            batch.arg('exec', path)
             if eng == 'fused':
                 _fused_blockers(model, _static_meas_env_addrs(mp))
             soa, spc, interp, sync_part = _program_constants(mp, device)
@@ -787,7 +817,7 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
             fused = fused_readout(mp, model, tables) \
                 if eng == 'fused' else None
             span = _span_table(mp, cfg, device, fused=True) \
-                if eng == 'fused' else None
+                if eng == 'fused' or path == 'kernel' else None
             cw = int(model.cw_horizon)
 
             B = init_states.shape[0]
@@ -831,7 +861,11 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                     ep += 1
                     continue
                 with host_span('physics.exec'):
-                    if eng == 'straightline':
+                    if path == 'kernel':
+                        # one launch: the readout is the resolver's below
+                        st = exec_span_physics(st, span, bits, valid, cfg)
+                        steps += soa_np.shape[1]
+                    elif eng == 'straightline':
                         st = _exec_straightline(st, soa_np, spc, interp,
                                                 bits, valid, cfg, dm=dm)
                         steps += soa_np.shape[1]

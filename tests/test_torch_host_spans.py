@@ -233,7 +233,7 @@ def rb3():
 @pytest.mark.parametrize('fault_mode', ['count', 'strict'])
 def test_physics_batch_taxonomy(rb3, fault_mode):
     """``run_physics_batch`` and ``physics_batch_stats``: one
-    ``physics.batch`` (shots, engine) over ``physics.prepare``, one
+    ``physics.batch`` (shots, engine, exec) over ``physics.prepare``, one
     ``physics.epoch`` per check of the loop, each over a
     ``physics.wait`` and, but for the last, ``physics.exec`` and
     ``physics.resolve``, and ``physics.finalize`` (over the strict
@@ -255,7 +255,8 @@ def test_physics_batch_taxonomy(rb3, fault_mode):
     got = _by_name(spans)
     batch, = got['physics.batch']
     assert batch['parent'] is None
-    assert batch['args'] == {'shots': 16, 'engine': 'straightline'}
+    assert batch['args'] == {'shots': 16, 'engine': 'straightline',
+                             'exec': 'plain'}
     epochs = int(out['epochs'])
     kids = _children(spans, batch)
     assert kids == (['physics.prepare'] + ['physics.epoch'] * (epochs + 1)

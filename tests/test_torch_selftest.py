@@ -55,7 +55,8 @@ def test_no_card_raises():
     if torch.cuda.is_available():
         pytest.skip('this host has CUDA: the default device is usable')
     for fn in (selftest.kernel_parity_check, selftest.check_demod_parity,
-               selftest.check_waveform_parity, selftest.check_exec_parity):
+               selftest.check_waveform_parity, selftest.check_exec_parity,
+               selftest.check_physics_pass_parity):
         with pytest.raises(RuntimeError, match='CUDA'):
             fn()
         with pytest.raises(RuntimeError, match='CUDA'):
@@ -85,6 +86,10 @@ def _perturbed(monkeypatch, which: str) -> None:
         blocks = interpreter.exec_blocks
         monkeypatch.setattr(interpreter, 'exec_blocks',
                             lambda *a: _shift_time(blocks(*a)))
+    elif which == 'physics':
+        pass_ = selftest.exec_span_physics
+        monkeypatch.setattr(selftest, 'exec_span_physics',
+                            lambda *a: _shift_time(pass_(*a)))
     else:
         fused = physics.exec_span_fused
         monkeypatch.setattr(
@@ -95,7 +100,8 @@ def _perturbed(monkeypatch, which: str) -> None:
 @pytest.mark.parametrize('which,check', [
     ('demod', 'check_demod_parity'), ('waveform', 'check_waveform_parity'),
     ('span', 'check_exec_parity'), ('block', 'check_exec_parity'),
-    ('fused', 'check_exec_parity')])
+    ('fused', 'check_exec_parity'), ('physics', 'check_exec_parity'),
+    ('physics', 'check_physics_pass_parity')])
 def test_check_fails_on_a_perturbed_kernel(monkeypatch, which, check):
     getattr(selftest, check)('cpu')
     _perturbed(monkeypatch, which)
