@@ -44,11 +44,16 @@ PERF.md section 3 names the benchmark metric that reads each):
     ``physics.batch``   ``sim.physics.run_physics_batch`` (args: shots,
                         engine, exec: ``'kernel'`` where the exec hop is
                         one span-kernel launch an epoch, else
-                        ``'plain'``), with ``physics.prepare``, then per
+                        ``'plain'``, device: the device model's kind),
+                        with ``physics.prepare``, then per
                         epoch ``physics.epoch`` (arg: ep) over
                         ``physics.wait``,
                         ``physics.exec`` and ``physics.resolve``, and
                         ``physics.finalize``
+    ``statevec.apply``  ``sim.interpreter._statevec_pulse``, once a step of
+                        the generic engine on the statevec device (under
+                        ``physics.exec``): the 1q, coupling, noise and
+                        collapse updates the step enqueues
     ``sweep.stats``     ``parallel.sweep.physics_batch_stats``
     ``rounds.call``     ``sim.interpreter.simulate_rounds``, over
                         ``rounds.prepare``, ``rounds.exec``,
@@ -65,6 +70,12 @@ PERF.md section 3 names the benchmark metric that reads each):
                         around each call's program constants and inputs
 
 The ``*.wait`` spans nest under the span whose work they interrupt.
+
+The statevec block's counter (``utils.profiling``, on the host, one
+increment a step, no device read): ``statevec.steps``, the engine steps
+it took; each enqueues the same updates (C 1q, one a coupling, C
+measurement).  On the device, ``run_physics_batch`` returns the event
+gate's ``gate_stall_steps`` and ``live_core_steps``.
 """
 
 from __future__ import annotations

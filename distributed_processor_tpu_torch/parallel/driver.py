@@ -182,7 +182,7 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
                       init_regs=None, checkpoint: str = None,
                       checkpoint_every: int = 0, span: int = 1,
                       mesh=None, strict_resume: bool = False, device=None,
-                      **cfg_kw) -> dict:
+                      outcome_slot: int = None, **cfg_kw) -> dict:
     """Physics-closed sweep: ``total_shots`` in ``batch``-sized runs.
 
     Batch ``i`` runs with ``derive_seed(seed, i)``, so the result is a
@@ -210,6 +210,13 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
     sums are all-reduced over ``'dp'``, so every rank returns the whole
     result.  A cores mesh with more than one shard raises: physics
     sweeps shard shots only.
+
+    ``outcome_slot``: each batch's reduce also takes the joint histogram
+    of that measurement slot (:func:`.sweep.outcome_counts`), summed over
+    batches, spans and dp ranks; it is part of the checkpoint's identity,
+    and the result gains ``outcome_counts`` (int64 ``[2^C]``, core ``c``
+    bit ``c``).  Slot 0 of a program that starts with an active reset is
+    the reset's read; -1 takes each core's last read.
 
     Returns ``{'shots', 'engine', 'mean_pulses' [C], 'meas1_rate' [C],
     'survival00_rate', 'clean_shots', 'err_shots', 'fault_shots',
@@ -239,7 +246,8 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
         out = run_physics_batch(mp, model, batch_seed, shots,
                                 init_regs=init_regs, cfg=cfg, tables=tables,
                                 device=device)
-        stats = dict(physics_batch_stats(out), incomplete=out['incomplete'])
+        stats = dict(physics_batch_stats(out, outcome_slot),
+                     incomplete=out['incomplete'])
         stats = {k: v.to(torch.int64) for k, v in stats.items()}
         if group is not None:
             stats = psum(stats, group)
@@ -248,6 +256,9 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
         return stats
 
     meta = _sweep_fingerprint(mp, model, batch, seed, cfg, init_regs, n_dp)
+    if outcome_slot is not None:
+        # a sweep without the histogram keeps the identity it had
+        meta['outcome_slot'] = int(outcome_slot)
     acc = _accumulate(step, meta, n_batches, batch, checkpoint,
                       checkpoint_every, span, strict_resume)
     shots_done = acc.n_batches * batch
@@ -262,7 +273,7 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
               in zip(FAULT_CODES, acc.state['fault_shots'])}
     if strict and any(faults.values()):
         raise FaultError(acc.state['fault_shots'])
-    return {
+    res = {
         'shots': shots_done,
         'engine': resolve_engine(mp, cfg, device),
         'mean_pulses': acc.state['pulse_sum'] / shots_done,
@@ -274,6 +285,10 @@ def run_physics_sweep(mp, model, total_shots: int, batch: int,
         'fault_shots': faults,
         'incomplete_batches': incomplete,
     }
+    if outcome_slot is not None:
+        res['outcome_counts'] = np.asarray(acc.state['outcome_counts'],
+                                           np.int64).copy()
+    return res
 
 
 def _bernoulli_bits(seed: int, shape: tuple, p1, device) -> torch.Tensor:

@@ -46,6 +46,7 @@ from ..sim.interpreter import (FAULT_CODES, FaultError, InterpreterConfig,
                                ensemble_config, fault_shot_counts,
                                make_span_runner, resolve_engine,
                                simulate_multi_batch, torch_device)
+from ..sim.device import STATEVEC_MAX_CORES
 from ..sim.physics import derive_seed, run_physics_batch
 from .mesh import all_ranks, axis, gather_cat, psum
 
@@ -54,18 +55,27 @@ from .mesh import all_ranks, axis, gather_cat, psum
 _SCALAR_KEYS = ('steps', 'incomplete', 'op_hist')
 
 
-def physics_batch_stats(out: dict) -> dict:
+def physics_batch_stats(out: dict, outcome_slot: int = None) -> dict:
     """The per-batch reductions of a :func:`..sim.physics.run_physics_batch`
     result: per-core pulse sums, first-slot measured-1 sums, errored
     shots, per-code faulted shots, and the JOINT all-zeros count over
     clean shots (``allzero_sum``, the survival numerator of multi-qubit
     RB) with its denominator ``clean_shots`` — a shot is clean when no
-    core has an error bit and every core's first slot was resolved."""
+    core has an error bit and every core's first slot was resolved.
+    Slot 0 is each core's first read: in a program that starts with an
+    active reset it is the reset's read, not the experiment's.
+
+    ``outcome_slot``: also reduce ``outcome_counts``, the int64 ``[2^C]``
+    histogram of the joint bits of that measurement slot (core ``c`` is
+    bit ``c`` of the bin) over the clean shots whose slot is resolved on
+    every core (:func:`outcome_counts`); a negative slot counts back from
+    each core's last resolved read (-1: the last).  Without it the
+    reduction is the one above, op for op."""
     with host_span('sweep.stats'):
         first = out['meas_bits'][:, :, 0]
         errored = (out['err'] != 0).any(dim=1)
         clean = ~errored & out['meas_bits_valid'][:, :, 0].all(dim=1)
-        return dict(
+        stats = dict(
             pulse_sum=out['n_pulses'].sum(0),
             meas1_sum=first.sum(0),
             allzero_sum=((first == 0).all(dim=1) & clean).sum(),
@@ -73,6 +83,42 @@ def physics_batch_stats(out: dict) -> dict:
             err_shots=errored.sum(),
             fault_shots=fault_shot_counts(out['fault']),
         )
+        if outcome_slot is not None:
+            stats['outcome_counts'] = outcome_counts(out, outcome_slot,
+                                                     clean)
+        return stats
+
+
+def outcome_counts(out: dict, slot: int, clean) -> torch.Tensor:
+    """The int64 ``[2^C]`` histogram of the joint bits of measurement
+    ``slot`` over the shots of ``clean [B]`` whose slot is resolved on
+    every core: bin ``sum_c bit_c << c``.  A negative ``slot`` counts
+    back from each (shot, core)'s last resolved read.  One packed-bits
+    bincount on the device, as a scatter-add into ``2^C + 1`` bins (the
+    last takes the shots not counted), so that nothing is read back to
+    size the output; ``C`` is capped at
+    :data:`..sim.device.STATEVEC_MAX_CORES`."""
+    bits, valid = out['meas_bits'], out['meas_bits_valid']
+    B, C, M = bits.shape
+    if C > STATEVEC_MAX_CORES:
+        raise ValueError(f'outcome_counts bins 2^{C} joint outcomes; at '
+                         f'most {STATEVEC_MAX_CORES} cores are binned')
+    if not -M <= slot < M:
+        raise ValueError(f'outcome_slot {slot} outside the {M} '
+                         f'measurement slots')
+    if slot >= 0:
+        b, ok = bits[:, :, slot], valid[:, :, slot]
+    else:
+        idx = valid.sum(-1, keepdim=True) + slot               # [B, C, 1]
+        at = idx.clamp(0, M - 1)
+        b = bits.gather(2, at)[..., 0]
+        ok = (idx >= 0)[..., 0] & valid.gather(2, at)[..., 0]
+    weights = 1 << torch.arange(C, device=bits.device)
+    code = ((b != 0).to(torch.int64) * weights).sum(1)
+    code = torch.where(clean & ok.all(1), code, 1 << C)
+    hist = torch.zeros((1 << C) + 1, dtype=torch.int64, device=bits.device)
+    hist.scatter_add_(0, code, torch.ones_like(code))
+    return hist[:1 << C]
 
 
 def multi_batch_stats(out: dict) -> dict:

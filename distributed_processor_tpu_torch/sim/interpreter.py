@@ -1363,6 +1363,7 @@ def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
         is_cr = is_cr | (mk[:, None] & (core == cc)[None, :])
     is_1q = is_drive & ~is_cr
     touch = is_drive | is_meas
+    counter_inc('statevec.steps')
     cofire_err = 0
     if couplings:
         cofire_err = _statevec_cofire(couplings, cp_masks, leaked, has_leak,
@@ -1815,7 +1816,13 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
         eye = torch.eye(C, dtype=torch.bool, device=dev)
         pt_ok = ((trig_e[:, :, None] <= fr[:, None, :])
                  | ~live[:, None, :] | eye[None]).all(-1)
-        stalled = stalled | (is_ptk & live & ~pt_ok)
+        held = is_ptk & live & ~pt_ok
+        stalled = stalled | held
+        # the gate's device counters, per (shot, core) and reduced once a
+        # batch by sim.physics.run_physics_batch: core-steps it held, over
+        # live core-steps
+        dm['gate_stall'] += held
+        dm['core_steps'] += live
     adv = live & ~stalled                     # cores executing this step
 
     # ---- pulse-register latch + trigger --------------------------------
@@ -1894,9 +1901,10 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             cw_meas_err = _bit(is_meas_pulse & (env_len == 0xfff), ERR_CW_MEAS)
         slot = st['n_meas'].clamp(max=cfg.max_meas - 1)
         if cfg.device == 'statevec':
-            dev_upd, state_bit, cofire_err = _statevec_pulse(
-                st, cfg, dm, step_i, fire, elem, pp, trig, slot,
-                is_meas_pulse)
+            with host_span('statevec.apply'):
+                dev_upd, state_bit, cofire_err = _statevec_pulse(
+                    st, cfg, dm, step_i, fire, elem, pp, trig, slot,
+                    is_meas_pulse)
         else:
             dev_upd, state_bit = _device_1q_pulse(
                 st, cfg, dm, fire, elem, pp, trig, slot, is_meas_pulse)

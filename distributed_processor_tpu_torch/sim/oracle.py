@@ -135,12 +135,14 @@ def _pulse_dur_clks(env_word: int, spc: int, interp: int) -> int:
 def run_oracle(mp, meas_bits=None, fpga_config=None, fabric: str = 'sticky',
                meas_elem: int = 2, meas_latency: int = MEAS_LATENCY,
                lut_mask=None, lut_table=None,
-               max_steps: int = 100000) -> dict:
+               max_steps: int = 100000, consumed: set = None) -> dict:
     """Execute a decoded :class:`~..decoder.MachineProgram` scalar-style.
 
     ``meas_bits``: int array ``[n_cores, n_meas]`` — the discriminated bit
     produced by each core's n-th readout pulse (the testbench-injection
-    strategy of the reference's cocotb suite).
+    strategy of the reference's cocotb suite).  ``consumed``: a set the
+    run adds the ``(core, slot)`` of every bit a read serves to (the
+    reads whose outcome the program's control flow depends on).
     """
     from ..hwconfig import FPGAConfig
     cfg = fpga_config or FPGAConfig()
@@ -162,6 +164,8 @@ def run_oracle(mp, meas_bits=None, fpga_config=None, fabric: str = 'sticky',
     def _fresh(core: OracleCore, prod: OracleCore, req: int):
         for m, t in enumerate(prod.meas_avail):
             if t > req:
+                if consumed is not None:
+                    consumed.add((cores.index(prod), m))
                 bit = 0 if m >= meas_bits.shape[1] \
                     else int(meas_bits[cores.index(prod), m])   # zero-pad
                 return True, bit, max(req, t)
@@ -198,6 +202,8 @@ def run_oracle(mp, meas_bits=None, fpga_config=None, fabric: str = 'sticky',
                 cnt = sum(1 for t in cores[i].meas_trig if t < req)
                 m = max(cnt, 1) - 1
                 slots.append((i, m))
+                if consumed is not None:
+                    consumed.add((i, m))
                 if m >= meas_bits.shape[1]:
                     bit = 0               # zero-pad (see module doc)
                 else:
@@ -216,6 +222,8 @@ def run_oracle(mp, meas_bits=None, fpga_config=None, fabric: str = 'sticky',
                    for t in prod.meas_avail):
                 core.err.append('sticky_race')
             m = sum(1 for t in prod.meas_avail if t <= req)
+            if consumed is not None and m > 0:
+                consumed.add((func_id, m - 1))
             data = int(meas_bits[func_id, m - 1]) \
                 if 0 < m <= meas_bits.shape[1] else 0   # zero-pad past budget
             return True, data, req

@@ -641,10 +641,12 @@ def _device_params(mp, model: ReadoutPhysics, seed: int, shots: int, M: int,
     """The device-model parameters the engines read (None for parity):
     per-core per-clock detuning and decay rates, the depolarizing keep
     factor, the measurement uniforms and, for statevec, the 2q, leakage
-    and seepage rates, the trajectory seed and the static channel
+    and seepage rates, the trajectory seed, the static channel
     facts (:meth:`~.device.DeviceModel.statevec_static` plus whether
-    leaked cores read out at the IQ level).  Scalars are float32 values,
-    as the JAX package traces them."""
+    leaked cores read out at the IQ level) and the event gate's two
+    int32 ``[shots, n_cores]`` device counters (``gate_stall``,
+    ``core_steps``).  Scalars are
+    float32 values, as the JAX package traces them."""
     d = model.device
     if d.kind == 'parity':
         return None
@@ -675,7 +677,12 @@ def _device_params(mp, model: ReadoutPhysics, seed: int, shots: int, M: int,
                   leak2=float(f32(d.leak2_per_pulse)),
                   seep=float(f32(d.seep_per_pulse)),
                   traj_seed=derive_seed(seed, TRAJ_WORD),
-                  static=d.statevec_static() + (model.g2 is not None,))
+                  static=d.statevec_static() + (model.g2 is not None,),
+                  # the event gate's counters, summed on the device
+                  gate_stall=torch.zeros((shots, C), dtype=torch.int32,
+                                         device=device),
+                  core_steps=torch.zeros((shots, C), dtype=torch.int32,
+                                         device=device))
     return dm
 
 
@@ -751,7 +758,12 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
     device co-state: ``qturns`` (parity); ``bloch`` ``[shots, n_cores,
     3]`` (bloch) or ``psi`` ``[shots, 2^n_cores]`` and ``leaked``
     (statevec), with ``meas_p1`` (pre-projection P(1) per slot) and
-    ``phys_t``; with ``classify3``, ``meas_class``.  Tensors on
+    ``phys_t``; with ``classify3``, ``meas_class``.  A statevec run also
+    returns the discrete-event gate's int64 device counters:
+    ``gate_stall_steps``, the (shot, core) steps the gate held a pulse
+    trigger, and ``live_core_steps``, the (shot, core) steps live in all
+    (both 0 without couplings, where no gate runs); they are summed on
+    the device and read with the run's other outputs.  Tensors on
     ``device``."""
     with host_span('physics.batch', 'shots', shots) as batch:
         with host_span('physics.prepare'):
@@ -775,6 +787,7 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
             path = exec_path(mp, cfg, eng, device)
             batch.arg('engine', eng)
             batch.arg('exec', path)
+            batch.arg('device', model.device.kind)
             if eng == 'fused':
                 _fused_blockers(model, _static_meas_env_addrs(mp))
             soa, spc, interp, sync_part = _program_constants(mp, device)
@@ -914,6 +927,11 @@ def run_physics_batch(mp, model: ReadoutPhysics, seed: int, shots: int,
                                              device=device)
             if cls is not None:
                 out['meas_class'] = cls
+            if model.device.kind == 'statevec':
+                out['gate_stall_steps'] = dm['gate_stall'].sum(
+                    dtype=torch.int64)
+                out['live_core_steps'] = dm['core_steps'].sum(
+                    dtype=torch.int64)
             if strict:
                 with host_span('physics.wait'):
                     out = _check_strict(out, strict)

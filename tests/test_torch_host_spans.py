@@ -233,7 +233,8 @@ def rb3():
 @pytest.mark.parametrize('fault_mode', ['count', 'strict'])
 def test_physics_batch_taxonomy(rb3, fault_mode):
     """``run_physics_batch`` and ``physics_batch_stats``: one
-    ``physics.batch`` (shots, engine, exec) over ``physics.prepare``, one
+    ``physics.batch`` (shots, engine, exec, device) over
+    ``physics.prepare``, one
     ``physics.epoch`` per check of the loop, each over a
     ``physics.wait`` and, but for the last, ``physics.exec`` and
     ``physics.resolve``, and ``physics.finalize`` (over the strict
@@ -256,7 +257,7 @@ def test_physics_batch_taxonomy(rb3, fault_mode):
     batch, = got['physics.batch']
     assert batch['parent'] is None
     assert batch['args'] == {'shots': 16, 'engine': 'straightline',
-                             'exec': 'plain'}
+                             'exec': 'plain', 'device': 'parity'}
     epochs = int(out['epochs'])
     kids = _children(spans, batch)
     assert kids == (['physics.prepare'] + ['physics.epoch'] * (epochs + 1)

@@ -200,7 +200,9 @@ def test_cpu_run_takes_the_plain_pass(rb3, _empty_ring, case):
     batch, = [s for s in HOST_SPANS.spans() if s['name'] == 'physics.batch']
     eng = 'straightline' if case in ('parity', 'bloch', 'cw_horizon') \
         else 'generic'
-    assert batch['args'] == {'shots': 8, 'engine': eng, 'exec': 'plain'}
+    kind = case if case in ('bloch', 'statevec') else 'parity'
+    assert batch['args'] == {'shots': 8, 'engine': eng, 'exec': 'plain',
+                             'device': kind}
     assert bool(out['done'].all())
 
 
