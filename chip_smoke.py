@@ -29,7 +29,11 @@ Phases, in order (any failure exits nonzero):
    generic engine at sigma = 0, with both times; K3's physics pass with
    its readout left to K2 (the main path's exec hop) against the
    straight-line engine's eager pass, both passes of a headline batch,
-   with both times; the
+   with both times; the statevec step (``ops.statevec.statevec_pulse``,
+   ``csrc/statevec.cu``: one launch a step of the generic engine's
+   statevec block) against the eager block on one step of 131072 shots
+   on 8 cores with the parity scan's channels, both timed beside the
+   kernel's bound; the
    waveform kernel K4 rendering every (core, element) trace of a headline
    shot in one launch, and a 1,048,576-sample capture (64 seeded pulses,
    one CW, one overrunning its table, interp 1 and 16) as a one-trace
@@ -83,8 +87,9 @@ Phases, in order (any failure exits nonzero):
    bits identical to the finite program's), the bloch path (the headline
    with the Bloch device on the straight-line engine + K2, then card =
    CPU at 4096 shots) and the statevec path (GHZ-8 on the generic engine
-   + K2, shot-exact parity; 2-qubit interleaved RB with leakage and
-   IQ-level 3-class readout at 262144 shots), each with its steady
+   + K2, one statevec kernel launch a step, shot-exact parity; 2-qubit
+   interleaved RB with leakage and IQ-level 3-class readout at 262144
+   shots), each with its steady
    batch's wall, epochs, K2 launches and device ms and the device's idle
    share; then the program-ensemble path (16 distinct random RB
    sequences, 8 qubits, depth 12, as one ``simulate_multi_batch`` over
@@ -509,15 +514,17 @@ def phase_selftest(env) -> None:
     (``ops.selftest``) on the card, on the JAX package's own inputs and
     tolerances: K5 and K4 against their plain versions, K1 span, K1 block
     and K3 against the generic engine, K3's physics pass with its readout
-    left to K2 against the straight-line engine's eager pass.  Each check
-    runs alone, with its wall time and the launches it made, then
+    left to K2 against the straight-line engine's eager pass, the statevec
+    step against the eager statevec block.  Each check runs alone, with
+    its wall time and the launches it made, then
     ``kernel_parity_check('cuda')`` runs them all again and must launch
-    all six kernels."""
+    all seven kernels."""
     from distributed_processor_tpu_torch.ops import selftest
     names = (('exec_span', 'K1 span'), ('exec_blocks', 'K1 block'),
              ('exec_span_fused', 'K3'),
              ('exec_span_physics', 'K3 physics pass'),
-             ('render_shot', 'K4'), ('demod_iq', 'K5'))
+             ('render_shot', 'K4'), ('demod_iq', 'K5'),
+             ('statevec_pulse', 'SV'))
 
     def run(fn) -> tuple:
         _reset_launches()
@@ -533,14 +540,15 @@ def phase_selftest(env) -> None:
     for label, fn in (('K5 demod', selftest.check_demod_parity),
                       ('K4 render', selftest.check_waveform_parity),
                       ('K1 span, K1 block, K3, K3 physics pass',
-                       selftest.check_exec_parity)):
+                       selftest.check_exec_parity),
+                      ('SV statevec step', selftest.check_statevec_parity)):
         wall, _counts, text = run(fn)
         print(f'self-test {label} ({fn.__name__}): {wall * 1e3:.1f} ms '
               f'wall, launches {text}, on {env["smi"]}')
     wall, counts, text = run(selftest.kernel_parity_check)
     check(all(counts[k] > 0 for k, _ in names),
           f'kernel_parity_check launched {counts}')
-    print(f'self-test kernel_parity_check({DEV!r}), all three again: '
+    print(f'self-test kernel_parity_check({DEV!r}), all four again: '
           f'{wall * 1e3:.1f} ms wall, launches {text}: every kernel held '
           f'to its plain version on {env["smi"]}')
     _reset_launches()
@@ -872,12 +880,13 @@ def _wrappers() -> dict:
         exec_blocks, exec_span, exec_span_fused, exec_span_physics)
     from distributed_processor_tpu_torch.ops.resolve import \
         resolve_windows_fused
+    from distributed_processor_tpu_torch.ops.statevec import statevec_pulse
     from distributed_processor_tpu_torch.ops.waveform import render_shot
     return {'resolve_windows': resolve_windows_fused,
             'exec_span': exec_span, 'exec_span_fused': exec_span_fused,
             'exec_span_physics': exec_span_physics,
             'render_shot': render_shot, 'demod_iq': demod_iq,
-            'exec_blocks': exec_blocks}
+            'exec_blocks': exec_blocks, 'statevec_pulse': statevec_pulse}
 
 
 def _reset_launches():
@@ -1237,6 +1246,76 @@ def phase_k3_physics(mp, env) -> dict:
                 plain_ms=mean[2], bound_ms=mean[3],
                 bound_by='operations' if mean[4] >= mean[5] else 'bytes',
                 library_ms=None)
+
+
+def phase_statevec_kernel(env) -> dict:
+    """The statevec step (``ops.statevec.statevec_pulse``,
+    ``csrc/statevec.cu``) against the eager statevec block
+    (``sim.interpreter._statevec_pulse``) on one step of the parity
+    scan's size: 131072 shots on 8 cores with its channels (T1 and T2,
+    1q and 2q Paulis, zx couplings), each core firing with probability
+    1/4, from the same state and the same uniforms.  Shots whose
+    decisions differ (a uniform within rounding of its threshold, which
+    float32 rounding makes rare: well under one of the step's millions
+    of decisions) are counted and may be at most 8; every other output
+    as ``ops.selftest.statevec_step_diff`` holds it.  Timed as the parity
+    scan runs it, CUDA events around the wrapper (the uniforms' draw
+    included) and the kernel's device time under the profiler, beside
+    the plain block's time and the bound: every operand byte read once
+    and every output byte written once at the card's HBM rate, of which
+    psi's 0.537 GB, read and written, is 0.160 ms."""
+    import torch
+    from distributed_processor_tpu_torch.ops.selftest import (
+        statevec_step_diff, statevec_step_inputs)
+    from distributed_processor_tpu_torch.ops.statevec import statevec_pulse
+    from distributed_processor_tpu_torch.sim.interpreter import (
+        _statevec_pulse, _statevec_traj_u)
+    B, C = STATEVEC['ghz_batch'], STATEVEC['ghz_qubits']
+    st, cfg, dm, args = statevec_step_inputs(
+        B, C, DEV, seed=61, channels=('decay', 'dp1', 'dp2', 'zx'),
+        fire_p=0.25)
+    traj_u = _statevec_traj_u(dm, 0, B, C, DEV)
+    before = statevec_pulse.launches
+    got = statevec_pulse(st, cfg, dm, traj_u, *args)
+    want = _statevec_pulse(st, cfg, dm, traj_u, *args)
+    sync()
+    check(statevec_pulse.launches == before + 1,
+          'statevec step: the wrapper did not launch once')
+    differ = statevec_step_diff(got, want)
+    check(len(differ) <= 8,
+          f'statevec step: {len(differ)} shots decided otherwise')
+    same = torch.ones(B, dtype=torch.bool, device=DEV)
+    same[differ] = False
+    worst = float((got[0]['psi'][same] - want[0]['psi'][same]).abs().max())
+    del got, want
+
+    def step(pulse):
+        # as the engine's step runs either path: the uniforms' draw, then
+        # the block
+        return lambda: pulse(st, cfg, dm, _statevec_traj_u(dm, 0, B, C, DEV),
+                             *args)
+    ms = cuda_time_ms(step(statevec_pulse), reps=20)
+    dev_ms = _kernel_ms(step(statevec_pulse), reps=20, match='statevec_step')
+    plain_ms = cuda_time_ms(step(_statevec_pulse), reps=2)
+    nu = traj_u.shape[2]
+    outs = B * C * (1 + 4 + 4 + 4) + B * C * cfg.max_meas * 4 \
+        + st['psi'].numel() * 8
+    nbytes = _nbytes(*st.values(), *args, dm['meas_u'], dm['det'],
+                     dm['inv_t1'], dm['inv_t2']) + B * C * nu * 4 + outs
+    psi_bytes = 2 * st['psi'].numel() * 8
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f'statevec step at B={B} C={C} ({len(differ)} shots decided '
+          f'otherwise, max |psi err| {worst:.3g} elsewhere): kernel '
+          f'{ms:.4f} ms events / {_device_note(dev_ms)} ms device, plain '
+          f'{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes '
+          f'{nbytes / 1e9:.3f} GB; psi alone {psi_bytes / 1e9:.3f} GB = '
+          f'{psi_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms) on {env["smi"]}')
+    return dict(name='statevec_pulse', route='cuda',
+                source='distributed_processor_tpu_torch/csrc/statevec.cu',
+                replaces='none: the JAX package runs the statevec block in '
+                'XLA (distributed_processor_tpu/sim/interpreter.py _step)',
+                max_abs_err=worst, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by='bytes', library_ms=None)
 
 
 def _block_launch_inputs(mp, bits, cfg) -> list:
@@ -2559,12 +2638,13 @@ def _physics_batch(mp, model, seed: int, B: int, cfg, device=None,
                              device=device or DEV, **kw)
 
 
-def _steady(label: str, run, env, k2_expected: bool = True) -> dict:
+def _steady(label: str, run, env, k2_expected: bool = True,
+            others: tuple = ('exec_span_physics',)) -> dict:
     """One warm batch, then one timed batch with every launch count set
     to 0 just before it, then one under the profiler: the wall, epochs,
     steps and launches of the timed batch, K2's device ms and the
-    device's busy share.  Returns the timed batch's outputs and
-    numbers."""
+    device's busy share; no wrapper but K2 and ``others`` may launch.
+    Returns the timed batch's outputs and numbers."""
     int(run(0)['epochs'])
     _reset_launches()
     sync()
@@ -2586,7 +2666,7 @@ def _steady(label: str, run, env, k2_expected: bool = True) -> dict:
               f'{label}: K2 launched {k2} times in {epochs} epochs')
     else:
         check(k2 == 0, f'{label}: K2 launched {k2} times')
-    check(_only_launched(counts, 'resolve_windows', 'exec_span_physics'),
+    check(_only_launched(counts, 'resolve_windows', *others),
           f'{label}: other kernels launched: {counts}')
     pwall, kernels = device_kernel_times(lambda: int(run(2)['epochs']))
     busy = sum(us for us, _n in kernels.values()) / 1e6
@@ -2767,12 +2847,15 @@ def phase_bloch_path(mp, env) -> int:
     return launches
 
 
-def phase_statevec_path(env) -> int:
+def phase_statevec_path(env) -> tuple:
     """The statevec device on the generic engine plus K2: GHZ-8 through
     the compiled CNOT chain (the event gate, 7 couplings) at sigma = 0,
     every shot's 8 bits equal; then 2-qubit interleaved RB with
     coupling-induced leakage, 2q depolarization and IQ-level 3-class
-    readout at 262144 shots.  Returns K2's launches in the RB run."""
+    readout at 262144 shots.  Each engine step's statevec block is one
+    launch of the statevec kernel (its launches = the steps =
+    ``statevec.kernel_steps``).  Returns K2's launches in the RB run and
+    the statevec kernel's in the GHZ-8 batch."""
     import numpy as np
     from distributed_processor_tpu_torch import compile_to_machine
     from distributed_processor_tpu_torch.models import (
@@ -2797,8 +2880,10 @@ def phase_statevec_path(env) -> int:
     B = STATEVEC['ghz_batch']
     init = np.zeros((B, n), np.int32)
     res = _steady(f'statevec GHZ-{n}', lambda k: _physics_batch(
-        mp, model, 5000 + k, B, cfg, init_states=init), env)
+        mp, model, 5000 + k, B, cfg, init_states=init), env,
+        others=('statevec_pulse',))
     out = res['out']
+    sv_launches = _statevec_launches(f'GHZ-{n}', res)
     bits = out['meas_bits'][:, :, 0]
     check(not bool(out['err'].any()), f'GHZ-{n}: errored shots')
     check(bool((bits == bits[:, :1]).all()),
@@ -2826,8 +2911,9 @@ def phase_statevec_path(env) -> int:
     res = _steady(f"statevec 2q interleaved RB depth {STATEVEC['rb_depth']}"
                   f" ({info['n_cz']} CZ), leakage + IQ 3-class",
                   lambda k: _physics_batch(mp2, model2, 5100 + k, B2, cfg2),
-                  env)
+                  env, others=('statevec_pulse',))
     out = res['out']
+    _statevec_launches('2q RB', res)
     check(not bool(out['err'].any()), '2q RB: errored shots')
     leaked = float(out['leaked'].float().mean())
     fired = torch_arange(cfg2.max_meas) < out['n_meas'][..., None]
@@ -2836,7 +2922,18 @@ def phase_statevec_path(env) -> int:
     check(leaked > 0 and cls2 > 0, f'2q RB: no leakage seen ({leaked})')
     print(f"statevec 2q RB: {B2} shots, leaked {leaked:.5f} per core, class "
           f'2 {cls2:.5f} of readouts, survival {surv:.5f}')
-    return res['epochs']
+    return res['epochs'], sv_launches
+
+
+def _statevec_launches(label: str, res: dict) -> int:
+    """The statevec kernel's launches in a steady batch of ``_steady``:
+    one an engine step, and as many ``statevec.kernel_steps``."""
+    n = res['counts']['statevec_pulse']
+    steps = int(res['out']['steps'])
+    check(n == steps > 0, f'statevec {label}: {n} kernel launches in '
+          f'{steps} steps')
+    print(f'statevec {label}: {n} statevec kernel launches, one a step')
+    return n
 
 
 def _wall_median(fn, reps: int = 3) -> float:
@@ -5220,6 +5317,8 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     k3_phys = timed(phase_k3_physics, mp, env)
     torch.cuda.empty_cache()
+    sv = timed(phase_statevec_kernel, env)
+    torch.cuda.empty_cache()
     from distributed_processor_tpu_torch import Simulator
     sim = Simulator(n_qubits=HEADLINE['n_qubits'], device=DEV)
     k4 = timed(phase_k4, sim, render_run(sim, mp, 256, seed=50), env)
@@ -5240,7 +5339,7 @@ def main(argv: list) -> int:
     resolve_ar1['launches'] = timed(phase_readout_models, mp, env)
     timed(phase_bloch_path, mp, env)
     torch.cuda.empty_cache()
-    timed(phase_statevec_path, env)
+    _rb_k2, sv['launches'] = timed(phase_statevec_path, env)
     torch.cuda.empty_cache()
     timed(phase_multi_path, env)
     torch.cuda.empty_cache()
@@ -5320,7 +5419,7 @@ def main(argv: list) -> int:
     print(json.dumps({'kernels': [{k: kernel[k] for k in order}
                                   for kernel in (resolve, resolve_ar1, k1,
                                                  k3, k3_phys, k4, k5,
-                                                 k1_block)]}))
+                                                 k1_block, sv)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -50,10 +50,14 @@ PERF.md section 3 names the benchmark metric that reads each):
                         ``physics.wait``,
                         ``physics.exec`` and ``physics.resolve``, and
                         ``physics.finalize``
-    ``statevec.apply``  ``sim.interpreter._statevec_pulse``, once a step of
-                        the generic engine on the statevec device (under
-                        ``physics.exec``): the 1q, coupling, noise and
-                        collapse updates the step enqueues
+    ``statevec.apply``  ``sim.interpreter._step``'s statevec block, once
+                        a step of the generic engine on the statevec
+                        device (under ``physics.exec``): the uniforms'
+                        draw, then on the card one launch of
+                        ``csrc/statevec.cu``
+                        (``ops.statevec.statevec_pulse``), elsewhere the
+                        eager block's 1q, coupling, noise and collapse
+                        updates (``_statevec_pulse``)
     ``sweep.stats``     ``parallel.sweep.physics_batch_stats``
     ``rounds.call``     ``sim.interpreter.simulate_rounds``, over
                         ``rounds.prepare``, ``rounds.exec``,
@@ -71,11 +75,12 @@ PERF.md section 3 names the benchmark metric that reads each):
 
 The ``*.wait`` spans nest under the span whose work they interrupt.
 
-The statevec block's counter (``utils.profiling``, on the host, one
+The statevec block's counters (``utils.profiling``, on the host, one
 increment a step, no device read): ``statevec.steps``, the engine steps
-it took; each enqueues the same updates (C 1q, one a coupling, C
-measurement).  On the device, ``run_physics_batch`` returns the event
-gate's ``gate_stall_steps`` and ``live_core_steps``.
+it took, and ``statevec.kernel_steps``, those that ran as the kernel
+(all of them on the card, none on the CPU).  On the device,
+``run_physics_batch`` returns the event gate's ``gate_stall_steps`` and
+``live_core_steps``.
 """
 
 from __future__ import annotations

@@ -51,9 +51,11 @@ Scope: physics mode on every device co-state of :mod:`.device` — the
 parity counter and the Bloch vector (:func:`_device_1q_pulse`, shared by
 every engine) and the entangling state vector (:func:`_statevec_pulse`,
 the generic engine only, behind the discrete-event gate of
-:func:`_step`) — and the ``'sticky'``, ``'fresh'`` and ``'lut'`` fabrics
-(the last: the time-indexed syndrome LUT of hdl/fproc_lut.sv +
-meas_lut.sv, over a ``meas_time`` plane of production clocks).
+:func:`_step`; on a CUDA state one launch of ``csrc/statevec.cu`` a
+step, :func:`..ops.statevec.statevec_pulse`) — and the ``'sticky'``,
+``'fresh'`` and ``'lut'`` fabrics (the last: the time-indexed syndrome
+LUT of hdl/fproc_lut.sv + meas_lut.sv, over a ``meas_time`` plane of
+production clocks).
 ``trace=True`` records every step's pc, time and qclk origin per lane
 (``trace_pc``, ``trace_time``, ``trace_off`` ``[B, C, max_steps]``) on
 the generic engine, which the ladder forces for it, as in the JAX
@@ -79,6 +81,7 @@ from ..obs.trace import host_span
 from ..ops.decode import as_decode_spec, decode_history
 from ..ops.exec_span import (block_table, exec_blocks, exec_span,
                              lut_min_read, span_table)
+from ..ops.statevec import statevec_pulse, takes_kernel
 from ..ops.waveform import PHASE_BITS
 from ..utils.profiling import counter_get, counter_inc
 from .device import DEVICE_KINDS, STATEVEC_MAX_CORES
@@ -1257,6 +1260,28 @@ def _traj_uniforms(seed: int, step: int, shape: tuple, device):
     return torch.rand(shape, generator=gen, device=device)
 
 
+def _statevec_traj_u(dm, step_i: int, B: int, C: int, device):
+    """The statevec block's trajectory uniforms of one instruction step,
+    drawn once for whichever path runs the block (the eager
+    :func:`_statevec_pulse` or the kernel of
+    :func:`..ops.statevec.statevec_pulse`): ``[B, C, n]`` float32 of
+    :func:`_traj_uniforms`, per (shot, core) the T1 jump, the dephasing
+    flip, the 1q Pauli's occurrence and pick, the 2q Pauli's occurrence
+    and pick, then one for leakage and one for seepage where those are
+    on; None where no stochastic channel is on."""
+    if dm is None:
+        raise ValueError(
+            "device='statevec' needs device-model parameters; "
+            "run it via sim.physics.run_physics_batch")
+    (_cps, _det, has_decay, has_dp1, has_dp2, has_leak, _leak_bit,
+     _leak1, _leak2, has_seep, _leak_iq) = dm['static']
+    if not (has_decay or has_dp1 or has_dp2 or has_leak):
+        return None
+    return _traj_uniforms(
+        dm['traj_seed'], step_i,
+        (B, C, 6 + (1 if has_leak else 0) + (1 if has_seep else 0)), device)
+
+
 def _norm2(psi):
     return psi.real ** 2 + psi.imag ** 2
 
@@ -1324,7 +1349,7 @@ def _statevec_cofire(couplings, cp_masks, leaked, has_leak, fire, trig,
     return _bit(torch.stack(cols, dim=-1), ERR_COFIRE_ORDER)
 
 
-def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
+def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, traj_u,
                     fire, elem, pp, trig, slot, is_meas):
     """The statevec device at one instruction step (the JAX ``_step``
     statevec block): one ``[B, 2^C]`` trajectory per shot.  In order:
@@ -1334,8 +1359,8 @@ def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
     pulses (ZX cross-resonance or ZZ) with 2q depolarization and
     coupling-induced leakage of the control, (5) joint projective
     measurement, sequentially conditioned across cores, then seepage.
-    Stochastic channels draw this step's uniforms
-    (:func:`_traj_uniforms`).  Returns ``(updates, state_bit,
+    Stochastic channels read this step's uniforms ``traj_u``
+    (:func:`_statevec_traj_u`).  Returns ``(updates, state_bit,
     cofire_err)``; with IQ-level leakage readout a leaked core records
     state 2 for the resolver."""
     if dm is None:
@@ -1363,16 +1388,11 @@ def _statevec_pulse(st: dict, cfg: InterpreterConfig, dm, step_i: int,
         is_cr = is_cr | (mk[:, None] & (core == cc)[None, :])
     is_1q = is_drive & ~is_cr
     touch = is_drive | is_meas
-    counter_inc('statevec.steps')
     cofire_err = 0
     if couplings:
         cofire_err = _statevec_cofire(couplings, cp_masks, leaked, has_leak,
                                       fire, trig, is_1q, is_meas, pp)
     dt = torch.where(touch, (trig - st['phys_t']).to(f32), 0.0)
-    if has_decay or has_dp1 or has_dp2 or has_leak:
-        traj_u = _traj_uniforms(
-            dm['traj_seed'], step_i,
-            (B, C, 6 + (1 if has_leak else 0) + (1 if has_seep else 0)), dv)
     # (1) free evolution: detuning precession, one diagonal Rz
     if has_det:
         alpha = (2 * np.pi) * dm['det'][None, :] * dt
@@ -1901,10 +1921,16 @@ def _step(st: dict, soa, spc, interp, sync_part, meas_bits, meas_valid,
             cw_meas_err = _bit(is_meas_pulse & (env_len == 0xfff), ERR_CW_MEAS)
         slot = st['n_meas'].clamp(max=cfg.max_meas - 1)
         if cfg.device == 'statevec':
+            # one kernel launch on a CUDA state, the eager block on any
+            # other; both read the same uniforms
             with host_span('statevec.apply'):
-                dev_upd, state_bit, cofire_err = _statevec_pulse(
-                    st, cfg, dm, step_i, fire, elem, pp, trig, slot,
-                    is_meas_pulse)
+                counter_inc('statevec.steps')
+                pulse = statevec_pulse if takes_kernel(st['psi'].device) \
+                    else _statevec_pulse
+                dev_upd, state_bit, cofire_err = pulse(
+                    st, cfg, dm, _statevec_traj_u(dm, step_i, *fire.shape,
+                                                  fire.device),
+                    fire, elem, pp, trig, slot, is_meas_pulse)
         else:
             dev_upd, state_bit = _device_1q_pulse(
                 st, cfg, dm, fire, elem, pp, trig, slot, is_meas_pulse)
